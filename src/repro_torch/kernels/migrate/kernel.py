@@ -1,0 +1,42 @@
+"""Launcher of the fused page-move commit CUDA kernel (``csrc/selection.cu``).
+
+``commit_moves_cuda`` replaces ``repro/kernels/migrate/kernel.py``
+``commit_moves_tpu``: one thread block walks the compact [N = T·k] move
+stream twice — a count of the taken lanes, then a chunked exclusive scan
+that hands each taken lane its ring offset — and commits the tier store and
+the packed ring row in the same pass. Bound by device-memory bytes (the
+stream, the touched tier words and ring rows); a single block suffices
+because N is a few tens of thousands of lanes. ``tier`` and ``ring_data``
+are updated in place, as the TPU kernel aliases them; ``head`` stays on the
+device and the new head is written by the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import check_cuda, load_library, stream_of
+
+
+def commit_moves_cuda(tier, ring_data, head, pages, take, tenants, hot_bits,
+                      t: int, *, direction: int, to_tier: int):
+    check_cuda(tier, torch.int32, 1, "tier")
+    check_cuda(ring_data, torch.int32, 2, "ring_data")
+    check_cuda(head, torch.int32, 0, "head")
+    check_cuda(pages, torch.int32, 1, "pages")
+    check_cuda(take, torch.bool, 1, "take")
+    check_cuda(tenants, torch.int32, 1, "tenants")
+    check_cuda(hot_bits, torch.int32, 1, "hot_bits")
+    L = tier.shape[0]
+    C = ring_data.shape[0]
+    N = pages.shape[0]
+    if ring_data.shape[1] != 5 or C < 1 or not (
+            take.shape[0] == tenants.shape[0] == hot_bits.shape[0] == N):
+        raise ValueError("commit_moves: bad shapes")
+    head_out = torch.empty((), dtype=torch.int32, device=tier.device)
+    with torch.cuda.device(tier.device):
+        load_library().call(
+            "commit_moves_launch", tier.data_ptr(), L, ring_data.data_ptr(),
+            C, head.data_ptr(), head_out.data_ptr(), pages.data_ptr(),
+            take.data_ptr(), tenants.data_ptr(), hot_bits.data_ptr(),
+            N, int(t), int(direction), int(to_tier), stream_of(tier))
+    return tier, ring_data, head_out
