@@ -29,20 +29,10 @@ from repro_torch.configs.base import TieringConfig
 from repro_torch.core.state import TierState, init_state
 from repro_torch.core.tick import (MODES, TickOutput, make_tick_core,
                                    static_ownership)
+from repro_torch.device import resolve_device
 
 __all__ = ["MODES", "TickOutput", "make_tick", "run_engine",
            "resolve_device", "resolve_impl"]
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``. No silent CPU fallback: CUDA (the
-    entry points' default) raises when no card is present."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the port on the CPU")
-    return dev
 
 
 def resolve_impl(impl: Optional[str], device: torch.device) -> str:

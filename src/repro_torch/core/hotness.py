@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import TieringConfig
 from repro_torch.core import select as SEL
 from repro_torch.core.state import TIER_SLOW
+from repro_torch.device import resolve_device
 from repro_torch.numerics import fused_mul_add
 
 def cold_score(t: int, last_access: torch.Tensor,
@@ -129,8 +130,9 @@ def resolve_hotness(spec, cfg: TieringConfig, n_pages: int,
 
 
 def static_rowspace(owner: np.ndarray, n_tenants: int,
-                    device="cpu") -> RowSpace:
+                    device="cuda") -> RowSpace:
     """RowSpace for a constant owner vector (any permutation)."""
+    device = resolve_device(device)
     owner = np.asarray(owner)
     counts = np.bincount(owner, minlength=n_tenants)[:n_tenants]
     S = max(int(counts.max()) if counts.size else 1, 1)

@@ -10,9 +10,11 @@ gather into padded [T, S] rows plus one batched masked top-k, and per-tenant
 sums are row reductions.
 
 Ties go (score desc, index asc), the ``jax.lax.top_k`` rule; ``torch.topk``
-makes no such promise, so top-k is a stable descending sort.
-Non-contiguous static owners need ``segment_ranks``, which arrives with
-dynamic ownership; until then they raise ``NotImplementedError``.
+makes no such promise, so top-k is a stable descending sort. For an
+arbitrary owner permutation, ``segment_ranks``/``select_top_quota`` rank
+with one lexicographic sort (the serving path's per-tenant sequence picks
+use them); the tick's static strategies still take contiguous owners only
+and raise ``NotImplementedError`` otherwise.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.migrate import ops as KMIG
 from repro_torch.kernels.migrate import ref as KMIG_REF
 from repro_torch.kernels.select import ops as KSEL
@@ -59,9 +62,10 @@ class ContiguousLayout(NamedTuple):
     page_start: torch.Tensor  # [L] int64: segment start of each page's tenant
 
 
-def plan_layout(owner: np.ndarray, n_tenants: int, device="cpu"
+def plan_layout(owner: np.ndarray, n_tenants: int, device="cuda"
                 ) -> Optional[ContiguousLayout]:
     """Build the layout if ``owner`` is sorted-contiguous, else None."""
+    device = resolve_device(device)
     owner = np.asarray(owner)
     counts = np.bincount(owner, minlength=n_tenants)
     if counts.shape[0] > n_tenants:
@@ -109,15 +113,20 @@ def by_tenant_contiguous(x: torch.Tensor,
 
     Integers sum associatively: a row gather + axis reduce. Floats keep the
     reference's cumsum + boundary-gather association (the reference pins
-    its f32 perf-model reductions this way)."""
+    its f32 perf-model reductions this way), accumulated in float64 and
+    rounded once: a float32 scan on the card may take its adds in another
+    order from one run to the next (a decoupled look-back scan), and the
+    cancellation in ``cs[end] - cs[start]`` over L=262,144 pages magnifies
+    that past rtol 1e-5."""
     if x.dtype == torch.bool:
         x = x.to(torch.int32)
     if not x.is_floating_point():
         rows = torch.where(layout.row_valid,
                            x[layout.row_page.to(torch.int64)], 0)
         return rows.sum(dim=1, dtype=x.dtype)
-    cs = torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
-    return cs[layout.bounds[1:]] - cs[layout.bounds[:-1]]
+    cs = torch.cat([x.new_zeros(1, dtype=torch.float64),
+                    torch.cumsum(x.to(torch.float64), 0)])
+    return (cs[layout.bounds[1:]] - cs[layout.bounds[:-1]]).to(x.dtype)
 
 
 def allocation_ranks_contiguous(new: torch.Tensor,
@@ -147,6 +156,46 @@ def select_global(score: torch.Tensor, mask: torch.Tensor, quota,
         & torch.isfinite(vals)
     return torch.zeros((L,), dtype=torch.bool,
                        device=score.device).scatter(0, idx, take)
+
+
+# ------------------------------------------------------- generic (sorted) ----
+def segment_ranks(seg: torch.Tensor, key: torch.Tensor,
+                  n_seg: int) -> torch.Tensor:
+    """Within-segment rank of every element, ordered by (key asc, index asc).
+
+    seg: [L] int segment id in [0, n_seg]; ``n_seg`` is the sentinel for
+    inactive elements (they still get ranks, callers never select them).
+    The reference sorts (seg, key) with ``lax.sort``, which orders -0.0 and
+    +0.0 as equal and keeps index order on ties; two stable sorts (key,
+    then segment) give the same order, and ``torch.sort`` also treats the
+    two zeros as equal."""
+    L = seg.shape[0]
+    seg = seg.to(torch.int64)
+    by_key = torch.sort(key, stable=True).indices
+    order = by_key[torch.sort(seg[by_key], stable=True).indices]
+    counts = torch.zeros((n_seg + 1,), dtype=torch.int64,
+                         device=seg.device).index_add_(
+        0, seg, torch.ones_like(seg))
+    starts = torch.cumsum(counts, 0) - counts          # exclusive prefix sum
+    rank_sorted = torch.arange(L, device=seg.device) - starts[seg[order]]
+    return torch.empty((L,), dtype=torch.int32, device=seg.device
+                       ).index_copy_(0, order, rank_sorted.to(torch.int32))
+
+
+def select_top_quota(score: torch.Tensor, owner: torch.Tensor,
+                     active: torch.Tensor, quotas: torch.Tensor,
+                     n_tenants: int, k_cap: int) -> torch.Tensor:
+    """Select up to quotas[t] highest-score active elements of each tenant
+    for an arbitrary owner permutation (one composite sort). The per-tenant
+    take is capped at ``min(k_cap, L)``; non-finite scores are never
+    selected. Returns the selection mask [L] bool."""
+    L = score.shape[0]
+    active = active & torch.isfinite(score)
+    seg = torch.where(active, owner.to(torch.int64), n_tenants)
+    ranks = segment_ranks(seg, -score, n_tenants)
+    q = torch.clamp(quotas.to(torch.int32), max=min(k_cap, L))
+    q_ext = torch.cat([q, q.new_zeros(1)])
+    return active & (ranks < q_ext[seg])
 
 
 # ------------------------------------------------------------------------
@@ -191,7 +240,7 @@ def _contiguous_layout(owner: np.ndarray, n_tenants: int,
 
 
 def static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
-                    impl: str = "batched", device="cpu") -> Strategy:
+                    impl: str = "batched", device="cuda") -> Strategy:
     """Strategy for a constant contiguous owner vector.
 
     impl: "batched" is the plain mirror of the reference's jnp default
@@ -201,6 +250,7 @@ def static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
     plain torch versions."""
     if impl not in STRATEGY_IMPLS:
         raise ValueError(f"impl {impl!r} not in {STRATEGY_IMPLS}")
+    device = resolve_device(device)
     if impl != "batched":
         return kernel_static_strategy(owner, n_tenants, k_max, impl, device)
     layout = _contiguous_layout(owner, n_tenants, device)
@@ -238,6 +288,7 @@ def kernel_static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
     else:
         raise ValueError(f"kernel strategy impl must be 'cuda' or 'ref', "
                          f"got {impl!r}")
+    device = resolve_device(device)
     T = n_tenants
     layout = _contiguous_layout(owner, T, device)
     L = layout.n_pages

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TieringConfig
+from repro_torch.device import resolve_device
 from repro_torch.obs.stats import TierStats, init_stats, stats_export
 from repro_torch.obs.trace import MigrationRing, init_ring
 
@@ -73,14 +74,16 @@ class TierState(NamedTuple):
     hotness: Optional[Any] = None
 
 
-def zero_counters(n_tenants: int, device="cpu") -> Counters:
+def zero_counters(n_tenants: int, device="cuda") -> Counters:
+    device = resolve_device(device)
     return Counters(*(torch.zeros((n_tenants,), dtype=torch.int32,
                                   device=device) for _ in range(7)))
 
 
-def init_state(cfg: TieringConfig, n_pages: int, owner, device="cpu"
+def init_state(cfg: TieringConfig, n_pages: int, owner, device="cuda"
                ) -> TierState:
     """``owner``: [n_pages] int tenant ids."""
+    device = resolve_device(device)
     T = cfg.n_tenants
     return TierState(
         tier=torch.full((n_pages,), TIER_NONE, dtype=torch.int8, device=device),
@@ -105,7 +108,8 @@ def init_state(cfg: TieringConfig, n_pages: int, owner, device="cpu"
     )
 
 
-def make_policy(cfg: TieringConfig, device="cpu") -> TenantPolicy:
+def make_policy(cfg: TieringConfig, device="cuda") -> TenantPolicy:
+    device = resolve_device(device)
     T = cfg.n_tenants
     prot = np.zeros(T, np.int32)
     bound = np.zeros(T, np.int32)

@@ -29,6 +29,7 @@ from repro_torch.core import select as SEL
 from repro_torch.core.state import (TIER_FAST, TIER_NONE, TIER_SLOW,
                                     Counters, TenantPolicy, ThrashTable,
                                     TierState, make_policy)
+from repro_torch.device import resolve_device
 from repro_torch.numerics import f32
 from repro_torch.obs import stats as OS
 from repro_torch.obs import trace as OT
@@ -83,11 +84,12 @@ class OwnershipProvider(NamedTuple):
 
 
 def static_ownership(cfg: TieringConfig, owner: np.ndarray, k_max: int,
-                     impl: str = "batched", device="cpu"
+                     impl: str = "batched", device="cuda"
                      ) -> OwnershipProvider:
     """Fixed tenant roster: ``owner`` [L] is a constant, per-tick inputs are
     ``(accesses [L] f32, alive [L] bool)`` from a prebuilt trace. The
     lifecycle step only frees pages whose trace liveness ended."""
+    device = resolve_device(device)
     T = cfg.n_tenants
     owner_j = torch.as_tensor(np.asarray(owner, np.int32), device=device)
     strategy = SEL.static_strategy(owner, T, k_max, impl=impl, device=device)

@@ -1,11 +1,14 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` into a shared library
-with a plain C interface and loaded with ``ctypes``; pointers come from
-``tensor.data_ptr()`` and the stream from PyTorch's current stream. The
-library is built at first use, keyed by a hash of the source and flags, into
-``.kernel_build/`` at the root of the checkout (git-ignored). Nothing is
-built or imported when this module is imported.
+Each source under ``csrc/`` (``selection.cu``: the tiering tick's selection
+core; ``serving.cu``: the serving path's attention and page moves) is
+compiled with ``nvcc`` into its own shared library with a plain C interface
+and loaded with ``ctypes``; pointers come from ``tensor.data_ptr()`` and the
+stream from PyTorch's current stream. A library is built at first use,
+keyed by a hash of its source and the flags, into ``.kernel_build/`` at the
+root of the checkout (git-ignored); ``build_all`` starts one ``nvcc`` per
+missing library, all at once. Nothing is built or imported when this module
+is imported.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import os
 import pathlib
 import subprocess
 import time
+from typing import Dict
 
 import torch
 
@@ -26,21 +30,33 @@ NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of the launchers in csrc/selection.cu
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
+# C signatures of the launchers, by source
 _SIGNATURES = {
-    "seg_topk_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "seg_reduce_launch": (_P, _P, _I, _I, _P, _P, _P),
-    "seg_sums_launch": (_P, _P, _I, _I, _P, _P),
-    "commit_moves_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _P),
+    "selection": {
+        "seg_topk_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+        "seg_reduce_launch": (_P, _P, _I, _I, _P, _P, _P),
+        "seg_sums_launch": (_P, _P, _I, _I, _P, _P),
+        "commit_moves_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _P),
+    },
+    "serving": {
+        "pool_attention_partial_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _F, _I, _P, _P, _P,
+                                          _P, _P),
+        "migrate_pages_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P),
+    },
 }
+SOURCES = tuple(_SIGNATURES)
 
 
 class KernelLibrary:
     """A loaded kernel library: the ctypes handle plus its build record."""
 
-    def __init__(self, lib: ctypes.CDLL, path: pathlib.Path,
+    def __init__(self, name: str, lib: ctypes.CDLL, path: pathlib.Path,
                  build_s: float, log: str):
+        self.name = name
         self.lib = lib
         self.path = path
         self.build_s = build_s      # 0.0 when an existing build was reused
@@ -50,7 +66,7 @@ class KernelLibrary:
         """Call launcher ``name`` and raise on a non-zero CUDA error."""
         err = getattr(self.lib, name)(*args)
         if err != 0:
-            msg = self.lib.selection_error_string(err).decode()
+            msg = getattr(self.lib, f"{self.name}_error_string")(err).decode()
             raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
 
 
@@ -64,37 +80,70 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-@functools.cache
-def load_library() -> KernelLibrary:
-    """Compile ``csrc/selection.cu`` (once per source hash) and load it."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("the CUDA kernels need a CUDA device")
-    src = CSRC / "selection.cu"
+def _artifact(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    """(source, library path) of kernel source ``name``."""
+    if name not in _SIGNATURES:
+        raise ValueError(f"unknown kernel source {name!r}; have {SOURCES}")
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}_{digest}.so"
-    log_path = out.with_suffix(".log")
-    build_s = 0.0
-    if not out.exists():
+    return src, BUILD_DIR / f"{name}_{digest}.so"
+
+
+_BUILD_S: Dict[str, float] = {}
+
+
+def _compile(names) -> None:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` process each, all running at once; raise if any fails."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    jobs = []
+    for name in names:
+        src, out = _artifact(name)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        build_s = time.perf_counter() - t0
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(src)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+    errors = []
+    for name, src, out, tmp, proc, t0 in jobs:
+        stdout, stderr = proc.communicate()
+        _BUILD_S[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
+            errors.append(f"nvcc failed on {src.name}:\n{stderr}")
+            continue
+        out.with_suffix(".log").write_text(stdout + stderr)
         os.replace(tmp, out)           # atomic: concurrent builds agree
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+@functools.cache
+def load_library(name: str = "selection") -> KernelLibrary:
+    """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
+    _compile([name])
+    _, out = _artifact(name)
     lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    lib.selection_error_string.argtypes = [ctypes.c_int]
-    lib.selection_error_string.restype = ctypes.c_char_p
+    err_fn = getattr(lib, f"{name}_error_string")
+    err_fn.argtypes = [ctypes.c_int]
+    err_fn.restype = ctypes.c_char_p
+    log_path = out.with_suffix(".log")
     log = log_path.read_text() if log_path.exists() else ""
-    return KernelLibrary(lib, out, build_s, log)
+    return KernelLibrary(name, lib, out, _BUILD_S.get(name, 0.0), log)
+
+
+def build_all() -> Dict[str, KernelLibrary]:
+    """Build every kernel library in parallel, then load each."""
+    _compile(SOURCES)
+    return {name: load_library(name) for name in SOURCES}
 
 
 def stream_of(x: torch.Tensor) -> int:

@@ -1,9 +1,10 @@
-"""Wrapper of the fused page-move commit kernel.
+"""Wrappers of the page-move kernels.
 
-A CUDA tensor goes to the hand-written kernel (in place on ``tier`` and
-``ring_data``); a CPU tensor goes to the plain version (which returns new
-tensors). Callers use the returned tensors either way. Launches are counted
-in ``commit_moves.launches``.
+A CUDA tensor goes to the hand-written kernel; a CPU tensor goes to the
+plain version. ``migrate_pages`` updates the destination pool in place on
+either; ``commit_moves`` updates ``tier`` and ``ring_data`` in place on the
+card, and its plain version returns new tensors, so callers use the
+returned tensors. Launches are counted in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
@@ -11,6 +12,20 @@ import torch
 
 from repro_torch.kernels.migrate import kernel as K
 from repro_torch.kernels.migrate import ref as R
+
+
+def migrate_pages(src_pool, dst_pool, src_idx, dst_idx, sel):
+    """For every selected sequence b, copy page ``src_idx[b]`` of
+    ``src_pool`` into slot ``dst_idx[b]`` of ``dst_pool`` in every layer,
+    in place. Pools [L, B, Mp, pt, K, D]; src_idx/dst_idx/sel [B]. Returns
+    ``dst_pool``."""
+    src_idx = src_idx.to(torch.int32).contiguous()
+    dst_idx = dst_idx.to(torch.int32).contiguous()
+    sel = sel.to(torch.int32).contiguous()
+    if dst_pool.is_cuda:
+        migrate_pages.launches += 1
+        return K.migrate_pages_cuda(src_pool, dst_pool, src_idx, dst_idx, sel)
+    return R.migrate_pages_ref(src_pool, dst_pool, src_idx, dst_idx, sel)
 
 
 def commit_moves(tier, ring_data, head, pages, take, tenants, hot, t: int, *,
@@ -34,4 +49,5 @@ def commit_moves(tier, ring_data, head, pages, take, tenants, hot, t: int, *,
                               to_tier=to_tier)
 
 
+migrate_pages.launches = 0
 commit_moves.launches = 0

@@ -1,8 +1,24 @@
-"""Plain torch version of the tick's fused page-move commit (one to one with
-``commit_moves_ref`` in ``repro/kernels/migrate/ref.py``)."""
+"""Plain torch versions of the page-move kernels (one to one with
+``repro/kernels/migrate/ref.py``): the KV-pool page copy of the serving
+path and the tick's fused page-move commit."""
 from __future__ import annotations
 
 import torch
+
+
+def migrate_pages_ref(src_pool, dst_pool, src_idx, dst_idx, sel):
+    """src/dst_pool: [L, B, Mp, pt, K, D]; src_idx/dst_idx/sel: [B].
+    Writes page ``src_pool[:, b, src_idx[b]]`` at ``dst_idx[b]`` of
+    ``dst_pool`` for every selected b, in place, and returns ``dst_pool``.
+    Indices are clamped into the pools, as the kernels clamp them."""
+    B = src_pool.shape[1]
+    b = torch.arange(B, device=src_pool.device)
+    si = torch.clamp(src_idx.to(torch.int64), 0, src_pool.shape[2] - 1)
+    di = torch.clamp(dst_idx.to(torch.int64), 0, dst_pool.shape[2] - 1)
+    keep = (sel != 0)[None, :, None, None, None]
+    dst_pool[:, b, di] = torch.where(keep, src_pool[:, b, si],
+                                     dst_pool[:, b, di])
+    return dst_pool
 
 
 def commit_moves_ref(tier, ring_data, head, pages, take, tenants, hot_bits,

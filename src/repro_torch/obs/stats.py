@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.numerics import fused_mul_add
 
 N_RESID_BUCKETS = 16         # log2 buckets: [0,2), [2,4), [4,8), ... ticks
@@ -42,7 +43,9 @@ class TierStats(NamedTuple):
 
 
 def init_stats(n_tenants: int, fast_since_shape,
-               n_buckets: int = N_RESID_BUCKETS, device="cpu") -> TierStats:
+               n_buckets: int = N_RESID_BUCKETS, device="cuda") -> TierStats:
+    device = resolve_device(device)
+
     def z():
         return torch.zeros((n_tenants,), dtype=torch.int32, device=device)
 

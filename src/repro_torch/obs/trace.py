@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 DIR_PROMOTE = 0
 DIR_DEMOTE = 1
 
@@ -31,7 +33,8 @@ class MigrationRing(NamedTuple):
     head: torch.Tensor    # 0-d int32: total events ever recorded
 
 
-def init_ring(capacity: int, device="cpu") -> MigrationRing:
+def init_ring(capacity: int, device="cuda") -> MigrationRing:
+    device = resolve_device(device)
     data = torch.zeros((capacity, 5), dtype=torch.int32, device=device)
     data[:, COL_TICK] = -1
     return MigrationRing(data=data,

@@ -144,7 +144,7 @@ def test_ewma_fused_multiply_add_and_dense_view(impl_t, impl_j):
                new=np.zeros(L, bool), tier=tier, last_access=last,
                owner=owner, owner_c=owner)
     js = JSEL.static_strategy(owner, T, 64, impl=impl_j)
-    ts = TSEL.static_strategy(owner, T, 64, impl=impl_t)
+    ts = TSEL.static_strategy(owner, T, 64, impl=impl_t, device="cpu")
 
     @jax.jit
     def ref_view(arrays, fast, quotas):
@@ -231,7 +231,8 @@ def test_thrash_controller_matches_reference(seed):
         promo_scale=jnp.asarray(rng.choice([1 / 64, 0.25, 1.0], T
                                            ).astype(np.float32)),
         mitigated_prev=jnp.asarray(rng.random(T) < 0.5))
-    ts = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js))
+    ts = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js),
+                                  device="cpu")
     usage = rng.integers(0, 30, T).astype(np.int32)
     cfg_t = TCfg(**{f: getattr(cfg_j, f) for f in TCfg.__dataclass_fields__})
     a = TP.thrash_controller(ts, T_(usage), cfg_t)
@@ -328,7 +329,7 @@ def test_ring_record_and_decode_match_reference(seed):
     rng = np.random.default_rng(seed)
     C = int(rng.choice([4, 16]))
     n = int(rng.choice([3, 24]))                 # 24 > C: one-call overflow
-    jr, tr = JOT.init_ring(C), TOT.init_ring(C)
+    jr, tr = JOT.init_ring(C), TOT.init_ring(C, device="cpu")
     head0 = 2**31 - 30 if seed % 2 else 0
     jr = jr._replace(head=jnp.asarray(np.int32(head0)))
     tr = tr._replace(head=torch.tensor(head0, dtype=torch.int32))
@@ -367,7 +368,7 @@ def test_static_strategies_match_reference(seed, impl_t, impl_j):
     active = rng.random(L) < rng.choice([0.3, 0.8, 1.0])
     quotas = rng.integers(-1, L // T + 4, T).astype(np.int32)
     js = JSEL.static_strategy(owner, T, k_max, impl=impl_j)
-    ts = TSEL.static_strategy(owner, T, k_max, impl=impl_t)
+    ts = TSEL.static_strategy(owner, T, k_max, impl=impl_t, device="cpu")
     a = ts.select(T_(score), T_(owner), T_(active), T_(quotas))
     b = js.select(jnp.asarray(score), jnp.asarray(owner), jnp.asarray(active),
                   jnp.asarray(quotas))
@@ -408,9 +409,9 @@ def test_select_global_and_masked_rank_match_reference(seed):
 def test_non_contiguous_owner_is_not_ported_yet():
     owner = np.array([0, 1, 0, 1], np.int32)
     with pytest.raises(NotImplementedError):
-        TSEL.static_strategy(owner, 2, 4, impl="batched")
+        TSEL.static_strategy(owner, 2, 4, impl="batched", device="cpu")
     with pytest.raises(NotImplementedError):
-        TSEL.static_strategy(owner, 2, 4, impl="ref")
+        TSEL.static_strategy(owner, 2, 4, impl="ref", device="cpu")
 
 
 # ------------------------------------------------------ one tick at a time ----
@@ -448,7 +449,7 @@ def test_one_tick_from_reference_state(mode, n, impl):
     kw, _ = _small()
     tick = t_make_tick(TCfg(**kw), owner, mode, k_max=64, impl=impl,
                        device="cpu")
-    state = convert.state_from_numpy(s_n)
+    state = convert.state_from_numpy(s_n, device="cpu")
     new, out = tick(state, (T_(acc[n]), T_(alive[n])))
     for f in out._fields:
         x, y = getattr(out, f).numpy(), getattr(outs, f)[n]
@@ -469,7 +470,7 @@ def test_one_tick_from_reference_state(mode, n, impl):
 
 def test_convert_round_trip():
     _, _, _, s_n, _, _ = _jax_run("equilibria", 9)
-    got = convert.state_to_numpy(convert.state_from_numpy(s_n))
+    got = convert.state_to_numpy(convert.state_from_numpy(s_n, device="cpu"))
     for f, v in got.items():
         ref = getattr(s_n, f)
         if isinstance(v, dict):
@@ -492,7 +493,7 @@ def test_tier_stat_and_report_match_reference():
     onehot = (owner[None, :] == np.arange(3)[:, None]).astype(np.int32)
     want = j_tier_stat(jax.tree_util.tree_map(jnp.asarray, s_n),
                        jnp.asarray(onehot))
-    state = convert.state_from_numpy(s_n)
+    state = convert.state_from_numpy(s_n, device="cpu")
     got = t_tier_stat(state, T_(onehot))
     assert sorted(got) == sorted(want)
     for k in want:

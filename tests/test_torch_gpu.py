@@ -7,10 +7,12 @@ a machine that has only torch. On the card:
     python -m pytest -p no:cacheprovider --noconftest -m gpu tests/test_torch_gpu.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports jax). The seeded
-edge cases here also feed ``tests/test_torch_kernels.py``, which holds the
-plain versions against the reference on the CPU: ties from integer scores,
-+-inf and NaN scores, zero and negative quotas, k > S, ring overflow and a
-ring head near 2**31.
+cases here also feed ``tests/test_torch_kernels.py``, which holds the plain
+versions against the reference on the CPU: for the selection core, ties
+from integer scores, +-inf and NaN scores, zero and negative quotas, k > S,
+ring overflow and a ring head near 2**31; for the serving kernels, free
+slots, mid-page lengths, a sliding window, an all-unselected page move and
+a move whose source and destination slots are equal.
 """
 import numpy as np
 import pytest
@@ -98,4 +100,92 @@ def test_kernels_match_plain_on_card(seed, cuda):
     got = TMIG.commit_moves(*a, h, t, direction=direction, to_tier=to_tier)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------- serving kernels (K5, K6) ----
+# (b, h, kh, d, mf, ms, pt): the reference's tests/test_kernels.py shapes
+ATTN_SHAPES = [(2, 8, 4, 64, 16, 8, 8), (3, 4, 4, 32, 8, 8, 4),
+               (2, 16, 2, 64, 16, 16, 8)]
+
+
+def attention_case(shape, seed=0, dtype=np.float32):
+    """Seeded tiered-attention inputs in the reference's layout: the last
+    two fast slots and the last slow slot free, seq_len three tokens short
+    of the end of the last page (mid-page)."""
+    b, h, kh, d, mf, ms, pt = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, 1, h, d)).astype(dtype)
+    fk, fv = (rng.standard_normal((b, mf, pt, kh, d)).astype(dtype)
+              for _ in range(2))
+    sk, sv = (rng.standard_normal((b, ms, pt, kh, d)).astype(dtype)
+              for _ in range(2))
+    fp = np.where(np.arange(mf)[None] < mf - 2,
+                  np.arange(mf)[None].repeat(b, 0), -1).astype(np.int32)
+    sp = np.where(np.arange(ms)[None] < ms - 1,
+                  (mf - 2 + np.arange(ms))[None].repeat(b, 0), -1
+                  ).astype(np.int32)
+    seq_len = np.full((b,), (mf - 2 + ms - 1) * pt - 3, np.int32)
+    return q, fk, fv, sk, sv, fp, sp, seq_len
+
+
+def migrate_case(shape, seed=0):
+    """Seeded page-move inputs: pools [L, B, M, pt, K, D] in float32, and
+    index/selection vectors with both selected and unselected sequences."""
+    l, b, msrc, mdst, pt, kh, d = shape
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((l, b, msrc, pt, kh, d)).astype(np.float32)
+    dst = rng.standard_normal((l, b, mdst, pt, kh, d)).astype(np.float32)
+    si = rng.integers(0, msrc, b).astype(np.int32)
+    di = rng.integers(0, mdst, b).astype(np.int32)
+    sel = rng.integers(0, 2, b).astype(bool)
+    return src, dst, si, di, sel
+
+
+# (l, b, msrc, mdst, pt, kh, d): the reference's tests/test_kernels.py shapes
+MIGRATE_SHAPES = [(2, 4, 6, 5, 4, 2, 16), (1, 8, 4, 4, 8, 1, 32),
+                  (3, 2, 8, 8, 2, 4, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ATTN_SHAPES + [(64, 32, 8, 64, 32, 16, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 40])
+def test_pool_attention_matches_plain_on_card(shape, dtype, window, cuda):
+    """K5 against its plain version on the same inputs; float32 sums in
+    another order, so atol/rtol 1e-4 (the bf16 pools are read exactly)."""
+    from repro_torch.kernels.tiered_attention import ops as TA
+    from repro_torch.kernels.tiered_attention import ref as TA_REF
+    q, fk, fv, sk, sv, fp, sp, seq_len = (
+        torch.as_tensor(a, device=cuda) for a in attention_case(shape))
+    fk, fv, sk, sv, q = (x.to(dtype) for x in (fk, fv, sk, sv, q))
+    for pk, pv, page in ((fk, fv, fp), (sk, sv, sp)):
+        got = TA.pool_attention_partial(q[:, 0], pk, pv, page, seq_len,
+                                        window=window)
+        want = TA_REF.pool_attention_partial_ref(q[:, 0], pk, pv, page,
+                                                 seq_len, window=window)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", MIGRATE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_migrate_pages_matches_plain_on_card(shape, dtype, cuda):
+    """K6 bitwise against its plain version, including an all-unselected
+    ``sel`` and source slot == destination slot."""
+    from repro_torch.kernels.migrate import ops as TMIG
+    from repro_torch.kernels.migrate import ref as TMIG_REF
+    src, dst, si, di, sel = migrate_case(shape)
+    same = np.minimum(si, min(src.shape[2], dst.shape[2]) - 1)
+    for s_i, d_i, se in ((si, di, sel), (same, same, sel),
+                         (si, di, np.zeros_like(sel))):
+        a = [torch.as_tensor(x, device=cuda) for x in (s_i, d_i, se)]
+        s_t = torch.as_tensor(src, device=cuda).to(dtype)
+        want = TMIG_REF.migrate_pages_ref(
+            s_t, torch.as_tensor(dst, device=cuda).to(dtype), *a)
+        got = TMIG.migrate_pages(
+            s_t, torch.as_tensor(dst, device=cuda).to(dtype), *a)
+        assert torch.equal(got, want)
     torch.cuda.synchronize()

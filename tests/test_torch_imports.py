@@ -3,12 +3,16 @@
 * Nothing under ``src/repro_torch/``, nor ``chip_smoke.py``, imports
   ``jax`` or the reference package ``repro`` (checked on the AST, so a
   lazy import inside a function counts too).
-* No silent CPU fallback: the entry points default to ``device="cuda"`` and
-  raise when no card is present; ``impl="cuda"`` on the CPU raises; a
-  kernel wrapper handed a CPU tensor runs the plain version only because
-  the tensor lies on the CPU.
+* Every module of the port imports on a machine without a card (kernels
+  are built and ``triton``/``nvcc`` reached only inside the launching call).
+* No silent CPU fallback: the entry points and every public constructor
+  default to ``device="cuda"`` and raise when no card is present;
+  ``impl="cuda"`` on the CPU raises; a kernel wrapper handed a CPU tensor
+  runs the plain version only because the tensor lies on the CPU.
 """
 import ast
+import dataclasses
+import importlib
 import pathlib
 
 import numpy as np
@@ -20,8 +24,11 @@ from repro_torch.core import engine, simulator
 from repro_torch.core.workloads import microbenchmark
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_DIR = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_MODULES = sorted(
+    ".".join(("repro_torch",) + p.relative_to(PORT_DIR).with_suffix("").parts)
+    .removesuffix(".__init__") for p in PORT_DIR.rglob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -39,6 +46,11 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_no_jax_and_no_reference(path):
     bad = sorted(set(_imported_roots(path)) & set(BANNED))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", PORT_MODULES)
+def test_every_port_module_imports_without_a_card(module):
+    importlib.import_module(module)
 
 
 def test_import_scan_sees_lazy_imports(tmp_path):
@@ -112,3 +124,77 @@ def test_wrappers_take_plain_version_only_for_cpu_tensors():
                       torch.tensor([0.5]), 0, direction=0, to_tier=0)
     assert (KSEL.seg_topk.launches, KSEL.seg_reduce.launches,
             KSEL.seg_sums.launches, KMIG.commit_moves.launches) == before
+
+
+def _constructors(**dev):
+    """Every public constructor and entry point of the port, called with
+    valid arguments and ``dev`` (empty: no ``device`` argument)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import hotness, select, state, tick
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.memtier import kvcache
+    from repro_torch.models.transformer import DenseLM
+    from repro_torch.obs import stats, trace
+    from repro_torch.serve import decode
+    cfg = TieringConfig(n_tenants=2, n_fast_pages=8, n_slow_pages=16,
+                        page_tokens=4)
+    owner = np.repeat(np.arange(2, dtype=np.int32), 4)
+    mcfg = get_smoke_config("llama32_1b")
+
+    def param_tree():
+        tree: dict = {}
+        for name, p in DenseLM(mcfg, device="cpu").named_parameters():
+            *path, leaf = name.split(".")
+            node = tree
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = p.numpy()
+        return tree
+
+    cli = ["--smoke", "--batch", "2", "--steps", "4"] + (
+        ["--device", dev["device"]] if dev else [])
+    return {
+        "zero_counters": lambda: state.zero_counters(2, **dev),
+        "init_state": lambda: state.init_state(cfg, 8, owner, **dev),
+        "make_policy": lambda: state.make_policy(cfg, **dev),
+        "init_ring": lambda: trace.init_ring(16, **dev),
+        "init_stats": lambda: stats.init_stats(2, (8,), **dev),
+        "plan_layout": lambda: select.plan_layout(owner, 2, **dev),
+        "static_strategy": lambda: select.static_strategy(owner, 2, 4,
+                                                          **dev),
+        "static_rowspace": lambda: hotness.static_rowspace(owner, 2, **dev),
+        "static_ownership": lambda: tick.static_ownership(cfg, owner, 4,
+                                                          **dev),
+        "state_from_numpy": lambda: convert.state_from_numpy(
+            state.init_state(cfg, 8, owner, device="cpu"), **dev),
+        "init_cache": lambda: kvcache.init_cache(mcfg, cfg, 2, 8, **dev),
+        "init_serve_state": lambda: decode.init_serve_state(mcfg, cfg, 2, 8,
+                                                            **dev),
+        "build_serve_step": lambda: decode.build_serve_step(mcfg, cfg, 2, 8,
+                                                            **dev),
+        "DenseLM": lambda: DenseLM(mcfg, **dev),
+        "params_from_numpy": lambda: convert.params_from_numpy(
+            param_tree(), mcfg, **dev),
+        "cache_from_numpy": lambda: convert.cache_from_numpy(
+            kvcache.init_cache(dataclasses.replace(mcfg, dtype="float32"),
+                               cfg, 2, 8, device="cpu"), **dev),
+        "launch.serve": lambda: launch_serve.main(cli),
+    }
+
+
+CONSTRUCTORS = sorted(_constructors())
+
+
+@pytest.mark.parametrize("name", CONSTRUCTORS)
+def test_constructor_without_device_raises_on_cpu_only_machine(name,
+                                                                no_card):
+    with pytest.raises(RuntimeError, match="cuda"):
+        _constructors()[name]()
+
+
+@pytest.mark.parametrize("name", CONSTRUCTORS)
+def test_constructor_runs_on_cpu_when_asked(name):
+    """The same calls succeed with ``device="cpu"``, so the raise above is
+    the device check and nothing else."""
+    _constructors(device="cpu")[name]()

@@ -1,4 +1,4 @@
-"""The port's selection-core kernels (K1-K4) held against the reference.
+"""The port's kernels (K1-K6) held against the reference.
 
 On the CPU each port wrapper (``repro_torch.kernels.*.ops``) runs its
 kernel's plain torch version; these tests give it and the reference's
@@ -8,7 +8,8 @@ ties from integer scores, +-inf and NaN scores, zero and negative quotas,
 k > S, ring overflow (more taken lanes than the ring holds) and a ring head
 near 2**31 (the seeded cases of ``tests/test_torch_gpu.py``, which holds
 the CUDA kernels against the same plain versions on the card). Every
-output is compared bitwise.
+output of K1-K4 and K6 is compared bitwise; K5 (tiered attention) sums
+floats in another order than XLA, so within atol 2e-5 (float32).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +17,19 @@ import pytest
 import torch
 
 from repro.kernels.migrate.ops import commit_moves as j_commit_moves
+from repro.kernels.migrate.ops import migrate_pages as j_migrate_pages
 from repro.kernels.select.ops import seg_reduce as j_seg_reduce
 from repro.kernels.select.ops import seg_sums as j_seg_sums
 from repro.kernels.select.ops import seg_topk as j_seg_topk
+from repro.kernels.tiered_attention.ops import tiered_attention as j_tiered
+from repro.kernels.tiered_attention.ref import \
+    pool_attention_partial_ref as j_partial_ref
+from repro.memtier.kvcache import tiered_paged_attention as j_serving_attn
 from repro_torch.kernels.migrate import ops as TMIG
 from repro_torch.kernels.select import ops as TSEL
-from test_torch_gpu import moves_case, topk_case
+from repro_torch.kernels.tiered_attention import ops as TTA
+from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, attention_case,
+                            migrate_case, moves_case, topk_case)
 
 JAX_IMPLS = ("ref", "pallas_interpret")
 
@@ -112,3 +120,81 @@ def test_commit_moves_ring_overflow_keeps_newest():
     for lane in range(6, N):
         slot = ((head0 + lane + 2**31) % 2**32 - 2**31) % C
         assert ring[slot, 2].item() == lane
+
+
+# ----------------------------------------------------- tiered attention ----
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 40])
+def test_pool_attention_partial_matches_reference(shape, window):
+    """K5's plain version against the reference's plain version, per pool:
+    (acc, m, l, mass) with mass relative to each head's final m."""
+    q, fk, fv, sk, sv, fp, sp, seq_len = attention_case(shape)
+    for pk, pv, page in ((fk, fv, fp), (sk, sv, sp)):
+        want = j_partial_ref(jnp.asarray(q[:, 0]), jnp.asarray(pk),
+                             jnp.asarray(pv), jnp.asarray(page),
+                             jnp.asarray(seq_len), window=window)
+        got = TTA.pool_attention_partial(
+            torch.as_tensor(q[:, 0]), torch.as_tensor(pk),
+            torch.as_tensor(pv), torch.as_tensor(page),
+            torch.as_tensor(seq_len), window=window)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("window", [None, 40])
+def test_tiered_attention_matches_reference(shape, window, impl):
+    """The merged two-tier attention against the reference's wrapper, on
+    its plain version and on the Pallas kernel in interpret mode."""
+    args = attention_case(shape)
+    want = j_tiered(*(jnp.asarray(a) for a in args), window=window,
+                    impl=impl, page_block=4)
+    got = TTA.tiered_attention(*(torch.as_tensor(a) for a in args),
+                               window=window, impl="ref")
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=1e-5)
+
+
+def test_tiered_attention_matches_serving_path():
+    """The kernel route equals the reference's serving-path function, which
+    takes token-validity masks built from the same page metadata."""
+    q, fk, fv, sk, sv, fp, sp, seq_len = attention_case(ATTN_SHAPES[0])
+    pt = fk.shape[2]
+
+    def valid(page):
+        tok = page[:, :, None] * pt + np.arange(pt)
+        return (page >= 0)[:, :, None] & (tok <= seq_len[:, None, None])
+
+    want = j_serving_attn(*(jnp.asarray(a) for a in (q, fk, fv, sk, sv)),
+                          jnp.asarray(valid(fp)), jnp.asarray(valid(sp)))
+    got = TTA.tiered_attention(*(torch.as_tensor(a) for a in
+                                 (q, fk, fv, sk, sv, fp, sp, seq_len)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+
+
+# -------------------------------------------------------- migrate pages ----
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("shape", MIGRATE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_migrate_pages_matches_reference(shape, dtype, impl):
+    """K6's plain version, bitwise, in place; all-unselected and source
+    slot == destination slot included."""
+    src, dst, si, di, sel = migrate_case(shape)
+    same = np.minimum(si, min(src.shape[2], dst.shape[2]) - 1)
+    tdt = getattr(torch, dtype)
+    for s_i, d_i, se in ((si, di, sel), (same, same, sel),
+                         (si, di, np.zeros_like(sel))):
+        want = j_migrate_pages(jnp.asarray(src, dtype),
+                               jnp.asarray(dst, dtype), jnp.asarray(s_i),
+                               jnp.asarray(d_i), jnp.asarray(se), impl=impl)
+        dst_t = torch.as_tensor(dst).to(tdt)
+        got = TMIG.migrate_pages(torch.as_tensor(src).to(tdt), dst_t,
+                                 torch.as_tensor(s_i), torch.as_tensor(d_i),
+                                 torch.as_tensor(se))
+        assert got is dst_t                  # updated in place
+        np.testing.assert_array_equal(got.to(torch.float32).numpy(),
+                                      np.asarray(want, np.float32))
