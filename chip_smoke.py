@@ -5,10 +5,11 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once), holds each kernel against its plain
-torch version on the card, drives the port's two main paths — the static
-tiering tick through ``simulate`` / ``run_engine``, and tiered paged-KV
-serving of Llama 3.2 1B through ``build_serve_step`` — and checks what
-comes out. Phases, one line each, each with its duration:
+torch version on the card, drives the port's main paths — the static
+tiering tick through ``simulate`` / ``run_engine``; tiered paged-KV serving
+of Llama 3.2 1B and of Zamba2-7B through ``build_serve_step``; the prefill
+of both through ``make_prefill_step`` — and checks what comes out. Phases,
+one line each, each with its duration:
 
   1. device: nvidia-smi name and power limit, torch/CUDA versions, the build
   2. tick kernels (K1-K4) vs plain versions on the card, bitwise, at full
@@ -30,6 +31,28 @@ comes out. Phases, one line each, each with its duration:
      4 sequences x 128 steps, with pages migrating
  11. serving kernels: time, launches per step, bound, plain, library times
  12. where one decode step's device time goes (torch.profiler)
+ 13. prefill kernels (K7 flash attention, K8 SSD scan) vs plain versions on
+     the card: K7 at zamba2's and llama's heads, causal / window 64 /
+     non-causal, Sq < Skv and a ragged S=200, f32 and bf16; K8 at zamba2's
+     and mamba2-130m's widths under real-init and strong decays
+ 14. prefill at full width and depth (``make_prefill_step``), Llama 3.2 1B
+     then Zamba2-7B (random weights from a seed; the Llama models are freed
+     first): cuda vs ref at B=2, S=4096 in bf16 and f32; then one timed
+     prefill at B=1, S=32,768 (the reference's prefill_32k, its batch of 32
+     cut to 1); K7 and K8 must launch, 16 (llama) / 14 and 81 (zamba2)
+     times. In each of these prefills the first K7 and K8 call (layer 0) is
+     also held against the plain version on the path's own arguments
+     (strided [B,S,H,D] views, real activations): at S=4096 in bf16 and
+     f32 in full, at S=32,768 K7's last 1,024 query rows against all keys
+     and K8 over the whole length (128 chunks of state carry)
+ 15. hybrid serving at full width: Zamba2-7B, 4 tenants, 32 sequences, 256
+     decode steps, equilibria, cuda vs ref step by step; tpp and static 16
+     steps each; one profiled step; K5 and K6 must launch
+ 16. hybrid decode == full-sequence forward (K7 and K8) in float32, 4
+     sequences x 64 steps, with pages migrating
+ 17. prefill kernels: time, launches per prefill, bound, plain and library
+     (``scaled_dot_product_attention`` for K7; none for K8) times
+ 18. where one Zamba2-7B prefill's device time goes (torch.profiler)
 
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -38,6 +61,8 @@ port's sources are missing.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import pathlib
 import subprocess
@@ -67,7 +92,8 @@ SERVE_REPLACES = {
         "src/repro/kernels/tiered_attention/kernel.py:99",
     "migrate_pages": "src/repro/kernels/migrate/kernel.py:50",
 }
-# serving: the measured load (repro_torch.launch.serve.full_load), 16 layers
+# serving: the measured load (the configs' SERVE_LOAD under
+# repro_torch.launch.serve.full_load), 16 layers
 FWD_BATCH, FWD_STEPS = 4, 128
 SIDE_STEPS = 64                # tpp and static
 # tolerances, with their reasons
@@ -84,6 +110,32 @@ K5_TOL = 1e-4        # K5 vs plain: float32 sums in another order (bf16 K/V
 TOL = {"bf16": {"logit_rtol": 1e-1, "hot_atol": 5e-2},
        "f32": {"logit_rtol": 1e-4, "hot_atol": 1e-4}}
 FWD_RTOL = 1e-3      # decode vs forward in float32, relative to max |logit|
+# prefill (slice F1): K7 and K8, Zamba2-7B and Llama 3.2 1B
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+PREFILL_SOURCE = "src/repro_torch/kernels/csrc/prefill.cu"
+PREFILL_REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:87",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:61",
+}
+# the reference's kernel-test tolerances (tests/test_kernels.py:11-12 and
+# :137-141)
+K7_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K8 vs its plain version on the card is held tighter than the reference's
+# kernel-test bound (atol 1e-4, rtol 5e-2, which the CPU tests against the
+# reference keep): both compute in float32 with a_cum and its differences
+# in float64 and were measured 9.5e-7 apart on phase 13's inputs on an
+# H100 (PERF.md), while a kernel computing in bf16 or TF32 (~1e-3
+# relative) fails this bound
+K8_ATOL, K8_RTOL = 1e-5, 1e-4
+PATH_TAIL = 1024     # K7's query rows checked on the S=32,768 path
+KERNEL_TAG = {"flash_attention": "K7", "ssd_scan": "K8"}
+PREFILL_B, PREFILL_S = 2, 4096           # cuda vs ref at full width
+# bf16: phase 9's bound, relative to max |logit|; f32: float32 sums in
+# another order through 16 or 81 layers
+PREFILL_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
+TIMED_B, TIMED_S = 1, 32768              # the reference's prefill_32k, B cut
+HYBRID_SIDE_STEPS = 16                   # tpp and static, hybrid serving
+HYBRID_FWD_BATCH, HYBRID_FWD_STEPS = 4, 64
 
 
 _LAST = [time.perf_counter()]
@@ -460,6 +512,12 @@ def clone_tree(torch, x):
     return x
 
 
+def clone_state(torch, state: dict) -> dict:
+    """A deep copy of a serve state (the KV cache, and the Mamba2 decode
+    state of the hybrid)."""
+    return {k: clone_tree(torch, v) for k, v in state.items()}
+
+
 def _cache_parts(torch, kv):
     """(integer leaves, float leaves) of a TieredKVCache's metadata, by name;
     the ring's hotness column is float bits."""
@@ -512,8 +570,9 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
     Integer KV metadata must be bitwise equal, unless the step's deciding
     margin is within ``tol["hot_atol"]`` (an excused near-tie flip); logits
     within ``tol["logit_rtol"]`` of max |logit|, hotness within
-    ``tol["hot_atol"]``. Returns the run's numbers, the final cuda state
-    and the cuda logits per step."""
+    ``tol["hot_atol"]``; the hybrid's Mamba2 state is reported relative to
+    its max |value| (``mamba_rel``). Returns the run's numbers, the final
+    cuda state and the cuda logits per step."""
     SD, fused_mul_add = ctx["SD"], ctx["fused_mul_add"]
     cfg, tcfg, model, toks = ctx["cfg"], ctx["tcfg"], ctx["model"], \
         ctx["toks"]
@@ -529,8 +588,8 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
     with torch.no_grad():
         for i in range(steps):
             if snapshot_at == i:
-                out["snapshot"] = {"kv": clone_tree(torch, state["kv"])}
-            ref_state = {"kv": clone_tree(torch, state["kv"])}
+                out["snapshot"] = clone_state(torch, state)
+            ref_state = clone_state(torch, state)
             tok = toks[:, i:i + 1]
             e0[i].record()
             lc, state = step_c(model, state, tok)
@@ -546,6 +605,12 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
             out["logit_rel"].append(float(
                 (lc.float() - lr.float()).abs().max()
                 / lr.float().abs().max()))
+            if "mamba" in state:
+                for f in ("h", "conv_x"):
+                    a = getattr(state["mamba"], f).float()
+                    b = getattr(ref_state["mamba"], f).float()
+                    out["mamba_rel"] = max(out.get("mamba_rel", 0.0), float(
+                        (a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
             ic, fc = _cache_parts(torch, state["kv"])
             ir, fr = _cache_parts(torch, ref_state["kv"])
             bad = [k for k in ic if not torch.equal(ic[k], ir[k])]
@@ -621,18 +686,19 @@ def sdpa_inputs(torch, q, pools, pages, seq_len, pt):
     return q[:, :, None, :], k, v, mask
 
 
-def step_profile(torch, step, model, state, tok, n: int = 1):
-    """Device events of ``n`` decode steps under torch.profiler: (events
-    per step, busy ms per step as the union of their intervals, [(name, ms
-    per step, count per step)] by total time), or None without device
-    events."""
+def profile_fn(torch, fn):
+    """Device events of one call of ``fn`` under torch.profiler: (events,
+    busy ms as the union of their intervals, [(name, ms, count)] by total
+    time, wall ms of the profiled call), or None without device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step(model, state, tok)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not dev:
@@ -644,9 +710,218 @@ def step_profile(torch, step, model, state, tok, n: int = 1):
         end = max(end, e)
         ms, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (ms + (e - s) / 1e3, cnt + 1)
-    top = sorted(((k, v[0] / n, v[1] / n) for k, v in by_name.items()),
+    top = sorted(((k, v[0], v[1]) for k, v in by_name.items()),
                  key=lambda r: -r[1])
-    return len(dev) / n, busy / 1e3 / n, top
+    return len(dev), busy / 1e3, top, wall
+
+
+def profile_serve_step(torch, step, model, snap, tok):
+    """Wall ms (median of 3, synchronised) of one decode step from the
+    snapshot ``snap``, and its device events under torch.profiler."""
+    walls = []
+    with torch.no_grad():
+        for _ in range(3):
+            s0 = clone_state(torch, snap)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, s0, tok)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        s0 = clone_state(torch, snap)
+        torch.cuda.synchronize()
+        prof = profile_fn(torch, lambda: step(model, s0, tok))
+    return sorted(walls)[1], prof
+
+
+# ---------------------------------------------------------- phase 13 ----
+def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
+    """K7 and K8 wrappers vs their plain versions on the card at the prefill
+    path's widths. Returns (max abs error, cases) per kernel."""
+    rng = np.random.default_rng(13)
+    err = {k: 0.0 for k in PREFILL_REPLACES}
+    cases = {k: 0 for k in PREFILL_REPLACES}
+    # (B, Sq, Skv, v scale): v x 64 holds the tensor-core kernel's P V to
+    # the plain version's float32 where |v| is large, as on the Llama path
+    for H, K, D in ((32, 32, 112), (32, 8, 64)):     # zamba2, llama
+        for B, Sq, Skv, vs in ((2, 1024, 1024, 1.0), (1, 200, 200, 1.0),
+                               (2, 256, 1024, 1.0), (2, 1024, 1024, 64.0)):
+            qkv = [torch.as_tensor(rng.standard_normal(shape).astype(
+                np.float32), device="cuda") for shape in
+                ((B, H, Sq, D), (B, K, Skv, D), (B, K, Skv, D))]
+            qkv[2] *= vs
+            for dtype in (torch.float32, torch.bfloat16):
+                if vs != 1.0 and dtype == torch.float32:
+                    continue          # the case is for the bf16 kernel
+                q, k, v = (x.to(dtype) for x in qkv)
+                for causal, window in ((True, None), (True, 64),
+                                       (False, None)):
+                    got = FA.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+                    want = FA_REF.flash_attention_ref(q, k, v, causal=causal,
+                                                      window=window)
+                    require(got.dtype == dtype and bool(
+                        torch.isfinite(got).all()), "K7: dtype / finite")
+                    d = float((got.float() - want.float()).abs().max())
+                    tol = K7_TOL[str(dtype).removeprefix("torch.")]
+                    err["flash_attention"] = max(err["flash_attention"], d)
+                    require(torch.allclose(got.float(), want.float(),
+                                           atol=tol, rtol=tol),
+                            f"K7 H={H} K={K} D={D} B={B} Sq={Sq} Skv={Skv} "
+                            f"v x{vs} {dtype} causal={causal} window="
+                            f"{window}: max err {d}")
+                    cases["flash_attention"] += 1
+    # (H, P, N, G): zamba2's Mamba2 widths, then mamba2-130m's
+    for H, P, N, G in ((112, 64, 64, 1), (32, 48, 128, 1)):
+        B, S, Q = 1, 1024, 256
+        z = rng.standard_normal((B, S, H))
+        x = torch.as_tensor((rng.standard_normal((B, S, H, P)) * 0.5
+                             ).astype(np.float32), device="cuda")
+        bc = [torch.as_tensor((rng.standard_normal((B, S, G, N)) * 0.5
+                               ).astype(np.float32), device="cuda")
+              for _ in range(2)]
+        for decay, a_np in (("init", -np.logaddexp(z * 1.2, 0.0)),
+                            ("strong", -np.abs(z) * 8.0)):
+            a = torch.as_tensor(a_np.astype(np.float32), device="cuda")
+            for dtype in (torch.bfloat16, torch.float32):
+                b, c = (t.to(dtype) for t in bc)
+                y, h = SSD.ssd_scan(x, a, b, c, chunk=Q)
+                y_r, h_r = SSD_REF.ssd_scan_ref(x, a, b, c, Q)
+                for g, w in ((y, y_r), (h, h_r)):
+                    require(bool(torch.isfinite(g).all()), "K8: non-finite")
+                    d = float((g - w).abs().max())
+                    err["ssd_scan"] = max(err["ssd_scan"], d)
+                    require(torch.allclose(g, w, atol=K8_ATOL, rtol=K8_RTOL),
+                            f"K8 H={H} P={P} N={N} {decay} {dtype}: max err "
+                            f"{d}")
+                cases["ssd_scan"] += 1
+    torch.cuda.synchronize()
+    return err, cases
+
+
+# ---------------------------------------------------------- phase 14 ----
+def reading(torch, what: str, got, want, atol: float, rtol: float) -> dict:
+    """Max abs error of ``got`` vs ``want`` and the largest share of the
+    allclose bound ``atol + rtol * |want|`` it uses (<= 1 passes)."""
+    d = (got.float() - want.float()).abs()
+    share = float((d / (atol + rtol * want.float().abs())).max())
+    return dict(what=what, err=float(d.max()), share=share, atol=atol,
+                rtol=rtol)
+
+
+def _shape(t) -> str:
+    return f"{tuple(t.shape)}/{t.stride()} {str(t.dtype)[6:]}"
+
+
+def k7_vs_plain(torch, FA_REF, out, q, k, v, *, causal=True, window=None,
+                impl="cuda", tail=None) -> list:
+    """K7's output on the path vs the plain version on the same views; with
+    ``tail``, only the last ``tail`` query rows (right-aligned, they see the
+    same keys)."""
+    if tail is not None and tail < q.shape[2]:
+        q, out = q[:, :, -tail:], out[:, :, -tail:]
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = K7_TOL[str(q.dtype)[6:]]
+    return [reading(torch, f"K7 q {_shape(q)} k {_shape(k)} causal={causal}"
+                           f" window={window} max |v| "
+                           f"{float(v.abs().max()):.3g}", out, want, tol, tol)]
+
+
+def k8_vs_plain(torch, SSD_REF, out, x, a, b, c, *, chunk, impl="cuda"
+                ) -> list:
+    """K8's (y, h) on the path vs the plain version on the same tensors."""
+    y_r, h_r = SSD_REF.ssd_scan_ref(x, a, b, c, chunk)
+    what = f"K8 x {_shape(x)} b {_shape(b)} chunk {chunk}"
+    return [reading(torch, f"{what} y", out[0], y_r, K8_ATOL, K8_RTOL),
+            reading(torch, f"{what} h", out[1], h_r, K8_ATOL, K8_RTOL)]
+
+
+@contextlib.contextmanager
+def on_path(mod, name: str, compare, found: list, label: str):
+    """While active, the first ``impl="cuda"`` call of ``mod.name`` on a card
+    tensor is held against its plain version by ``compare(out, *args,
+    **kwargs)``; its readings go to ``found``, tagged ``label``. The path's
+    own output stands for the kernel's, so the check launches nothing. The
+    op counts its launches on the module's global of its name, the hook
+    while it is active; the count is carried over both ways."""
+    orig = getattr(mod, name)
+    done = []
+
+    def hooked(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        if not done and kwargs.get("impl", "cuda") == "cuda" \
+                and args[0].is_cuda:
+            done.append(True)
+            found.extend(dict(r, label=label) for r in compare(out, *args,
+                                                               **kwargs))
+        return out
+
+    hooked.launches = orig.launches
+    setattr(mod, name, hooked)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+        orig.launches = hooked.launches
+
+
+def prefill_agree(torch, make_prefill_step, model, toks, tol: float) -> float:
+    """Last-position logits of ``make_prefill_step`` with impl "cuda" and
+    "ref" on the same model and tokens; raises unless finite and within
+    ``tol`` of max |logit|. Returns the relative error."""
+    cfg = model.cfg
+    got = make_prefill_step(cfg, impl="cuda")(model, {"tokens": toks})
+    want = make_prefill_step(cfg, impl="ref")(model, {"tokens": toks})
+    require(got.shape == (toks.shape[0], cfg.vocab_size), "prefill shape")
+    require(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite")
+    rel = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max())
+    require(rel <= tol, f"{cfg.name} {cfg.dtype} prefill: cuda vs ref "
+                        f"{rel:.3g} > {tol}")
+    return rel
+
+
+def time_prefill(torch, step, model, toks):
+    """(warm-up ms, ms, peak GiB) of two prefills (CUDA events); the second
+    is the measurement, its peak memory from a reset."""
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits = step(model, {"tokens": toks})
+        e.record()
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(logits).all()), "prefill: non-finite")
+        out.append(s.elapsed_time(e))
+    return out[0], out[1], torch.cuda.max_memory_allocated() / 2**30
+
+
+def with_dtype(model, dtype: str):
+    """A view of ``model`` whose config computes in ``dtype``, sharing the
+    (float32) weights."""
+    import copy
+    import dataclasses
+    m = copy.copy(model)
+    m.cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    return m
+
+
+# ---------------------------------------------------------- phase 18 ----
+KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
+                  ("K8 ssd_scan", ("ssd_scan_kernel",)),
+                  ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_")),
+                  ("cast/copy", ("copy_kernel", "direct_copy", "to_copy")),
+                  ("elementwise", ("elementwise", "vectorized")),
+                  ("reduction", ("reduce",)))
+
+
+def classify(name: str) -> str:
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
 
 
 # -------------------------------------------------------------- main ----
@@ -672,7 +947,7 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_serve_load
     from repro_torch.configs.base import TieringConfig
     from repro_torch.core.engine import make_tick, run_engine
     from repro_torch.core.simulator import simulate, simulate_preset
@@ -685,11 +960,17 @@ def main() -> int:
     from repro_torch.kernels.select import ref as RSEL
     from repro_torch.kernels.tiered_attention import ops as TA
     from repro_torch.kernels.tiered_attention import ref as TA_REF
-    from repro_torch.launch.serve import FULL_BATCH, FULL_STEPS, full_load
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.kernels.ssd_scan import ref as SSD_REF
+    from repro_torch.launch.serve import full_load
     from repro_torch.memtier import kvcache as KC
-    from repro_torch.models.transformer import DenseLM, lm_forward
+    from repro_torch.models.transformer import (DenseLM, hybrid_forward,
+                                                lm_forward, make_model)
     from repro_torch.numerics import fused_mul_add
     from repro_torch.serve import decode as SD
+    from repro_torch.train.step import make_prefill_step
 
     wrappers = {"seg_topk": KSEL.seg_topk, "seg_reduce": KSEL.seg_reduce,
                 "seg_sums": KSEL.seg_sums, "commit_moves": KMIG.commit_moves}
@@ -906,8 +1187,8 @@ def main() -> int:
     swrap = {"pool_attention_partial": TA.pool_attention_partial,
              "migrate_pages": KMIG.migrate_pages}
     cfg = get_config("llama32_1b")
-    tcfg = full_load()
-    B, steps = FULL_BATCH, FULL_STEPS
+    B, steps = get_serve_load("llama32_1b")
+    tcfg = full_load(cfg, B, steps)
     torch.cuda.reset_peak_memory_stats()
     model = DenseLM(cfg, seed=0, device="cuda")
     toks = torch.as_tensor(np.random.default_rng(9).integers(
@@ -1085,27 +1366,15 @@ def main() -> int:
     del gathered, ks, vs, qs, mask
 
     # ---- 12. where one decode step's device time goes ---------------------
-    snap = run["snapshot"]
     step_c = SD.build_serve_step(cfg, tcfg, B, steps, impl="cuda")
-    tok = toks[:, steps // 2:steps // 2 + 1]
-    walls = []
-    with torch.no_grad():
-        for _ in range(3):
-            s0 = {"kv": clone_tree(torch, snap["kv"])}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step_c(model, s0, tok)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        s0 = {"kv": clone_tree(torch, snap["kv"])}
-        torch.cuda.synchronize()
-        prof = step_profile(torch, step_c, model, s0, tok)
-    wall_ms = sorted(walls)[1]
+    wall_ms, prof = profile_serve_step(
+        torch, step_c, model, run["snapshot"],
+        toks[:, steps // 2:steps // 2 + 1])
     if prof is None:
         phase("12-serve-profile", "device time not measured: the profiler "
                                   "saw no device event")
     else:
-        n_dev, busy_ms, top = prof
+        n_dev, busy_ms, top, _ = prof
         ours = {k: [(t, c) for nm, t, c in top if f"{k}_kernel" in nm]
                 for k in SERVE_REPLACES}
         phase("12-serve-profile", f"one decode step at position {steps // 2}"
@@ -1117,6 +1386,309 @@ def main() -> int:
                           for k, v in ours.items())
               + "; top by device ms: " + "; ".join(
                   f"{nm[:60]} {t:.4f} ms x{c:g}" for nm, t, c in top[:12]))
+    del run, kv, step_c, toks, ctx, rec, serve_kern, serve_plain, serve_lib
+    del pools0, slow_flat
+    torch.cuda.empty_cache()
+
+    # ---- 13. prefill kernels (K7, K8) vs plain versions ------------------
+    pre_err, pre_cases = check_prefill_kernels(torch, np, FA, FA_REF, SSD,
+                                               SSD_REF)
+    phase("13-prefill-kernels", f"flash_attention within {K7_TOL} of plain "
+          f"(max abs err {pre_err['flash_attention']:.3g}) over "
+          f"{pre_cases['flash_attention']} cases (zamba2 H=K=32 D=112 and "
+          "llama H=32 K=8 D=64; S=1024, S=200, Sq=256 < Skv=1024; causal, "
+          "window 64, non-causal; f32 and bf16; bf16 with v x 64); ssd_scan "
+          f"within atol {K8_ATOL} rtol {K8_RTOL} (max abs err {pre_err['ssd_scan']:.3g})"
+          f" over {pre_cases['ssd_scan']} cases (zamba2 H=112 P=64 N=64 and "
+          "mamba2-130m H=32 P=48 N=128, Q=256, S=1024; init and strong "
+          "decays; B/C in bf16 and f32)")
+
+    # ---- 14. prefill at full width: Llama 3.2 1B, then Zamba2-7B ---------
+    pwrap = {"flash_attention": FA.flash_attention, "ssd_scan": SSD.ssd_scan}
+    prefill_launches = {k: 0 for k in pwrap}
+    prefill_rows = {}
+    path_checks = []
+
+    def path_hooks(label, tail=None):
+        stack = contextlib.ExitStack()
+        stack.enter_context(on_path(
+            FA, "flash_attention", functools.partial(
+                k7_vs_plain, torch, FA_REF, tail=tail), path_checks, label))
+        stack.enter_context(on_path(
+            SSD, "ssd_scan", functools.partial(k8_vs_plain, torch, SSD_REF),
+            path_checks, label))
+        return stack
+
+    def prefill_cell(model, label):
+        cfg_m = model.cfg
+        toks = torch.as_tensor(np.random.default_rng(14).integers(
+            0, cfg_m.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32),
+            device="cuda")
+        rel = {}
+        for dt in ("bfloat16", "float32"):
+            with path_hooks(f"{label} B={PREFILL_B} S={PREFILL_S} {dt}"):
+                rel[dt] = prefill_agree(torch, make_prefill_step,
+                                        with_dtype(model, dt), toks,
+                                        PREFILL_TOL[dt])
+        step = make_prefill_step(cfg_m, impl="cuda")
+        toks = torch.as_tensor(np.random.default_rng(15).integers(
+            0, cfg_m.vocab_size, (TIMED_B, TIMED_S)).astype(np.int32),
+            device="cuda")
+        # layer 0's K7 (last PATH_TAIL query rows) and K8 (all 128 chunks)
+        # at the timed length, in a prefill of its own
+        with path_hooks(f"{label} B={TIMED_B} S={TIMED_S} "
+                        f"{cfg_m.dtype}", tail=PATH_TAIL):
+            step(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        for w in pwrap.values():
+            w.launches = 0
+        warm_ms, ms, peak = time_prefill(torch, step, model, toks)
+        n = {k: w.launches // 2 for k, w in pwrap.items()}
+        for k in n:
+            prefill_launches[k] += n[k]
+        prefill_rows[label] = dict(ms=ms, peak=peak, launches=n)
+        phase("14-prefill", f"{cfg_m.name} {cfg_m.num_layers} layers: cuda "
+              f"vs ref at B={PREFILL_B} S={PREFILL_S}: bf16 max |d logit| / "
+              f"max |logit| {rel['bfloat16']:.3g} <= "
+              f"{PREFILL_TOL['bfloat16']}, f32 {rel['float32']:.3g} <= "
+              f"{PREFILL_TOL['float32']}, all finite; timed B={TIMED_B} "
+              f"S={TIMED_S} bf16 (impl=cuda, CUDA events): {ms:.1f} ms "
+              f"(warm-up {warm_ms:.1f}), {TIMED_B * TIMED_S / (ms / 1e3):.1f}"
+              f" tokens/s, peak memory {peak:.2f} GiB; launches per prefill "
+              f"{n}")
+        return step, toks
+
+    prefill_cell(model, "llama")
+    require(prefill_launches["flash_attention"] == cfg.num_layers,
+            f"llama prefill launched K7 {prefill_launches} times")
+    del model
+    torch.cuda.empty_cache()
+    zcfg = get_config("zamba2_7b")
+    zmodel = make_model(zcfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in zmodel.parameters())
+    zstep, ztoks = prefill_cell(zmodel, "zamba2")
+    n_apps = -(-zcfg.num_layers // zcfg.hybrid_attn_every)
+    require(prefill_rows["zamba2"]["launches"] == {
+        "flash_attention": n_apps, "ssd_scan": zcfg.num_layers},
+        f"zamba2 prefill launches {prefill_rows['zamba2']['launches']}")
+    phase("14-prefill", f"{zcfg.name}: {n_params:,} parameters (float32 "
+          f"weights {n_params * 4 / 1e9:.1f} GB); K7 launches per prefill "
+          f"{n_apps}, K8 {zcfg.num_layers}")
+    for r in path_checks:
+        phase("14-prefill-path", f"{r['label']}: {r['what']}: max abs err "
+              f"{r['err']:.3g}, {r['share']:.3g} of the bound (atol "
+              f"{r['atol']}, rtol {r['rtol']})")
+    # llama: K7 in three prefills; zamba2: K7 and K8's y and h in three
+    require(len(path_checks) == 3 + 3 * 3,
+            f"path checks: {len(path_checks)} readings")
+    for r in path_checks:
+        require(r["share"] <= 1.0, f"{r['label']} {r['what']}: max abs err "
+                                   f"{r['err']:.3g} exceeds the bound")
+
+    # ---- 15. hybrid tiered-KV serving at full width ------------------------
+    zB, zsteps = get_serve_load("zamba2_7b")
+    ztcfg = full_load(zcfg, zB, zsteps)
+    torch.cuda.reset_peak_memory_stats()
+    ztoks_d = torch.as_tensor(np.random.default_rng(16).integers(
+        0, zcfg.vocab_size, (zB, zsteps)).astype(np.int32), device="cuda")
+    rec = {}
+    SD.equilibria_kv_step = recording_kv_step
+    zctx = dict(SD=SD, fused_mul_add=fused_mul_add, cfg=zcfg, tcfg=ztcfg,
+                model=zmodel, toks=ztoks_d, steps=zsteps, rec=rec)
+    for w in swrap.values():
+        w.launches = 0
+    zrun = serve_compare(torch, np, zctx, "equilibria", zsteps, TOL["bf16"],
+                         snapshot_at=zsteps // 2)
+    hyb_launches = {k: w.launches for k, w in swrap.items()}
+    zpeak = torch.cuda.max_memory_allocated() / 2**30
+    zkv = zrun["state"]["kv"]
+    zpromos = int(zkv.counters.promotions.sum())
+    zdemos = int(zkv.counters.demotions.sum())
+    zms = sorted(zrun["ms"])
+    zmean = sum(zms) / len(zms)
+    zfast = KC.by_tenant((zkv.fast_page >= 0).sum(1, dtype=torch.int32),
+                         zkv.tenant, ztcfg.n_tenants).tolist()
+    zslow = KC.by_tenant((zkv.slow_page >= 0).sum(1, dtype=torch.int32),
+                         zkv.tenant, ztcfg.n_tenants).tolist()
+    phase("15-hybrid-serve", f"{zcfg.name} {zcfg.num_layers} Mamba2 layers "
+          f"+ {KC.kv_layer_count(zcfg)} KV layers, {zB} seqs x {zsteps} "
+          f"steps, {ztcfg.n_tenants} tenants, equilibria, bf16; promotions "
+          f"{zpromos} (attempted "
+          f"{int(zkv.counters.attempted_promotions.sum())}) demotions "
+          f"{zdemos} (max hotness: slow {zrun['slow_hot_max']:.3g}, fast "
+          f"{zrun['fast_hot_max']:.3g}, threshold "
+          f"{ztcfg.promo_hot_threshold}) thrash "
+          f"{int(zkv.counters.thrash_events.sum())}; launches {hyb_launches}"
+          f"; step ms mean {zmean:.3f} median {zms[len(zms) // 2]:.3f} p90 "
+          f"{zms[int(len(zms) * 0.9)]:.3f} (CUDA events, impl=cuda); decode "
+          f"{zB / (zmean / 1e3):.1f} tokens/s; peak memory {zpeak:.2f} GiB; "
+          f"fast pages per tenant {zfast} (budget "
+          f"{SD.fast_budget_pages(zcfg, ztcfg, zB, zsteps)}), slow {zslow}; "
+          f"Mamba2 state cuda vs ref max rel {zrun.get('mamba_rel', 0):.3g}")
+    check_compare(np, zrun, TOL["bf16"], "15-hybrid-agree")
+    for name, n in hyb_launches.items():
+        require(n > 0, f"hybrid serving never launched {name}")
+    require(zpromos > 0 and zdemos > 0, f"hybrid serving: promotions "
+                                        f"{zpromos}, demotions {zdemos}")
+    zstep_c = SD.build_serve_step(zcfg, ztcfg, zB, zsteps, impl="cuda")
+    zwall, zprof = profile_serve_step(
+        torch, zstep_c, zmodel, zrun["snapshot"],
+        ztoks_d[:, zsteps // 2:zsteps // 2 + 1])
+    if zprof is None:
+        phase("15-hybrid-profile", "device time not measured: the profiler "
+                                   "saw no device event")
+    else:
+        n_dev, busy_ms, top, _ = zprof
+        phase("15-hybrid-profile", f"one decode step at position "
+              f"{zsteps // 2}: {n_dev:g} device events, busy {busy_ms:.4f} "
+              f"ms of {zwall:.4f} ms wall (idle share "
+              f"{1 - busy_ms / zwall:.3f}); top by device ms: " + "; ".join(
+                  f"{nm[:60]} {t:.4f} ms x{c:g}" for nm, t, c in top[:10]))
+    del zrun, zkv, zstep_c
+    torch.cuda.empty_cache()
+    side = []
+    for mode in ("tpp", "static"):
+        r = serve_compare(torch, np, zctx, mode, HYBRID_SIDE_STEPS,
+                          TOL["bf16"])
+        c = r["state"]["kv"].counters
+        side.append(f"{mode}: promotions {int(c.promotions.sum())} "
+                    f"demotions {int(c.demotions.sum())}, step ms mean "
+                    f"{sum(r['ms']) / len(r['ms']):.3f}")
+        check_compare(np, r, TOL["bf16"], f"15-hybrid-{mode}-agree")
+        del r
+    phase("15-hybrid-modes", f"{HYBRID_SIDE_STEPS} steps each: "
+          + " | ".join(side))
+
+    # ---- 16. hybrid decode == forward at full width in float32 ------------
+    z32 = with_dtype(zmodel, "float32")
+    ztoks_fw = ztoks_d[:HYBRID_FWD_BATCH, :HYBRID_FWD_STEPS].contiguous()
+    ctx32 = dict(zctx, cfg=z32.cfg, tcfg=tcfg_fw, model=z32, toks=ztoks_fw,
+                 steps=HYBRID_FWD_STEPS)
+    r32 = serve_compare(torch, np, ctx32, "equilibria", HYBRID_FWD_STEPS,
+                        TOL["f32"])
+    SD.equilibria_kv_step = kv_step
+    for w in pwrap.values():
+        w.launches = 0
+    with torch.no_grad():
+        ref_logits = hybrid_forward(z32, ztoks_fw)
+    fw_launches = {k: w.launches for k, w in pwrap.items()}
+    dec = torch.stack(r32["logits"], dim=1)
+    fw_rel = float((dec - ref_logits).abs().max() / ref_logits.abs().max())
+    c = r32["state"]["kv"].counters
+    fw_moves = int(c.promotions.sum() + c.demotions.sum())
+    fw_slow = int((r32["state"]["kv"].slow_page >= 0).sum())
+    require(fw_rel <= FWD_RTOL, f"hybrid decode != forward: {fw_rel:.3g}")
+    require(fw_moves > 0 and fw_slow > 0, "hybrid decode/forward: no "
+                                          "migrations")
+    require(all(v > 0 for v in fw_launches.values()),
+            f"hybrid forward launches {fw_launches}")
+    phase("16-hybrid-forward", f"f32 full width, {HYBRID_FWD_BATCH} seqs x "
+          f"{HYBRID_FWD_STEPS} steps: max |decode - forward| / max |logit| ="
+          f" {fw_rel:.3g} <= {FWD_RTOL} with {fw_moves} page moves and "
+          f"{fw_slow} slow pages; forward launches {fw_launches}; Mamba2 "
+          f"state cuda vs ref max rel {r32.get('mamba_rel', 0):.3g}")
+    check_compare(np, r32, TOL["f32"], "16-hybrid-f32-agree")
+    del r32, dec, ref_logits, z32
+    torch.cuda.empty_cache()
+
+    # ---- 17. prefill kernels: time, bound, plain, library ------------------
+    def k7_numbers(H, K, D, B=1, S=PREFILL_S):
+        g = torch.Generator(device="cuda").manual_seed(17)
+        q = torch.randn((B, H, S, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        k = torch.randn((B, K, S, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        v = torch.randn((B, K, S, D), generator=g, device="cuda").to(
+            torch.bfloat16)
+        n_pairs = S * (S + 1) // 2                     # causal, Sq == Skv
+        nbytes = 2 * (2 * B * H * S * D + 2 * B * K * S * D)
+        nops = 4 * B * H * D * n_pairs
+        return dict(
+            ms=device_ms(lambda: FA.flash_attention(q, k, v), n=10),
+            plain_ms=device_ms(lambda: FA_REF.flash_attention_ref(q, k, v),
+                               n=5),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), n=10),
+            t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+            t_ops=nops / BF16_OPS_PER_S * 1e3, bytes=nbytes, ops=nops,
+            peak="bf16 989 TFLOP/s")
+
+    def k8_numbers(H, P, N, G=1, B=1, S=PREFILL_S, Q=256):
+        g = torch.Generator(device="cuda").manual_seed(18)
+        x = torch.randn((B, S, H, P), generator=g, device="cuda") * 0.5
+        a = -F.softplus(torch.randn((B, S, H), generator=g, device="cuda")
+                        * 1.2)
+        b = (torch.randn((B, S, G, N), generator=g, device="cuda") * 0.5
+             ).to(torch.bfloat16)
+        c = (torch.randn((B, S, G, N), generator=g, device="cuda") * 0.5
+             ).to(torch.bfloat16)
+        tri = Q * (Q + 1) // 2
+        nops = B * H * (S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
+        nbytes = (4 * B * S * H * P * 2 + 4 * B * S * H + 2 * 2 * B * S * G
+                  * N + 4 * B * H * P * N)
+        return dict(
+            ms=device_ms(lambda: SSD.ssd_scan(x, a, b, c, chunk=Q), n=10),
+            plain_ms=device_ms(lambda: SSD_REF.ssd_scan_ref(x, a, b, c, Q),
+                               n=5),
+            library_ms=None, t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+            t_ops=nops / F32_OPS_PER_S * 1e3, bytes=nbytes, ops=nops,
+            peak="f32 67 TFLOP/s (x, y, h and the products are float32)")
+
+    knum = {"flash_attention": k7_numbers(zcfg.num_heads, zcfg.num_kv_heads,
+                                          zcfg.resolved_head_dim),
+            "ssd_scan": k8_numbers(112, 64, 64)}
+    k7_llama = k7_numbers(cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim)
+    for name, kn in knum.items():
+        bound = max(kn["t_bytes"], kn["t_ops"])
+        rows.append({
+            "name": name, "route": "cuda", "source": PREFILL_SOURCE,
+            "replaces": PREFILL_REPLACES[name],
+            "launches": prefill_launches[name],
+            "max_abs_err": max([pre_err[name]] + [
+                r["err"] for r in path_checks
+                if r["what"].startswith(KERNEL_TAG[name])]), "ms": kn["ms"],
+            "plain_ms": kn["plain_ms"], "bound_ms": bound,
+            "bound_by": "bytes" if kn["t_bytes"] >= kn["t_ops"]
+            else "operations",
+            "library_ms": kn["library_ms"],
+            "launches_per_prefill": {
+                k: v["launches"][name] for k, v in prefill_rows.items()},
+            "bytes": kn["bytes"], "ops": kn["ops"], "peak": kn["peak"],
+        })
+        lib = kn["library_ms"]
+        phase("17-prefill-kernel", f"{name} [B=1 S={PREFILL_S} zamba2 "
+              f"widths, bf16 inputs]: {kn['ms']:.4f} ms (plain "
+              f"{kn['plain_ms']:.4f}, library "
+              f"{'none' if lib is None else f'{lib:.4f}'}, bound "
+              f"{bound:.5f}: bytes {kn['t_bytes']:.5f} at 3.35 TB/s, "
+              f"operations {kn['t_ops']:.5f} at {kn['peak']}); launches per "
+              f"prefill {rows[-1]['launches_per_prefill']}")
+    phase("17-prefill-kernel", f"flash_attention [llama widths H=32 K=8 D=64"
+          f", B=1 S={PREFILL_S}, bf16]: {k7_llama['ms']:.4f} ms (plain "
+          f"{k7_llama['plain_ms']:.4f}, library {k7_llama['library_ms']:.4f}"
+          f", bound {max(k7_llama['t_bytes'], k7_llama['t_ops']):.5f})")
+
+    # ---- 18. where one Zamba2-7B prefill's device time goes ---------------
+    pprof = profile_fn(torch, lambda: zstep(zmodel, {"tokens": ztoks}))
+    if pprof is None:
+        phase("18-prefill-profile", "device time not measured: the profiler "
+                                    "saw no device event")
+    else:
+        n_dev, busy_ms, top, pwall = pprof
+        by_cls: dict = {}
+        for nm, t, cnt in top:
+            cls = classify(nm)
+            ms0, c0 = by_cls.get(cls, (0.0, 0))
+            by_cls[cls] = (ms0 + t, c0 + cnt)
+        phase("18-prefill-profile", f"{zcfg.name} prefill B={TIMED_B} "
+              f"S={TIMED_S}: {n_dev} device events, busy {busy_ms:.1f} ms of"
+              f" {pwall:.1f} ms wall (idle share {1 - busy_ms / pwall:.4f}); "
+              "device ms by class: " + ", ".join(
+                  f"{k} {v[0]:.1f} x{v[1]}" for k, v in sorted(
+                      by_cls.items(), key=lambda kv: -kv[1][0]))
+              + "; top: " + "; ".join(f"{nm[:50]} {t:.1f} ms x{cnt}"
+                                      for nm, t, cnt in top[:8]))
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,10 @@ CONFIG = ModelConfig(
 )
 
 
+# (sequences, decode steps) of the serving load the port is measured at
+SERVE_LOAD = (64, 512)
+
+
 def smoke_config() -> ModelConfig:
     return ModelConfig(
         name="llama32-smoke", family="dense", num_layers=2, d_model=64,

@@ -6,9 +6,12 @@ Every function reads a reference tree whose leaves were made numpy arrays
 * ``state_from_numpy`` / ``state_to_numpy``: the tiering engine's
   ``TierState``;
 * ``params_from_numpy``: the reference's parameter tree -> the port's
-  ``DenseLM`` (names and layouts map one to one);
+  ``DenseLM`` or ``HybridLM`` (names and layouts map one to one, the
+  hybrid's ``shared`` block included);
 * ``cache_from_numpy`` / ``cache_to_numpy``: the serving path's
-  ``TieredKVCache``.
+  ``TieredKVCache``;
+* ``mamba_cache_from_numpy`` / ``mamba_cache_to_numpy``: the serving
+  path's stacked ``MambaCache`` (hybrid family).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 from repro_torch.core.state import Counters, ThrashTable, TierState
 from repro_torch.device import resolve_device
 from repro_torch.memtier.kvcache import TieredKVCache
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.ssm import MambaCache
+from repro_torch.models.transformer import make_model
 from repro_torch.obs.stats import TierStats
 from repro_torch.obs.trace import MigrationRing
 
@@ -70,11 +74,11 @@ def state_to_numpy(state: TierState) -> dict:
 
 # ------------------------------------------------------------- serving ----
 def params_from_numpy(tree, cfg, device="cuda"):
-    """The port's ``DenseLM`` from a reference parameter tree whose leaves
-    were made numpy arrays (``{"embed": {...}, "layers": {...}}``, stacked
-    layer axis). Names and layouts map one to one; every leaf must match the
-    model's shape."""
-    model = DenseLM(cfg, seed=None, device=device)
+    """The port's model of ``cfg``'s family from a reference parameter tree
+    whose leaves were made numpy arrays (``{"embed": {...}, "layers": {...}}``
+    with a stacked layer axis, plus ``"shared"`` for the hybrid). Names and
+    layouts map one to one; every leaf must match the model's shape."""
+    model = make_model(cfg, seed=None, device=device)
     params = dict(model.named_parameters())
     seen = set()
 
@@ -150,3 +154,18 @@ def cache_to_numpy(cache) -> dict:
         else:
             out[f] = leaf(v)
     return out
+
+
+def mamba_cache_from_numpy(tree, device="cuda") -> MambaCache:
+    """The port's stacked ``MambaCache`` from a reference ``MambaCache``
+    whose leaves were made numpy arrays (bf16 buffers as ml_dtypes)."""
+    device = resolve_device(device)
+    return MambaCache(*(_tensor_from_numpy(getattr(tree, f), device)
+                        for f in MambaCache._fields))
+
+
+def mamba_cache_to_numpy(cache: MambaCache) -> dict:
+    """Dict of numpy arrays keyed by the reference's field names (bf16
+    buffers widen exactly to float32)."""
+    return {f: (v.to(torch.float32) if v.dtype == torch.bfloat16 else v
+                ).cpu().numpy() for f, v in cache._asdict().items()}

@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each source under ``csrc/`` (``selection.cu``: the tiering tick's selection
-core; ``serving.cu``: the serving path's attention and page moves) is
+core; ``serving.cu``: the serving path's attention and page moves;
+``prefill.cu``: the full-sequence forward's attention and SSD scan) is
 compiled with ``nvcc`` into its own shared library with a plain C interface
 and loaded with ``ctypes``; pointers come from ``tensor.data_ptr()`` and the
 stream from PyTorch's current stream. A library is built at first use,
@@ -46,6 +47,13 @@ _SIGNATURES = {
                                           _I, _I, _I, _I, _F, _I, _P, _P, _P,
                                           _P, _P),
         "migrate_pages_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P),
+    },
+    "prefill": {
+        # three strides of each of four tensors, as long long
+        "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                   *(_LL,) * 12, _I, _I, _I, _F, _I, _P),
+        "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, *(_LL,) * 12, _I, _P),
     },
 }
 SOURCES = tuple(_SIGNATURES)
@@ -148,6 +156,20 @@ def build_all() -> Dict[str, KernelLibrary]:
 
 def stream_of(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check_strided(x: torch.Tensor, dtypes, ndim: int, name: str) -> None:
+    """Raise unless ``x`` is a CUDA tensor of one of ``dtypes``, ``ndim``-D,
+    whose last dimension is contiguous (the kernel reads it through its
+    other strides)."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name}: expected one of {dtypes}, got {x.dtype}")
+    if x.dim() != ndim or x.stride(-1) != 1:
+        raise ValueError(f"{name}: expected {ndim}-D with a contiguous last "
+                         f"dimension, got shape {tuple(x.shape)} strides "
+                         f"{x.stride()}")
 
 
 def check_cuda(x: torch.Tensor, dtype: torch.dtype, ndim: int,

@@ -1,0 +1,57 @@
+"""Launcher of the flash-attention CUDA kernel (``csrc/prefill.cu``).
+
+``flash_attention_cuda`` replaces ``repro/kernels/flash_attention/
+kernel.py`` ``flash_attention_tpu``. One thread block per (batch, head,
+64-query tile) walks only the 64-key tiles inside the causal / sliding-
+window band, with one K and V tile in shared memory and the online-softmax
+state (m, l, acc) in float32; the kv head of query head h is h // (H/K),
+with no expansion. Any Sq <= Skv and any head dim up to 128 (the TPU
+wrapper's padding of D to 128 lanes is not needed; ``sm_scale`` is
+1/sqrt(D)). q, k and v are read through their strides, so [B, S, H, D]
+activations viewed as [B, H, S, D] need no copy. Bound by operations: two
+products of 64 x 64 x D per pair of tiles. bf16 inputs whose head dim is a
+multiple of 16 run them on the tensor cores (``mma.sync`` m16n8k16,
+float32 accumulation, p rounded to bf16 as the TPU kernel rounds it); f32
+inputs and other head dims on the CUDA cores in float32.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import check_strided, load_library, stream_of
+
+MAX_HEAD_DIM = 128
+DTYPES = (torch.bfloat16, torch.float32)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True,
+                         window: Optional[int] = None,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,H,Sq,D]; k, v [B,K,Skv,D]; bf16 or f32, last dimension
+    contiguous. Returns [B,H,Sq,D] in q's dtype."""
+    check_strided(q, DTYPES, 4, "q")
+    for name, x in (("k", k), ("v", v)):
+        check_strided(x, (q.dtype,), 4, name)
+    B, H, Sq, D = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if (k.shape != (B, K, Skv, D) or v.shape != k.shape or H % K
+            or not 1 <= D <= MAX_HEAD_DIM or not 1 <= Sq <= Skv):
+        raise ValueError(
+            f"flash_attention: bad shapes q {tuple(q.shape)} k "
+            f"{tuple(k.shape)} v {tuple(v.shape)} (K divides H, head dim "
+            f"<= {MAX_HEAD_DIM}, 1 <= Sq <= Skv)")
+    out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    with torch.cuda.device(q.device):
+        load_library("prefill").call(
+            "flash_attention_launch", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, H, K, Sq, Skv, D, *strides,
+            int(causal), int(window is not None), int(window or 0),
+            ctypes.c_float(scale), int(q.dtype == torch.bfloat16),
+            stream_of(q))
+    return out

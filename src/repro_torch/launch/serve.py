@@ -1,7 +1,10 @@
 """Multi-tenant serving launcher: Equilibria-tiered paged-KV decode (torch
-port of the reference's ``launch/serve.py``, dense family).
+port of the reference's ``launch/serve.py``, dense and hybrid families).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama32_1b \\
+      --smoke --tenants 4 --batch 8 --steps 48 --mode equilibria --bound 3 \\
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \\
       --smoke --tenants 4 --batch 8 --steps 48 --mode equilibria --bound 3 \\
       --device cpu
 
@@ -12,30 +15,40 @@ shared fast-tier page budget inside the step. Prints the per-tenant
 cgroup-style ``tier_stat`` counters and the tail of the migration ring.
 
 ``--device`` defaults to ``cuda`` and raises without a card. ``--full``
-runs the serving load the port is measured at (``full_load``): 4 tenants,
-64 sequences, 512 steps, 16-token pages, protections (320, 256, 128, 0)
-and bounds (0, 448, 384, 320) pages, a 256-slot thrash table. The port
-runs on one device and builds no mesh, so the reference's
-``--production`` (its production mesh) is refused.
+runs the serving load the port is measured at for the arch: the
+(sequences, steps) of its config's ``SERVE_LOAD`` (llama32_1b 64 x 512,
+zamba2_7b 32 x 256) under ``full_load``'s policy, 4 tenants, 16-token
+pages, a 256-slot thrash table, and protections and bounds that are fixed
+shares of each tenant's quarter of the fast budget (75% of the logical
+pages, which binds): llama32_1b (320, 256, 128, 0) and (0, 448, 384, 320)
+pages, zamba2_7b (80, 64, 32, 0) and (0, 112, 96, 80). The port runs on
+one device and builds no mesh, so the reference's ``--production`` (its
+production mesh) is refused.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.configs.base import TieringConfig
+from repro_torch.configs import get_config, get_serve_load, get_smoke_config
+from repro_torch.configs.base import ModelConfig, TieringConfig
 from repro_torch.device import resolve_device
 from repro_torch.memtier.kvcache import kv_layer_count
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import make_model
 from repro_torch.obs.stats import format_tier_stat, stats_summary
 from repro_torch.obs.trace import decode_ring
-from repro_torch.serve.decode import build_serve_step, init_serve_state
+from repro_torch.serve.decode import (build_serve_step, fast_budget_pages,
+                                     init_serve_state)
 
-FULL_BATCH, FULL_STEPS = 64, 512
+# Each tenant's lower protection and upper bound in sixths of its even
+# quarter of the fast budget (0: unbounded): tenant 0 protected and
+# unbounded, tenants 1-3 less protected and bounded at 7/6, 6/6 and 5/6.
+PROTECTION_SIXTHS = (5, 4, 2, 0)
+BOUND_SIXTHS = (0, 7, 6, 5)
 # A page's hotness is the EWMA (decay 0.85) of its share of the sequence's
 # attention, a share the pages of one sequence split to 1 every step; the
 # steady-state hotness of a page holding share m is m / 0.15, and the even
@@ -49,12 +62,19 @@ FULL_BATCH, FULL_STEPS = 64, 512
 FULL_PROMO_THRESHOLD = 0.25
 
 
-def full_load() -> TieringConfig:
-    """The tiering configuration of the measured serving load."""
-    return TieringConfig(
-        n_tenants=4, page_tokens=16, thrash_table_slots=256,
-        lower_protection=(320, 256, 128, 0), upper_bound=(0, 448, 384, 320),
-        promo_hot_threshold=FULL_PROMO_THRESHOLD)
+def full_load(cfg: ModelConfig, batch: int, steps: int) -> TieringConfig:
+    """The measured tiering policy on a ``batch`` x ``steps`` load of
+    ``cfg``: 4 tenants, 16-token pages, protections and bounds from
+    ``PROTECTION_SIXTHS`` and ``BOUND_SIXTHS`` of each tenant's quarter of
+    the fast budget."""
+    tcfg = TieringConfig(n_tenants=len(PROTECTION_SIXTHS), page_tokens=16,
+                         thrash_table_slots=256,
+                         promo_hot_threshold=FULL_PROMO_THRESHOLD)
+    share = fast_budget_pages(cfg, tcfg, batch, steps) // tcfg.n_tenants
+    return dataclasses.replace(
+        tcfg, lower_protection=tuple(share * s // 6
+                                     for s in PROTECTION_SIXTHS),
+        upper_bound=tuple(share * s // 6 for s in BOUND_SIXTHS))
 
 
 def main(argv=None) -> None:
@@ -84,8 +104,9 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.full:
-        tcfg = full_load()
-        tenants, batch, steps = tcfg.n_tenants, FULL_BATCH, FULL_STEPS
+        batch, steps = get_serve_load(args.arch)
+        tcfg = full_load(cfg, batch, steps)
+        tenants = tcfg.n_tenants
     else:
         tenants, batch, steps = args.tenants, args.batch, args.steps
         tcfg = TieringConfig(
@@ -94,7 +115,7 @@ def main(argv=None) -> None:
             lower_protection=(args.protection,) * tenants,
             upper_bound=(args.bound,) * tenants)
 
-    model = DenseLM(cfg, seed=0, device=dev)
+    model = make_model(cfg, seed=0, device=dev)
     state = init_serve_state(cfg, tcfg, batch, steps, device=dev)
     step = build_serve_step(cfg, tcfg, batch, steps, mode=args.mode,
                             device=dev)

@@ -81,11 +81,17 @@ def cache_dims(cfg: ModelConfig, shape_seq: int, page_tokens: int,
 
 
 def kv_layer_count(cfg: ModelConfig) -> int:
-    """Number of attention layers that need a paged KV cache."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: only the dense family is ported")
-    return cfg.num_layers
+    """Number of attention layers that need a paged KV cache: every layer
+    of the dense family; for the hybrid, the reference's
+    ``num_layers // hybrid_attn_every + 1`` (one per application of the
+    shared block, plus one spare when ``every`` divides the depth)."""
+    if cfg.family == "dense":
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every + 1
+    raise NotImplementedError(
+        f"family {cfg.family!r}: the paged KV cache is ported for the dense "
+        "and hybrid families; moe, encdec, vlm and ssm are still to port")
 
 
 def init_cache(cfg: ModelConfig, tcfg: TieringConfig, batch: int, seq: int,

@@ -6,7 +6,9 @@ Layouts are the reference's: activations [B, S, d], heads [B, S, H, D],
 weights ``wq`` [d, H, D], ``wk``/``wv`` [d, K, D], ``wo`` [H, D, d]. Each
 function takes one layer's parameters as a mapping (``p["wq"]``), casts the
 weights to the activation dtype at use, and upcasts to float32 exactly where
-the reference does. The tiered paged decode attention lives in
+the reference does. Full-sequence self-attention (``self_attention``) goes
+through the ``flash_attention`` op (K7); ``attn_dense`` stays the plain
+materialised form. The tiered paged decode attention lives in
 ``memtier/kvcache.py`` and ``kernels/tiered_attention``.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.models.params import dtype_of
 
 NEG_INF = -1e30
@@ -71,6 +74,21 @@ def attention_out(p, attn: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """attn [B,S,H,D] -> [B,S,d] through ``wo`` [H,D,d]."""
     wo = p["wo"].to(dtype_of(cfg.dtype))
     return attn.reshape(*attn.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+def self_attention(p, x: torch.Tensor, cfg: ModelConfig, positions, *,
+                   causal: bool = True, window: Optional[int] = None,
+                   impl: str = "cuda") -> torch.Tensor:
+    """Full self-attention block body (no residual/norm). The reference
+    routes to ``attn_dense``, ``attn_chunked`` or ``attn_local`` by length
+    and window; the three compute one function, which the ``flash_attention``
+    op (K7 on a CUDA tensor; its plain version with ``impl="ref"``)
+    computes at every length, skipping the key tiles outside the band."""
+    q, k, v = attention_qkv(p, x, cfg, positions)
+    attn = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, window=window,
+                              impl=impl)
+    return attention_out(p, attn.transpose(1, 2), cfg)
 
 
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

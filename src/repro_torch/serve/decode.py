@@ -1,14 +1,16 @@
 """Multi-tenant decode serving with Equilibria-tiered paged KV caches (torch
-port of the dense family of the reference's ``serve/decode.py``).
+port of the dense and hybrid families of the reference's
+``serve/decode.py``).
 
 ``build_serve_step(cfg, tcfg, batch, seq)`` returns
 ``serve_step(model, state, tokens [B,1]) -> (logits [B,1,V], state)``: one
 decoded token for every sequence, then the Equilibria tiering step (hotness
 from attention mass, Eq.1/Eq.2-regulated migrations, thrash mitigation).
-The reference's scan over layers is a Python loop; the KV pools are
-updated in place (token append and page moves). State is a dict
-``{"kv": TieredKVCache}``. Only the dense family is ported; the other
-serving families arrive with slice F.
+The reference's scan over layers is a Python loop; the KV pools and the
+Mamba2 decode state are updated in place (token append, page moves, the
+per-layer recurrent state). State is a dict ``{"kv": TieredKVCache}``, plus
+``"mamba": MambaCache`` (stacked over layers) for the hybrid. The moe,
+encdec, vlm and ssm families are still to port.
 """
 from __future__ import annotations
 
@@ -21,16 +23,18 @@ from repro_torch.core.state import make_policy
 from repro_torch.device import resolve_device
 from repro_torch.memtier import kvcache as KC
 from repro_torch.memtier.tiering import MODES, equilibria_kv_step
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as TF
 
 IMPLS = ("cuda", "ref")
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_served(cfg: ModelConfig) -> None:
+    if cfg.family not in TF.FAMILIES:
         raise NotImplementedError(
-            f"serving family {cfg.family!r} is not ported yet (dense only; "
-            "moe, encdec, vlm, hybrid and ssm arrive with slice F)")
+            f"serving family {cfg.family!r} is not ported yet (the port "
+            f"serves {', '.join(TF.FAMILIES)}; {', '.join(TF.UNPORTED)} are "
+            "still to port)")
 
 
 def fast_budget_pages(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
@@ -42,8 +46,12 @@ def fast_budget_pages(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 
 def init_serve_state(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                      seq: int, device="cuda") -> Dict[str, object]:
-    _require_dense(cfg)
-    return {"kv": KC.init_cache(cfg, tcfg, batch, seq, device=device)}
+    _require_served(cfg)
+    state = {"kv": KC.init_cache(cfg, tcfg, batch, seq, device=device)}
+    if cfg.family == "hybrid":
+        state["mamba"] = S.init_mamba_cache(cfg, batch, cfg.num_layers,
+                                            device=device)
+    return state
 
 
 def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
@@ -54,7 +62,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     impl "cuda" (the default on a card) runs the attention and the page
     moves through the hand-written kernels' wrappers; "ref" (the default on
     the CPU) calls their plain versions directly, on any device."""
-    _require_dense(cfg)
+    _require_served(cfg)
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     dev = resolve_device(device)
@@ -70,29 +78,72 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     window = cfg.sliding_window
     n_layers = KC.kv_layer_count(cfg)
 
-    def serve_step(model: TF.DenseLM, state, tokens: torch.Tensor):
-        kv: KC.TieredKVCache = state["kv"]
-        kv, lpage = KC.alloc_page_for_append(kv, tcfg, policy, budget)
-        x = TF.embed_tokens(model, tokens, cfg)
-        pos = kv.seq_len[:, None]
-        amf = torch.zeros(kv.fast_page.shape, dtype=torch.float32, device=dev)
-        ams = torch.zeros(kv.slow_page.shape, dtype=torch.float32, device=dev)
-        for i in range(n_layers):
-            def attend(q, k, v, i=i):
-                nonlocal amf, ams
-                fk, fv = kv.fast_k[i], kv.fast_v[i]
-                sk, sv = kv.slow_k[i], kv.slow_v[i]
-                KC.append_token_kv(fk, fv, sk, sv, kv, lpage, k, v)
-                out, mf, ms = KC.tiered_paged_attention(
-                    q, fk, fv, sk, sv, kv.fast_page, kv.slow_page,
-                    kv.seq_len, window=window, impl=impl)
-                amf, ams = amf + mf, ams + ms
-                return out
+    def attend_fn(kv: KC.TieredKVCache, lpage, i: int, masses: list):
+        """The ``attend`` callback of KV layer ``i``: append this step's K/V
+        in place, attend over both tiers, add the page masses."""
+        def attend(q, k, v):
+            fk, fv = kv.fast_k[i], kv.fast_v[i]
+            sk, sv = kv.slow_k[i], kv.slow_v[i]
+            KC.append_token_kv(fk, fv, sk, sv, kv, lpage, k, v)
+            out, mf, ms = KC.tiered_paged_attention(
+                q, fk, fv, sk, sv, kv.fast_page, kv.slow_page, kv.seq_len,
+                window=window, impl=impl)
+            masses[0] = masses[0] + mf
+            masses[1] = masses[1] + ms
+            return out
+        return attend
 
-            x = TF.decoder_block_decode(model.layer(i), x, cfg, pos, attend)
+    def begin(state, model, tokens):
+        kv, lpage = KC.alloc_page_for_append(state["kv"], tcfg, policy,
+                                             budget)
+        masses = [torch.zeros(kv.fast_page.shape, dtype=torch.float32,
+                              device=dev),
+                  torch.zeros(kv.slow_page.shape, dtype=torch.float32,
+                              device=dev)]
+        return kv, lpage, masses, TF.embed_tokens(model, tokens, cfg)
+
+    def tiering(kv: KC.TieredKVCache, masses: list):
         kv = kv._replace(seq_len=kv.seq_len + 1)
-        kv = equilibria_kv_step(kv, amf / n_layers, ams / n_layers, tcfg,
-                                policy, budget, mode=mode, impl=impl)
+        return equilibria_kv_step(kv, masses[0] / n_layers,
+                                  masses[1] / n_layers, tcfg, policy, budget,
+                                  mode=mode, impl=impl)
+
+    if cfg.family == "dense":
+        def serve_step(model: TF.DenseLM, state, tokens: torch.Tensor):
+            kv, lpage, masses, x = begin(state, model, tokens)
+            pos = kv.seq_len[:, None]
+            for i in range(n_layers):
+                x = TF.decoder_block_decode(model.layer(i), x, cfg, pos,
+                                            attend_fn(kv, lpage, i, masses))
+            kv = tiering(kv, masses)
+            return TF.lm_logits(model, x, cfg), {**state, "kv": kv}
+
+        return serve_step
+
+    every = cfg.hybrid_attn_every
+
+    def serve_step(model: TF.HybridLM, state, tokens: torch.Tensor):
+        """The reference's hybrid branch: before every ``every``-th Mamba2
+        layer the shared block attends over KV layer ``idx // every`` (a
+        branch on the host layer index); the page masses are divided by the
+        KV layer count ``num_layers // every + 1``, as the reference
+        divides them, not by the number of applications."""
+        kv, lpage, masses, x = begin(state, model, tokens)
+        emb0 = x
+        pos = kv.seq_len[:, None]
+        mc: S.MambaCache = state["mamba"]
+        sp = model.shared.tree()
+        for idx in range(cfg.num_layers):
+            if idx % every == 0:
+                x = TF.shared_attn_block(
+                    sp, x, emb0, cfg, TF.cached_attention(
+                        cfg, pos, attend_fn(kv, lpage, idx // every, masses)))
+            x, new = S.mamba_decode_step(
+                model.layer(idx), x, S.MambaCache(*(c[idx] for c in mc)),
+                cfg)
+            for c, n in zip(mc, new):
+                c[idx].copy_(n)
+        kv = tiering(kv, masses)
         return TF.lm_logits(model, x, cfg), {**state, "kv": kv}
 
     return serve_step

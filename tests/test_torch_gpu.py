@@ -12,7 +12,10 @@ versions against the reference on the CPU: for the selection core, ties
 from integer scores, +-inf and NaN scores, zero and negative quotas, k > S,
 ring overflow and a ring head near 2**31; for the serving kernels, free
 slots, mid-page lengths, a sliding window, an all-unselected page move and
-a move whose source and destination slots are equal.
+a move whose source and destination slots are equal; for the prefill
+kernels (whose seeded cases also feed ``tests/test_torch_prefill.py``),
+causal / windowed / full attention with GQA, ragged lengths and queries
+shorter than keys, and SSD scans under decays that underflow.
 """
 import numpy as np
 import pytest
@@ -188,4 +191,118 @@ def test_migrate_pages_matches_plain_on_card(shape, dtype, cuda):
         got = TMIG.migrate_pages(
             s_t, torch.as_tensor(dst, device=cuda).to(dtype), *a)
         assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------- prefill kernels (K7, K8) ----
+# (b, h, kh, sq, skv, d): the reference's tests/test_kernels.py shapes, then
+# the port's widths (zamba2's head dim 112; lengths not a multiple of the
+# 64-row tiles, queries shorter than keys; a head dim of 40, not a multiple
+# of 16, which bf16 runs on the CUDA cores)
+FLASH_SHAPES = [(2, 4, 2, 128, 128, 64), (1, 8, 8, 64, 64, 32),
+                (2, 2, 1, 64, 256, 64), (1, 4, 2, 256, 256, 48),
+                (1, 4, 4, 128, 128, 112), (1, 4, 2, 200, 200, 112),
+                (2, 4, 2, 72, 200, 64), (1, 4, 2, 96, 96, 40)]
+FLASH_MASKS = [(True, None), (True, 64), (False, None)]
+
+
+def flash_case(shape, seed=0):
+    """Seeded q [B,H,Sq,D], k/v [B,K,Skv,D] in float32."""
+    b, h, kh, sq, skv, d = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, h, sq, d)).astype(np.float32),
+            rng.standard_normal((b, kh, skv, d)).astype(np.float32),
+            rng.standard_normal((b, kh, skv, d)).astype(np.float32))
+
+
+# (b, s, h, p, n, chunk, g): the reference's tests/test_kernels.py shapes
+# (groups == heads), then a chunk of 64 with grouped B/C
+SSD_SHAPES = [(2, 64, 3, 16, 8, 16, 3), (1, 128, 2, 32, 16, 32, 2),
+              (2, 32, 4, 8, 8, 8, 4), (1, 256, 4, 16, 16, 64, 1)]
+
+
+def ssd_case(shape, seed=0, decay="test"):
+    """Seeded SSD inputs: x [B,S,H,P], a [B,S,H], b/c [B,S,G,N] float32.
+    ``decay`` "test" is the reference test's ``-|N(0,1)| * 0.3``; "init" is
+    what the reference's init gives a Mamba2 block, softplus(~N(0, 1.2)) *
+    -1 (about -0.69 a step, so exp(a_cum) underflows inside a chunk of
+    256); "strong" is -|N(0,1)| * 8."""
+    b, s, h, p, n, _, g = shape
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)
+    z = rng.standard_normal((b, s, h))
+    a = {"test": -np.abs(z) * 0.3,
+         "init": -np.logaddexp(z * 1.2, 0.0),
+         "strong": -np.abs(z) * 8.0}[decay].astype(np.float32)
+    bb = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
+    cc = (rng.standard_normal((b, s, g, n)) * 0.5).astype(np.float32)
+    return x, a, bb, cc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_matches_plain_on_card(shape, dtype, causal, window,
+                                               cuda):
+    """K7 against its plain version on the same inputs, within the
+    reference's kernel tolerance (tests/test_kernels.py: 2e-5 in float32,
+    2e-2 in bf16)."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
+               for x in flash_case(shape))
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # a strided [B,S,H,D] view reads the same
+    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(FA.flash_attention(qs, k, v, causal=causal,
+                                          window=window), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_keeps_p_exact_with_large_values_on_card(
+        causal, window, cuda):
+    """bf16 K7 with |v| in the tens (as in a prefill's first layer) within
+    2e-2 of its plain version: the tensor-core kernel's P V must keep p
+    near float32, as the TPU kernel's float32 product does; one bf16 p
+    misses by up to 2^-9 of |v|."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = flash_case((1, 4, 2, 256, 256, 64), seed=3)
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16)
+               for x in (q, k, v * 64))
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decay", ["test", "init", "strong"])
+def test_ssd_scan_matches_plain_on_card(shape, bc_dtype, decay, cuda):
+    """K8 against its plain version, NaN-free under decays that underflow.
+    Both compute in float32 with a_cum in float64, so the bound (atol 1e-5,
+    rtol 1e-4) is tighter than the reference's kernel-test bound (atol
+    1e-4, rtol 5e-2), which the CPU tests against the reference keep; a
+    kernel computing in bf16 or TF32 fails it."""
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.kernels.ssd_scan import ref as SSD_REF
+    x, a, bb, cc = (torch.as_tensor(t, device=cuda)
+                    for t in ssd_case(shape, decay=decay))
+    bb, cc = bb.to(bc_dtype), cc.to(bc_dtype)
+    chunk = shape[5]
+    y, h = SSD.ssd_scan(x, a, bb, cc, chunk=chunk)
+    y_ref, h_ref = SSD_REF.ssd_scan_ref(x, a, bb, cc, chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(h, h_ref, atol=1e-5, rtol=1e-4)
     torch.cuda.synchronize()

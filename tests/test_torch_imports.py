@@ -134,17 +134,21 @@ def _constructors(**dev):
     from repro_torch.core import hotness, select, state, tick
     from repro_torch.launch import serve as launch_serve
     from repro_torch.memtier import kvcache
-    from repro_torch.models.transformer import DenseLM
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import DenseLM, HybridLM, make_model
     from repro_torch.obs import stats, trace
     from repro_torch.serve import decode
+    from repro_torch.train.step import make_prefill_step
     cfg = TieringConfig(n_tenants=2, n_fast_pages=8, n_slow_pages=16,
                         page_tokens=4)
     owner = np.repeat(np.arange(2, dtype=np.int32), 4)
     mcfg = get_smoke_config("llama32_1b")
+    hcfg = get_smoke_config("zamba2_7b")
 
-    def param_tree():
+    def param_tree(model_cfg=mcfg):
         tree: dict = {}
-        for name, p in DenseLM(mcfg, device="cpu").named_parameters():
+        for name, p in make_model(model_cfg, device="cpu"
+                                  ).named_parameters():
             *path, leaf = name.split(".")
             node = tree
             for k in path:
@@ -180,6 +184,21 @@ def _constructors(**dev):
             kvcache.init_cache(dataclasses.replace(mcfg, dtype="float32"),
                                cfg, 2, 8, device="cpu"), **dev),
         "launch.serve": lambda: launch_serve.main(cli),
+        "HybridLM": lambda: HybridLM(hcfg, **dev),
+        "make_model": lambda: make_model(hcfg, **dev),
+        "make_prefill_step": lambda: make_prefill_step(hcfg, **dev),
+        "init_mamba_cache": lambda: ssm.init_mamba_cache(hcfg, 2, 4, **dev),
+        "init_serve_state[hybrid]": lambda: decode.init_serve_state(
+            hcfg, cfg, 2, 8, **dev),
+        "build_serve_step[hybrid]": lambda: decode.build_serve_step(
+            hcfg, cfg, 2, 8, **dev),
+        "params_from_numpy[hybrid]": lambda: convert.params_from_numpy(
+            param_tree(hcfg), hcfg, **dev),
+        "mamba_cache_from_numpy": lambda: convert.mamba_cache_from_numpy(
+            ssm.init_mamba_cache(dataclasses.replace(hcfg, dtype="float32"),
+                                 2, 4, device="cpu"), **dev),
+        "launch.serve[hybrid]": lambda: launch_serve.main(
+            ["--arch", "zamba2_7b"] + cli),
     }
 
 

@@ -1,0 +1,316 @@
+"""The port's prefill path held against the JAX reference on the CPU: the
+plain versions of K7 (flash attention) and K8 (SSD scan), the Mamba2 block,
+the hybrid and dense full-sequence forwards and ``make_prefill_step``.
+
+Each test gives both packages the same seeded numpy inputs (weights from
+the reference's ``init_params``, crossing over through
+``convert.params_from_numpy``); reference functions that hold float
+arithmetic run jitted, as the reference runs them. K7 within 2e-5 and K8
+within atol 1e-4 / rtol 5e-2 (the reference's own kernel-test tolerances,
+tests/test_kernels.py, float32); forwards within 1e-4 of max |logit|
+(float32 sums taken in another order).
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as j_smoke
+from repro.configs.base import TrainConfig
+from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.ssd_scan.ops import ssd_scan as j_ssd
+from repro.models import ssm as JS
+from repro.models.params import init_params as j_init_params
+from repro.models.transformer import model_forward as j_forward
+from repro.models.transformer import model_specs as j_specs
+from repro.train.step import make_prefill_step as j_prefill
+from repro_torch import convert
+from repro_torch.configs import get_smoke_config as t_smoke
+from repro_torch.kernels.flash_attention import ops as TFA
+from repro_torch.kernels.flash_attention import ref as TFA_REF
+from repro_torch.kernels.ssd_scan import ops as TSSD
+from repro_torch.models import layers as TL
+from repro_torch.models import ssm as TS
+from repro_torch.models import transformer as TF
+from repro_torch.train.step import make_prefill_step as t_prefill
+from test_torch_gpu import (FLASH_MASKS, FLASH_SHAPES, SSD_SHAPES,
+                            flash_case, ssd_case)
+
+CPU = "cpu"
+FWD_RTOL = 1e-4
+# tests/test_kernels.py's flash-attention grid, plus the port's widths
+REF_FLASH = FLASH_SHAPES[:4] + [FLASH_SHAPES[4]]
+
+
+def T_(x):
+    return torch.as_tensor(np.array(x))
+
+
+@functools.lru_cache(maxsize=None)
+def _model(arch: str):
+    """(reference params, port model, float32 configs) of ``arch``'s smoke
+    config."""
+    cfg_j = dataclasses.replace(j_smoke(arch), dtype="float32")
+    cfg_t = dataclasses.replace(t_smoke(arch), dtype="float32")
+    params = j_init_params(jax.random.PRNGKey(0), j_specs(cfg_j))
+    host = jax.tree_util.tree_map(np.asarray, params)
+    return params, convert.params_from_numpy(host, cfg_t, device=CPU), \
+        cfg_j, cfg_t
+
+
+def _tokens(cfg, batch, seq, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+
+
+def _rel(got, want) -> float:
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+# ------------------------------------------------------------------- K7 ----
+@pytest.mark.parametrize("impl", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("shape", REF_FLASH)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_plain_matches_reference(shape, causal, window,
+                                                  impl):
+    q, k, v = flash_case(shape)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, window=window, impl=impl, block_q=64,
+                   block_k=64)
+    got = TFA.flash_attention(T_(q), T_(k), T_(v), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES[5:])
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_ragged_lengths_match_reference(shape, causal,
+                                                        window):
+    """Lengths that are not a multiple of a tile (the TPU kernel asserts
+    divisibility; the port's kernel masks its tail tiles): the plain
+    version against the reference's plain version."""
+    q, k, v = flash_case(shape)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, window=window, impl="ref")
+    got = TFA.flash_attention(T_(q), T_(k), T_(v), causal=causal,
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_flash_attention_impl_ref_and_wrapper_agree_on_cpu():
+    """On a CPU tensor the wrapper takes the plain version and counts no
+    launch; ``impl="ref"`` is the plain version too."""
+    q, k, v = (T_(x) for x in flash_case(FLASH_SHAPES[0]))
+    before = TFA.flash_attention.launches
+    a = TFA.flash_attention(q, k, v, window=64)
+    b = TFA.flash_attention(q, k, v, window=64, impl="ref")
+    assert torch.equal(a, b)
+    assert torch.equal(a, TFA_REF.flash_attention_ref(q, k, v, window=64))
+    assert TFA.flash_attention.launches == before
+    with pytest.raises(ValueError, match="impl"):
+        TFA.flash_attention(q, k, v, impl="pallas")
+
+
+# ------------------------------------------------------------------- K8 ----
+def _ssd_ref_inputs(x, a, bb, cc):
+    """Per-head B/C for the reference (groups broadcast by jnp.repeat)."""
+    rep = x.shape[2] // bb.shape[2]
+    return (jnp.asarray(x), jnp.asarray(a),
+            jnp.repeat(jnp.asarray(bb), rep, axis=2),
+            jnp.repeat(jnp.asarray(cc), rep, axis=2))
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("decay", ["test", "init", "strong"])
+def test_ssd_scan_plain_matches_reference(shape, decay):
+    """The port's plain K8 against the reference's interpret-mode kernel and
+    its O(S) recurrence."""
+    x, a, bb, cc = ssd_case(shape, decay=decay)
+    chunk = shape[5]
+    y, h = TSSD.ssd_scan(T_(x), T_(a), T_(bb), T_(cc), chunk=chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    args = _ssd_ref_inputs(x, a, bb, cc)
+    y_i, h_i = j_ssd(*args, chunk=chunk, impl="pallas_interpret")
+    y_r, h_r = jax.jit(JS.ssd_recurrent_ref)(*args)
+    for want_y, want_h in ((y_i, h_i), (y_r, h_r)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-4,
+                                   rtol=5e-2)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=1e-4,
+                                   rtol=5e-2)
+
+
+def test_ssd_recurrent_ref_matches_reference():
+    x, a, bb, cc = ssd_case(SSD_SHAPES[0])
+    args = _ssd_ref_inputs(x, a, bb, cc)
+    y, h = TS.ssd_recurrent_ref(*(T_(np.asarray(t)) for t in args))
+    y_r, h_r = jax.jit(JS.ssd_recurrent_ref)(*args)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_ssd_scan_rejects_ragged_chunks_and_counts_no_cpu_launch():
+    x, a, bb, cc = (T_(t) for t in ssd_case(SSD_SHAPES[0]))
+    before = TSSD.ssd_scan.launches
+    y, h = TSSD.ssd_scan(x, a, bb, cc, chunk=16)
+    y_r, h_r = TSSD.ssd_scan(x, a, bb, cc, chunk=16, impl="ref")
+    assert torch.equal(y, y_r) and torch.equal(h, h_r)
+    assert TSSD.ssd_scan.launches == before
+    with pytest.raises(ValueError, match="multiple"):
+        TSSD.ssd_scan(x, a, bb, cc, chunk=24)
+
+
+# -------------------------------------------------------------- pieces ----
+def test_softplus_is_logaddexp_beyond_20():
+    x = np.array([-30.0, -1.0, 0.0, 19.0, 20.5, 25.0, 80.0], np.float32)
+    np.testing.assert_array_equal(TS.softplus(T_(x)).numpy(),
+                                  np.asarray(jax.jit(jax.nn.softplus)(x)))
+
+
+def test_causal_conv_matches_reference():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 13, 24)).astype(np.float32)
+    w = (rng.standard_normal((4, 24)) * 0.3).astype(np.float32)
+    want = jax.jit(JS._causal_conv)(jnp.asarray(x), jnp.asarray(w))
+    np.testing.assert_allclose(TS._causal_conv(T_(x), T_(w)).numpy(),
+                               np.asarray(want), atol=1e-6, rtol=1e-6)
+
+
+def test_decode_state_update_is_bitwise():
+    """h * da + einsum("bhn,bhp,bh->bhpn", b, x, dt), as the jitted
+    reference rounds it (ssm.py ``mamba_decode_step``)."""
+    rng = np.random.default_rng(4)
+    B, H, P, N = 3, 8, 16, 16
+    h = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    da, dt = (rng.random((B, H)).astype(np.float32) for _ in range(2))
+    bh = rng.standard_normal((B, H, N)).astype(np.float32)
+    xh = rng.standard_normal((B, H, P)).astype(np.float32)
+    want = jax.jit(lambda h, da, bh, xh, dt: h * da[..., None, None]
+                   + jnp.einsum("bhn,bhp,bh->bhpn", bh, xh, dt))(
+        h, da, bh, xh, dt)
+    got = TS.state_update(T_(h), T_(da), T_(xh), T_(bh), T_(dt))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _layer0(arch="zamba2_7b"):
+    params, model, cfg_j, cfg_t = _model(arch)
+    jp = jax.tree_util.tree_map(lambda a: a[0], params["layers"])
+    return jp, model.layer(0), cfg_j, cfg_t
+
+
+@pytest.mark.parametrize("seq", [8, 16, 5])
+def test_mamba_block_matches_reference(seq):
+    """One Mamba2 block at the smoke config (chunk 8; a 5-step prompt runs
+    one chunk of 5, as the reference's ``min(chunk, S)``)."""
+    jp, tp, cfg_j, cfg_t = _layer0()
+    u = np.random.default_rng(seq).standard_normal(
+        (2, seq, cfg_j.d_model)).astype(np.float32)
+    want_x, want_h = jax.jit(lambda p, u: JS.mamba_block(p, u, cfg_j))(
+        jp, jnp.asarray(u))
+    got_x, got_h = TS.mamba_block(tp, T_(u), cfg_t)
+    assert _rel(got_x.numpy(), want_x) < FWD_RTOL
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), atol=1e-5,
+                               rtol=1e-4)
+    ref_x, _ = TS.mamba_block(tp, T_(u), cfg_t, impl="ref")
+    assert torch.equal(ref_x, got_x)
+
+
+def test_mamba_decode_step_matches_reference():
+    """Eight decode steps of one block from a zero cache, against the jitted
+    reference step; then the decode equals the block's forward."""
+    jp, tp, cfg_j, cfg_t = _layer0()
+    B, steps = 2, 8
+    u = np.random.default_rng(5).standard_normal(
+        (B, steps, cfg_j.d_model)).astype(np.float32)
+    j_step = jax.jit(lambda p, u, c: JS.mamba_decode_step(p, u, c, cfg_j))
+    spec = JS.mamba_cache_specs(cfg_j, B, 1)
+    j_cache = JS.MambaCache(*(jnp.zeros(s.shape[1:], s.dtype) for s in spec))
+    t_cache = TS.MambaCache(*(c[0] for c in TS.init_mamba_cache(
+        cfg_t, B, 1, device=CPU)))
+    outs = []
+    for i in range(steps):
+        wx, j_cache = j_step(jp, jnp.asarray(u[:, i:i + 1]), j_cache)
+        gx, t_cache = TS.mamba_decode_step(tp, T_(u[:, i:i + 1]), t_cache,
+                                           cfg_t)
+        assert _rel(gx.numpy(), wx) < FWD_RTOL, i
+        for f in TS.MambaCache._fields:
+            np.testing.assert_allclose(getattr(t_cache, f).numpy(),
+                                       np.asarray(getattr(j_cache, f)),
+                                       atol=1e-5, rtol=1e-4, err_msg=f)
+        outs.append(gx)
+    full, h = TS.mamba_block(tp, T_(u), cfg_t)
+    assert _rel(torch.cat(outs, 1).numpy(), full.numpy()) < FWD_RTOL
+    np.testing.assert_allclose(t_cache.h.numpy(), h.numpy(), atol=1e-5,
+                               rtol=1e-4)
+
+
+# ------------------------------------------------------------ forwards ----
+@pytest.mark.parametrize("arch", ["zamba2_7b", "llama32_1b"])
+@pytest.mark.parametrize("seq", [16, 24])
+def test_forward_matches_reference(arch, seq):
+    """``hybrid_forward`` / ``lm_forward`` (self-attention through the K7
+    op, Mamba2 through the K8 op) against the reference's jitted
+    ``model_forward``; ``impl="ref"`` agrees."""
+    params, model, cfg_j, _ = _model(arch)
+    toks = _tokens(cfg_j, 2, seq, seed=seq)
+    want, _ = jax.jit(lambda p, t: j_forward(p, {"tokens": t}, cfg_j,
+                                             remat="none"))(
+        params, jnp.asarray(toks))
+    with torch.no_grad():
+        got = TF.model_forward(model, {"tokens": T_(toks)})
+        ref = TF.model_forward(model, {"tokens": T_(toks)}, impl="ref")
+    assert _rel(got.numpy(), want) < FWD_RTOL
+    assert torch.allclose(got, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "llama32_1b"])
+def test_prefill_step_matches_reference(arch):
+    """``make_prefill_step``: the last position's logits, against the
+    reference's prefill step (its full forward, then ``logits[:, -1]``)."""
+    params, model, cfg_j, cfg_t = _model(arch)
+    toks = _tokens(cfg_j, 3, 16, seed=11)
+    want = jax.jit(j_prefill(cfg_j, TrainConfig(remat_policy="none")))(
+        params, {"tokens": jnp.asarray(toks)})
+    got = t_prefill(cfg_t, device=CPU)(model, {"tokens": T_(toks)})
+    assert got.shape == (3, cfg_t.vocab_size)
+    assert _rel(got.numpy(), want) < FWD_RTOL
+    with torch.no_grad():
+        full = TF.model_forward(model, {"tokens": T_(toks)}, impl="ref")
+    torch.testing.assert_close(got, full[:, -1], atol=1e-5, rtol=1e-5)
+
+
+def test_self_attention_matches_reference_dense_path():
+    """``layers.self_attention`` against the reference's at a length where
+    the reference takes ``attn_dense`` and, with a window shorter than the
+    prompt, ``attn_local``."""
+    from repro.models import layers as JL
+    params, model, cfg_j, cfg_t = _model("llama32_1b")
+    jp = jax.tree_util.tree_map(lambda a: a[0], params["layers"]["attn"])
+    tp = model.layer(0)["attn"]
+    x = np.random.default_rng(2).standard_normal(
+        (2, 32, cfg_j.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(32), (2, 32))
+    for window in (None, 8):
+        want = jax.jit(lambda p, x: JL.self_attention(
+            p, x, cfg_j, jnp.asarray(pos), causal=True, window=window))(
+            jp, jnp.asarray(x))
+        got = TL.self_attention(tp, T_(x), cfg_t, T_(pos), window=window)
+        assert _rel(got.numpy(), want) < FWD_RTOL, window
+
+
+def test_unported_family_raises():
+    cfg = dataclasses.replace(t_smoke("llama32_1b"), family="moe")
+    with pytest.raises(NotImplementedError, match="moe"):
+        TF.model_specs(cfg)
+    with pytest.raises(NotImplementedError, match="still to port"):
+        t_prefill(cfg, device=CPU)
+    with pytest.raises(ValueError, match="make_model"):
+        TF.HybridLM(t_smoke("llama32_1b"), device=CPU)
