@@ -128,6 +128,11 @@ K7_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # relative) fails this bound
 K8_ATOL, K8_RTOL = 1e-5, 1e-4
 PATH_TAIL = 1024     # K7's query rows checked on the S=32,768 path
+# card times of the earlier designs of K1 (a block-wide argmax per winner)
+# and K7 (mma.sync over 64-query tiles), as PERF.md records them (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's times
+EARLIER_MS = {"seg_topk": 0.3567, "flash_attention": 1.4350,
+              "flash_attention_llama": 1.1220}
 KERNEL_TAG = {"flash_attention": "K7", "ssd_scan": "K8"}
 PREFILL_B, PREFILL_S = 2, 4096           # cuda vs ref at full width
 # bf16: phase 9's bound, relative to max |logit|; f32: float32 sums in
@@ -232,6 +237,28 @@ def check_kernels(torch, np, OPS, REFS):
     score = np.zeros((2, 4096), np.float32)          # one big tie
     topk_cases.append((score, np.ones_like(score, bool),
                        np.array([4096, 17], np.int32), 4096))
+    # the radix select's edges: single rows of 262,144 (past the 24,576
+    # staged in shared memory), winners past the 2,048 sorted at once, rows
+    # with nothing eligible, all-tied rows (-0.0 against +0.0) and quotas
+    # -1, 0, 1, k, k + 40
+    score, valid = _topk_inputs(rng, 1, 262144)
+    for k in (K_MAX, 3000):
+        topk_cases.append((score, valid, np.array([k], np.int32), k))
+    score, valid = _topk_inputs(rng, 3, 8192)
+    topk_cases.append((score, valid, np.array([5000, 2049, 4097], np.int32),
+                       5000))
+    for score, valid in ((np.full((2, 1000), np.nan, np.float32),
+                          np.ones((2, 1000), bool)),
+                         (rng.standard_normal((2, 1000)).astype(np.float32),
+                          np.zeros((2, 1000), bool))):
+        topk_cases.append((score, valid, np.array([5, 1000], np.int32), 300))
+    for k, (score, valid) in ((2500, (np.full((5, 3000), 2.5, np.float32),
+                                      np.ones((5, 3000), bool))),
+                              (K_MAX, _topk_inputs(rng, 5, 4096))):
+        if k == 2500:
+            score[1] = np.where(rng.random(3000) < 0.5, -0.0, 0.0)
+        topk_cases.append((score, valid,
+                           np.array([-1, 0, 1, k, k + 40], np.int32), k))
     for score, valid, quotas, k in topk_cases:
         args = (torch.as_tensor(score, device=cuda),
                 torch.as_tensor(valid, device=cuda),
@@ -740,11 +767,16 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
     rng = np.random.default_rng(13)
     err = {k: 0.0 for k in PREFILL_REPLACES}
     cases = {k: 0 for k in PREFILL_REPLACES}
-    # (B, Sq, Skv, v scale): v x 64 holds the tensor-core kernel's P V to
-    # the plain version's float32 where |v| is large, as on the Llama path
-    for H, K, D in ((32, 32, 112), (32, 8, 64)):     # zamba2, llama
+    # (H, K, D): zamba2's heads (G=1, D=112), llama's (G=4, D=64), then
+    # D=128 at G=1 and G=4. (B, Sq, Skv, v scale): 200 and 300/333 are not
+    # multiples of the 128-row tiles, 256/1024 and 300/333 have Sq < Skv;
+    # v x 64 holds the tensor-core kernel's P V to the plain version's
+    # float32 where |v| is large, as on the Llama path. Each case runs again
+    # on strided [B, S, H, D] views and must read the same.
+    for H, K, D in ((32, 32, 112), (32, 8, 64), (8, 8, 128), (16, 4, 128)):
         for B, Sq, Skv, vs in ((2, 1024, 1024, 1.0), (1, 200, 200, 1.0),
-                               (2, 256, 1024, 1.0), (2, 1024, 1024, 64.0)):
+                               (2, 256, 1024, 1.0), (1, 300, 333, 1.0),
+                               (2, 1024, 1024, 64.0)):
             qkv = [torch.as_tensor(rng.standard_normal(shape).astype(
                 np.float32), device="cuda") for shape in
                 ((B, H, Sq, D), (B, K, Skv, D), (B, K, Skv, D))]
@@ -753,6 +785,8 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
                 if vs != 1.0 and dtype == torch.float32:
                     continue          # the case is for the bf16 kernel
                 q, k, v = (x.to(dtype) for x in qkv)
+                views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+                         for x in (q, k, v)]
                 for causal, window in ((True, None), (True, 64),
                                        (False, None)):
                     got = FA.flash_attention(q, k, v, causal=causal,
@@ -764,11 +798,15 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
                     d = float((got.float() - want.float()).abs().max())
                     tol = K7_TOL[str(dtype).removeprefix("torch.")]
                     err["flash_attention"] = max(err["flash_attention"], d)
+                    what = (f"K7 H={H} K={K} D={D} B={B} Sq={Sq} Skv={Skv} "
+                            f"v x{vs} {dtype} causal={causal} window="
+                            f"{window}")
                     require(torch.allclose(got.float(), want.float(),
                                            atol=tol, rtol=tol),
-                            f"K7 H={H} K={K} D={D} B={B} Sq={Sq} Skv={Skv} "
-                            f"v x{vs} {dtype} causal={causal} window="
-                            f"{window}: max err {d}")
+                            f"{what}: max err {d}")
+                    require(torch.equal(FA.flash_attention(
+                        *views, causal=causal, window=window), got),
+                        f"{what}: strided views read otherwise")
                     cases["flash_attention"] += 1
     # (H, P, N, G): zamba2's Mamba2 widths, then mamba2-130m's
     for H, P, N, G in ((112, 64, 64, 1), (32, 48, 128, 1)):
@@ -1145,12 +1183,58 @@ def main() -> int:
             "bytes": nbytes[name],
             "bound_copy_ms": nbytes[name] / bw * 1e3,
         })
-        phase("6-kernel", f"{name}: {k_ms:.4f} ms (plain {p_ms:.4f}, "
-                          f"library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
+        earlier = (f"earlier design {EARLIER_MS[name]:.4f}, "
+                   if name in EARLIER_MS else "")
+        phase("6-kernel", f"{name}: {k_ms:.4f} ms ({earlier}plain "
+                          f"{p_ms:.4f}, library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
                           f", bound {rows[-1]['bound_ms']:.5f} at 3.35 TB/s, "
                           f"{rows[-1]['bound_copy_ms']:.5f} at measured copy "
                           f"{bw / 1e12:.3f} TB/s) launches/tick "
                           f"{launches[name] / MAIN_TICKS:g}")
+
+    # K1 at the quotas C1's ticks hand it: the arguments of its calls in the
+    # first tick of the bench trace (the one that moves pages: quotas up to
+    # about 200) and in the tenth (settled: quotas 0), recorded on the way in
+    # (the op counts its launches on the module's global of its name, the
+    # recorder while it is in place; the count is carried over both ways)
+    calls = []
+    orig_topk = KSEL.seg_topk
+
+    def recording_topk(score, valid, quotas, k):
+        calls.append((score.clone(), valid.clone(), quotas.clone(), k))
+        return orig_topk(score, valid, quotas, k)
+
+    recording_topk.launches = orig_topk.launches
+    KSEL.seg_topk = recording_topk
+    tick_calls = {}
+    try:
+        tick = make_tick(cfg, owner, "equilibria", K_MAX, impl="cuda",
+                         device="cuda")
+        state = init_state(cfg, owner.shape[0], owner=owner, device="cuda")
+        a_t = torch.as_tensor(acc[0], device="cuda")
+        alive_t = torch.ones_like(a_t, dtype=torch.bool)
+        for t in range(10):
+            calls.clear()
+            state, _ = tick(state, (a_t, alive_t))
+            if t in (0, 9):
+                tick_calls["first" if t == 0 else "tenth"] = list(calls)
+    finally:
+        KSEL.seg_topk = orig_topk
+        orig_topk.launches = recording_topk.launches
+    per_tick = {}
+    for label, cs in tick_calls.items():
+        require(len(cs) > 0, f"the {label} tick called no seg_topk")
+        per_tick[label] = [(device_ms(functools.partial(orig_topk, *c)),
+                            int(c[2].max()), float(c[2].clamp(min=0).float()
+                                                   .mean())) for c in cs]
+    rows[0]["ms_per_tick_at_tick_quotas"] = {
+        label: sum(ms for ms, _, _ in v) for label, v in per_tick.items()}
+    phase("6-kernel", "seg_topk at C1's own quotas (k=256, ms a call, quota "
+          "max/mean): " + "; ".join(
+              f"{label} tick {sum(ms for ms, _, _ in v):.4f} ms (" + ", ".join(
+                  f"{ms:.4f} at {qmax}/{qmean:.1f}" for ms, qmax, qmean in v)
+              + ")" for label, v in per_tick.items()))
+    del calls, tick_calls, state, tick
 
     # ---- 7. where a full-width tick's device time goes --------------------
     tick_cuda_ms = sum(v for k, v in ms if k == "cuda") / 2
@@ -1396,8 +1480,10 @@ def main() -> int:
     phase("13-prefill-kernels", f"flash_attention within {K7_TOL} of plain "
           f"(max abs err {pre_err['flash_attention']:.3g}) over "
           f"{pre_cases['flash_attention']} cases (zamba2 H=K=32 D=112 and "
-          "llama H=32 K=8 D=64; S=1024, S=200, Sq=256 < Skv=1024; causal, "
-          "window 64, non-causal; f32 and bf16; bf16 with v x 64); ssd_scan "
+          "llama H=32 K=8 D=64, D=128 at H=K=8 and H=16 K=4; S=1024, S=200, "
+          "Sq=256 < Skv=1024, Sq=300 < Skv=333; causal, window 64, "
+          "non-causal; f32 and bf16; bf16 with v x 64; each again on "
+          "strided [B,S,H,D] views, equal); ssd_scan "
           f"within atol {K8_ATOL} rtol {K8_RTOL} (max abs err {pre_err['ssd_scan']:.3g})"
           f" over {pre_cases['ssd_scan']} cases (zamba2 H=112 P=64 N=64 and "
           "mamba2-130m H=32 P=48 N=128, Q=256, S=1024; init and strong "
@@ -1657,15 +1743,18 @@ def main() -> int:
             "bytes": kn["bytes"], "ops": kn["ops"], "peak": kn["peak"],
         })
         lib = kn["library_ms"]
+        earlier = (f"earlier design {EARLIER_MS[name]:.4f}, "
+                   if name in EARLIER_MS else "")
         phase("17-prefill-kernel", f"{name} [B=1 S={PREFILL_S} zamba2 "
-              f"widths, bf16 inputs]: {kn['ms']:.4f} ms (plain "
+              f"widths, bf16 inputs]: {kn['ms']:.4f} ms ({earlier}plain "
               f"{kn['plain_ms']:.4f}, library "
               f"{'none' if lib is None else f'{lib:.4f}'}, bound "
               f"{bound:.5f}: bytes {kn['t_bytes']:.5f} at 3.35 TB/s, "
               f"operations {kn['t_ops']:.5f} at {kn['peak']}); launches per "
               f"prefill {rows[-1]['launches_per_prefill']}")
     phase("17-prefill-kernel", f"flash_attention [llama widths H=32 K=8 D=64"
-          f", B=1 S={PREFILL_S}, bf16]: {k7_llama['ms']:.4f} ms (plain "
+          f", B=1 S={PREFILL_S}, bf16]: {k7_llama['ms']:.4f} ms (earlier "
+          f"design {EARLIER_MS['flash_attention_llama']:.4f}, plain "
           f"{k7_llama['plain_ms']:.4f}, library {k7_llama['library_ms']:.4f}"
           f", bound {max(k7_llama['t_bytes'], k7_llama['t_ops']):.5f})")
 

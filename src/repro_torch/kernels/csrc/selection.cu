@@ -27,14 +27,6 @@ constexpr int kScanThreads = 1024;
 constexpr int kSumThreads = 256;
 
 // ------------------------------------------------------------ warp helpers
-__device__ __forceinline__ unsigned long long warp_max_u64(unsigned long long v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w > v ? w : v;
-  }
-  return v;
-}
-
 __device__ __forceinline__ unsigned warp_sum_u32(unsigned v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -100,63 +92,167 @@ __device__ __forceinline__ unsigned long long topk_key(float s, int col) {
          (unsigned long long)(0xFFFFFFFFu - (unsigned)col);
 }
 
-// One block per tenant row. Round j takes the best eligible column strictly
-// after round j-1's winner in key order, so the row is never rewritten and
-// any S works without shared-memory limits. Rounds = min(max(quota, 0), k);
-// the loop stops early when the row runs out of eligible columns. The row
-// (S floats + S flags) stays in L1 across rounds.
+// One block per tenant row, in three steps over the row's keys (staged in
+// shared memory when 8 S bytes fit, else rebuilt from the row, which stays
+// in L1/L2, on each pass):
+//   1. count the eligible keys: r = min(max(quota, 0), k, eligible);
+//   2. find the threshold key: keys are unique (the low word is the
+//      column), so exactly r keys are >= the r-th largest. MSB-first 8-bit
+//      digits: each pass builds a 256-bin histogram of the keys that still
+//      match the chosen prefix, and a scan from the top bin picks the digit
+//      that holds the r-th key. It stops as soon as every key under the
+//      prefix is a winner, so distinct scores settle in the high (score)
+//      word and ties go on into the low (column) word;
+//   3. compact the winners into shared memory, bitonic-sort them by key,
+//      descending, and write them out.
+// Step 3 holds at most kTopkSortCap winners, so winners are taken in
+// chunks of that many by rank: chunk c's threshold is the
+// min(r, (c + 1) cap)-th key and its winners lie in [threshold, previous
+// threshold). The tick's r <= 256 is one chunk. Integer counts only.
+constexpr int kTopkSortCap = 2048;      // winners sorted at once (16 KiB)
+constexpr int kTopkStageMax = 24576;    // S staged in shared memory (192 KiB)
+
+__device__ __forceinline__ unsigned long long row_key(const float* srow,
+                                                      const unsigned char* vrow,
+                                                      int c) {
+  const float s = srow[c];
+  return (vrow[c] && isfinite(s)) ? topk_key(s, c) : 0ull;   // 0: not eligible
+}
+
 __global__ void __launch_bounds__(kTopkThreads)
 seg_topk_kernel(const float* __restrict__ score,
                 const unsigned char* __restrict__ valid,
-                const int* __restrict__ quotas, int S, int k,
+                const int* __restrict__ quotas, int S, int k, int staged,
                 int* __restrict__ cols, unsigned char* __restrict__ take,
                 int* __restrict__ counts) {
-  __shared__ unsigned long long warp_best[32];
-  __shared__ unsigned long long round_best;
+  extern __shared__ unsigned long long topk_smem[];
+  unsigned long long* sorted = topk_smem;                // [kTopkSortCap]
+  unsigned long long* keys = topk_smem + kTopkSortCap;   // [S] when staged
+  __shared__ unsigned hist[256];
+  __shared__ unsigned scratch[33];
+  __shared__ unsigned sel_digit, sel_above, sel_count, sel_fill;
   const int row = blockIdx.x;
   const float* srow = score + (size_t)row * S;
   const unsigned char* vrow = valid + (size_t)row * S;
   int* crow = cols + (size_t)row * k;
   unsigned char* trow = take + (size_t)row * k;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
+  unsigned n_elig = 0u;
+  for (int c = tid; c < S; c += blockDim.x) {
+    const unsigned long long key = row_key(srow, vrow, c);
+    if (staged) keys[c] = key;
+    n_elig += key != 0ull;
+  }
+  n_elig = block_sum_u32(n_elig, scratch);   // its barriers publish keys[]
   const int q = quotas[row];
-  const int rounds = q < 0 ? 0 : (q < k ? q : k);
-  unsigned long long prev = ~0ull;
-  int taken = 0;
-  for (int j = 0; j < rounds; ++j) {
-    unsigned long long best = 0ull;   // 0 = nothing eligible left
-    for (int c = threadIdx.x; c < S; c += blockDim.x) {
-      float s = srow[c];
-      if (vrow[c] && isfinite(s)) {
-        unsigned long long key = topk_key(s, c);
-        if (key < prev && key > best) best = key;
+  int r = q < 0 ? 0 : (q < k ? q : k);
+  if ((unsigned)r > n_elig) r = (int)n_elig;
+
+  unsigned long long upper = ~0ull;   // keys of earlier chunks are >= upper
+  for (int done = 0; done < r; done += kTopkSortCap) {
+    const int m = min(kTopkSortCap, r - done);   // this chunk's winners
+    // threshold of the (done + m)-th key: `need` keys still to place under
+    // `prefix`, the digits chosen above bit `sh`
+    unsigned need = (unsigned)(done + m);
+    unsigned long long prefix = 0ull;
+    int sh = 56;
+    for (;; sh -= 8) {
+      for (int i = tid; i < 256; i += blockDim.x) hist[i] = 0u;
+      __syncthreads();
+      for (int base = 0; base < S; base += blockDim.x) {
+        const int c = base + tid;
+        unsigned d = 256u;                                // no bin
+        if (c < S) {
+          const unsigned long long key =
+              staged ? keys[c] : row_key(srow, vrow, c);
+          if (key != 0ull && (sh == 56 || (key >> (sh + 8)) == prefix))
+            d = (unsigned)(key >> sh) & 255u;
+        }
+        // one shared atomic per distinct bin of the warp: the high digits
+        // of nearby scores collide
+        const unsigned peers = __match_any_sync(0xffffffffu, d);
+        if (d != 256u && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[d], (unsigned)__popc(peers));
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // lane l scans bins 255 - 8l down to 248 - 8l; a warp scan of the
+        // lanes' sums gives the count of candidates above each lane
+        unsigned h[8], sum = 0u;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          h[j] = hist[255 - 8 * lane - j];
+          sum += h[j];
+        }
+        unsigned above = warp_incl_scan_u32(sum) - sum;
+        if (above < need && need <= above + sum) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (above + h[j] >= need) {
+              sel_digit = 255u - 8u * lane - j;
+              sel_above = above;
+              sel_count = h[j];
+              break;
+            }
+            above += h[j];
+          }
+        }
+      }
+      __syncthreads();
+      prefix = (prefix << 8) | sel_digit;
+      need -= sel_above;
+      // every key under prefix is a winner (at sh == 0 the prefix is one key)
+      if (sel_count == need || sh == 0) break;
+    }
+    const unsigned long long thr = prefix << sh;
+
+    // compact this chunk's winners: keys in [thr, upper)
+    if (tid == 0) sel_fill = 0u;
+    __syncthreads();
+    for (int base = 0; base < S; base += blockDim.x) {
+      const int c = base + tid;
+      unsigned long long key = 0ull;
+      if (c < S) key = staged ? keys[c] : row_key(srow, vrow, c);
+      const bool win = key != 0ull && key >= thr && key < upper;
+      const unsigned ballot = __ballot_sync(0xffffffffu, win);
+      unsigned slot = 0u;
+      if (lane == 0 && ballot) slot = atomicAdd(&sel_fill, __popc(ballot));
+      slot = __shfl_sync(0xffffffffu, slot, 0);
+      if (win) sorted[slot + __popc(ballot & ((1u << lane) - 1u))] = key;
+    }
+    int P = 1;
+    while (P < m) P <<= 1;
+    __syncthreads();
+    for (int i = m + tid; i < P; i += blockDim.x) sorted[i] = 0ull;
+    __syncthreads();
+    // bitonic sort of P keys, descending (the zero pads sink to the end)
+    for (int size = 2; size <= P; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = tid; i < P / 2; i += blockDim.x) {
+          const int lo = 2 * i - (i & (stride - 1));
+          const unsigned long long a = sorted[lo], b = sorted[lo + stride];
+          if (((lo & size) == 0) ? a < b : a > b) {
+            sorted[lo] = b;
+            sorted[lo + stride] = a;
+          }
+        }
+        __syncthreads();
       }
     }
-    best = warp_max_u64(best);
-    if (lane == 0) warp_best[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      unsigned long long v = lane < nw ? warp_best[lane] : 0ull;
-      v = warp_max_u64(v);
-      if (lane == 0) round_best = v;
+    for (int i = tid; i < m; i += blockDim.x) {
+      crow[done + i] =
+          (int)(0xFFFFFFFFu - (unsigned)(sorted[i] & 0xFFFFFFFFull));
+      trow[done + i] = 1;
     }
-    __syncthreads();
-    best = round_best;   // read by all before warp 0 can write it again
-    if (best == 0ull) break;
-    if (threadIdx.x == 0) {
-      crow[j] = (int)(0xFFFFFFFFu - (unsigned)(best & 0xFFFFFFFFull));
-      trow[j] = 1;
-    }
-    prev = best;
-    ++taken;
+    upper = thr;
+    __syncthreads();   // sorted[] is read before the next chunk refills it
   }
-  for (int j = taken + threadIdx.x; j < k; j += blockDim.x) {
+  for (int j = r + tid; j < k; j += blockDim.x) {
     crow[j] = S;
     trow[j] = 0;
   }
-  if (threadIdx.x == 0) counts[row] = taken;
+  if (tid == 0) counts[row] = r;
 }
 
 // -------------------------------------------------------------- seg_reduce
@@ -259,9 +355,18 @@ const char* selection_error_string(int err) {
 int seg_topk_launch(const float* score, const unsigned char* valid,
                     const int* quotas, int T, int S, int k, int* cols,
                     unsigned char* take, int* counts, cudaStream_t stream) {
-  if (T > 0)
-    seg_topk_kernel<<<T, kTopkThreads, 0, stream>>>(score, valid, quotas, S,
-                                                    k, cols, take, counts);
+  if (T <= 0) return (int)cudaGetLastError();
+  const int staged = S <= kTopkStageMax;
+  const size_t smem = sizeof(unsigned long long) *
+                      ((size_t)kTopkSortCap + (staged ? (size_t)S : 0));
+  // the default cap on dynamic shared memory is 48 KiB less the static
+  // part, which a staged row of 4,096 already exceeds
+  const cudaError_t e = cudaFuncSetAttribute(
+      seg_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  seg_topk_kernel<<<T, kTopkThreads, smem, stream>>>(
+      score, valid, quotas, S, k, staged, cols, take, counts);
   return (int)cudaGetLastError();
 }
 

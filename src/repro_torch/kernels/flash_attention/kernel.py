@@ -1,18 +1,24 @@
-"""Launcher of the flash-attention CUDA kernel (``csrc/prefill.cu``).
+"""Launcher of the flash-attention CUDA kernels (``csrc/prefill.cu``).
 
 ``flash_attention_cuda`` replaces ``repro/kernels/flash_attention/
-kernel.py`` ``flash_attention_tpu``. One thread block per (batch, head,
-64-query tile) walks only the 64-key tiles inside the causal / sliding-
-window band, with one K and V tile in shared memory and the online-softmax
-state (m, l, acc) in float32; the kv head of query head h is h // (H/K),
-with no expansion. Any Sq <= Skv and any head dim up to 128 (the TPU
-wrapper's padding of D to 128 lanes is not needed; ``sm_scale`` is
-1/sqrt(D)). q, k and v are read through their strides, so [B, S, H, D]
-activations viewed as [B, H, S, D] need no copy. Bound by operations: two
-products of 64 x 64 x D per pair of tiles. bf16 inputs whose head dim is a
-multiple of 16 run them on the tensor cores (``mma.sync`` m16n8k16,
-float32 accumulation, p rounded to bf16 as the TPU kernel rounds it); f32
-inputs and other head dims on the CUDA cores in float32.
+kernel.py`` ``flash_attention_tpu``. Bound by operations: the products
+Q K^T and P V of every pair of tiles inside the causal / sliding-window
+band. The kv head of query head h is h // (H/K), with no expansion. Any
+Sq <= Skv and any head dim up to 128 (the TPU wrapper's padding of D to 128
+lanes is not needed; ``sm_scale`` is 1/sqrt(D)). q, k and v are read
+through their strides, so [B, S, H, D] activations viewed as [B, H, S, D]
+need no copy.
+
+* bf16 inputs whose head dim is a multiple of 16, with strides that are
+  multiples of 8 elements (the prefill's case), run on Hopper's warpgroup
+  products (``wgmma``) fed by TMA: one block per (batch, head, 128-query
+  tile), two consumer warpgroups and a producer warp that streams 128-key
+  K and V tiles through a two-stage ring. P V takes p as a bf16 high part
+  plus the bf16 of its remainder, two products into one float32
+  accumulator, so p stays near float32 as in the TPU kernel, which widens
+  v and takes P V in float32.
+* f32 inputs, and other head dims, run on the CUDA cores in float32: one
+  block per (batch, head, 64-query tile), 64-key tiles.
 """
 from __future__ import annotations
 

@@ -5,8 +5,13 @@ on PyTorch's current stream and raises on a launch error. No
 synchronisation, no fallback.
 
 * ``seg_topk_cuda`` replaces ``repro/kernels/select/kernel.py``
-  ``seg_topk_tpu``: one block per tenant row, ``min(quota, k)`` rounds of a
-  block-wide argmax over packed (score, column) keys.
+  ``seg_topk_tpu``: one block per tenant row over packed (score, column)
+  keys, unique by their column, staged in shared memory when the row fits.
+  A radix select (8-bit digits, most significant first, stopping once the
+  prefix holds only winners) finds the r-th largest key; the r winners
+  (the keys at or above it) are compacted and bitonic-sorted in shared
+  memory, up to 2,048 at a time by rank. A handful of passes over the row,
+  whatever the quota.
 * ``seg_reduce_cuda`` replaces ``seg_reduce_tpu``: one block per row, a
   chunked warp-shuffle scan with a running carry.
 * ``seg_sums_cuda`` replaces ``seg_sums_tpu``: one block per row, a

@@ -46,6 +46,54 @@ def topk_case(seed):
     return score, valid, quotas, k
 
 
+# seg_topk's edge cases (the same kinds as chip_smoke.py's phase 2): rows
+# longer than the kernel stages in shared memory (S > 24,576), more winners
+# than it sorts at once (r > 2,048), rows with nothing eligible, rows that
+# tie throughout (with -0.0 against +0.0), and quotas around 0 and k
+TOPK_EDGE_CASES = ("long_row", "long_row_over_sort_cap", "over_sort_cap",
+                   "all_nan", "all_invalid", "all_tied", "quota_grid")
+
+
+def topk_edge_case(name):
+    """(score, valid, quotas, k) of edge case ``name``, seeded."""
+    rng = np.random.default_rng(TOPK_EDGE_CASES.index(name))
+
+    def mixed(T, S):
+        score = rng.standard_normal((T, S)).astype(np.float32)
+        score[::2] = rng.integers(-20, 20, score[::2].shape)   # ties
+        u = rng.random((T, S))
+        score[u < 0.02] = np.inf
+        score[(u >= 0.02) & (u < 0.04)] = -np.inf
+        score[(u >= 0.04) & (u < 0.06)] = np.nan
+        return score, rng.random((T, S)) < 0.6
+
+    if name == "long_row":
+        score, valid = mixed(1, 262144)
+        return score, valid, np.array([256], np.int32), 256
+    if name == "long_row_over_sort_cap":
+        score, valid = mixed(1, 262144)
+        return score, valid, np.array([3000], np.int32), 3000
+    if name == "over_sort_cap":
+        score, valid = mixed(3, 8192)
+        return score, valid, np.array([5000, 2049, 4097], np.int32), 5000
+    if name == "all_nan":
+        score = np.full((2, 1000), np.nan, np.float32)
+        return score, np.ones_like(score, bool), np.array([5, 1000],
+                                                          np.int32), 300
+    if name == "all_invalid":
+        score = rng.standard_normal((2, 1000)).astype(np.float32)
+        return score, np.zeros_like(score, bool), np.array([5, 1000],
+                                                           np.int32), 300
+    k = 2500 if name == "all_tied" else 256
+    quotas = np.array([-1, 0, 1, k, k + 40], np.int32)
+    if name == "all_tied":
+        score = np.full((5, 3000), 2.5, np.float32)
+        score[1] = np.where(rng.random(3000) < 0.5, -0.0, 0.0)
+        return score, np.ones_like(score, bool), quotas, k
+    score, valid = mixed(5, 4096)              # quota_grid
+    return score, valid, quotas, k
+
+
 def moves_case(seed):
     rng = np.random.default_rng(200 + seed)
     L = int(rng.choice([8, 48]))
@@ -101,6 +149,21 @@ def test_kernels_match_plain_on_card(seed, cuda):
                                      h.view(torch.int32), t,
                                      direction=direction, to_tier=to_tier)
     got = TMIG.commit_moves(*a, h, t, direction=direction, to_tier=to_tier)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TOPK_EDGE_CASES)
+def test_seg_topk_edge_cases_match_plain_on_card(name, cuda):
+    """K1 bitwise against its plain version on rows past the shared-memory
+    staging, winners past the in-shared-memory sort, rows with nothing
+    eligible, all-tied rows and quotas -1, 0, 1, k and k + 40."""
+    score, valid, quotas, k = topk_edge_case(name)
+    args = [torch.as_tensor(a, device=cuda) for a in (score, valid, quotas)]
+    got = TSEL.seg_topk(*args, k)
+    want = TSEL_REF.seg_topk_ref(*args, k)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     torch.cuda.synchronize()
@@ -282,6 +345,61 @@ def test_flash_attention_keeps_p_exact_with_large_values_on_card(
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
     torch.cuda.synchronize()
+
+
+# the tensor-core kernel's grid: head dims 64, 112 (two TMA boxes, the
+# second clipped) and 128; groups of 1 and 4 query heads per kv head;
+# lengths that are not multiples of its 128-row tiles, queries shorter than
+# keys; v scaled by 64 (|v| in the tens, as in a prefill's first layer)
+WGMMA_DIMS = [64, 112, 128]
+WGMMA_LENGTHS = [(200, 200), (72, 333), (256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", WGMMA_DIMS)
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sq,skv", WGMMA_LENGTHS)
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+@pytest.mark.parametrize("v_scale", [1.0, 64.0])
+def test_flash_attention_wgmma_grid_matches_plain_on_card(
+        d, g, sq, skv, causal, window, v_scale, cuda):
+    """bf16 K7 (the wgmma kernel) within 2e-2 of its plain version over
+    head dims, GQA groups, ragged lengths, masks and large values; strided
+    [B, S, H, D] views of q, k and v read the same."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = flash_case((2, 2 * g, 2, sq, skv, d), seed=d + g)
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16)
+               for x in (q, k, v * v_scale))
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    assert torch.equal(FA.flash_attention(*views, causal=causal,
+                                          window=window), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_prefill_library_runs_wgmma_and_tma(cuda):
+    """The built prefill library's machine code holds Hopper's warpgroup
+    products (HGMMA) and TMA tensor loads (UTMALDG): K7's bf16 path runs on
+    them. Skips only where the toolkit has no cuobjdump."""
+    import pathlib
+    import shutil
+    import subprocess
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels.build import load_library
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump")
+    if not pathlib.Path(tool).exists():
+        pytest.skip("cuobjdump not found in the CUDA toolkit")
+    sass = subprocess.run([tool, "-sass", str(load_library("prefill").path)],
+                          capture_output=True, text=True, check=True).stdout
+    assert "HGMMA" in sass and "UTMALDG" in sass
 
 
 @pytest.mark.gpu

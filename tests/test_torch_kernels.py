@@ -28,8 +28,10 @@ from repro.memtier.kvcache import tiered_paged_attention as j_serving_attn
 from repro_torch.kernels.migrate import ops as TMIG
 from repro_torch.kernels.select import ops as TSEL
 from repro_torch.kernels.tiered_attention import ops as TTA
-from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, attention_case,
-                            migrate_case, moves_case, topk_case)
+from repro_torch.kernels.select import ref as TSEL_REF
+from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, TOPK_EDGE_CASES,
+                            attention_case, migrate_case, moves_case,
+                            topk_case, topk_edge_case)
 
 JAX_IMPLS = ("ref", "pallas_interpret")
 
@@ -59,6 +61,91 @@ def test_seg_topk_ties_go_to_lowest_column():
     assert cols[0, 4:].tolist() == [32] * 4
     assert take[0].tolist() == [True] * 4 + [False] * 4
     assert int(counts[0]) == 4
+
+
+# The CUDA kernel's algorithm (csrc/selection.cu seg_topk_kernel), modelled in
+# numpy so that its logic is pinned where no kernel runs: 64-bit keys, a
+# radix select of the threshold over 8-bit digits from the top, the stop
+# once every key under the prefix is a winner, winners taken in chunks of
+# the in-shared-memory sort's capacity by rank, each chunk sorted by key.
+def _topk_keys(score, valid):
+    """The kernel's keys: the score's bits mapped to an order-preserving
+    unsigned (-0.0 folded into +0.0) over the complemented column; 0 where
+    the column is not eligible."""
+    S = score.shape[-1]
+    bits = np.where(score == 0, np.float32(0), score).astype(
+        np.float32).view(np.uint32).astype(np.uint64)
+    order = np.where(bits & 0x80000000, ~bits & 0xFFFFFFFF,
+                     bits | 0x80000000)
+    keys = (order << np.uint64(32)) | (
+        np.uint64(0xFFFFFFFF) - np.arange(S, dtype=np.uint64))
+    return np.where(valid & np.isfinite(score), keys, np.uint64(0))
+
+
+def _radix_threshold(keys, need):
+    """The smallest key of the ``need`` largest: one 256-bin histogram pass
+    per digit over the keys still under the chosen prefix."""
+    prefix, sh = 0, 56
+    while True:
+        live = keys != 0
+        if sh < 56:
+            live &= (keys >> np.uint64(sh + 8)) == np.uint64(prefix)
+        hist = np.bincount(((keys[live] >> np.uint64(sh)) & np.uint64(255))
+                           .astype(np.int64), minlength=256)
+        above = 0
+        for digit in range(255, -1, -1):
+            if above + hist[digit] >= need:
+                break
+            above += hist[digit]
+        prefix = (prefix << 8) | digit
+        need -= above
+        if hist[digit] == need or sh == 0:
+            return np.uint64(prefix << sh)
+        sh -= 8
+
+
+def radix_topk_model(score, valid, quotas, k, cap=2048):
+    T, S = score.shape
+    keys = _topk_keys(score, valid)
+    cols = np.full((T, k), S, np.int32)
+    take = np.zeros((T, k), bool)
+    counts = np.zeros(T, np.int32)
+    for t in range(T):
+        row = keys[t]
+        r = min(max(int(quotas[t]), 0), k, int((row != 0).sum()))
+        upper = np.uint64(2**64 - 1)
+        for done in range(0, r, cap):
+            m = min(cap, r - done)
+            thr = _radix_threshold(row, done + m)
+            win = row[(row != 0) & (row >= thr) & (row < upper)]
+            assert win.size == m          # exactly this chunk's winners
+            win = np.sort(win)[::-1]
+            cols[t, done:done + m] = (np.uint64(0xFFFFFFFF)
+                                      - (win & np.uint64(0xFFFFFFFF)))
+            take[t, done:done + m] = True
+            upper = thr
+        counts[t] = r
+    return cols, take, counts
+
+
+@pytest.mark.parametrize("cap", [2048, 5])
+@pytest.mark.parametrize("case", [f"seed{i}" for i in range(10)]
+                         + list(TOPK_EDGE_CASES))
+def test_seg_topk_radix_model_matches_plain(case, cap):
+    """The kernel's radix select, at its sort capacity and at a capacity of
+    5 (many chunks at small sizes), bitwise against the plain version on
+    the seeded grid and the edge cases the card-only tests use."""
+    if case.startswith("seed"):
+        score, valid, quotas, k = topk_case(int(case[4:]))
+        k = max(min(k, score.shape[1]), 1)
+    else:
+        score, valid, quotas, k = topk_edge_case(case)
+    want = TSEL_REF.seg_topk_ref(torch.as_tensor(score),
+                                 torch.as_tensor(valid),
+                                 torch.as_tensor(quotas), k)
+    got = radix_topk_model(score, valid, quotas, k, cap=cap)
+    for name, g, w in zip(("cols", "take", "counts"), got, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
 
 
 # ------------------------------------------------- seg_reduce / seg_sums ----
