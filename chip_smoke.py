@@ -21,8 +21,9 @@ one line each, each with its duration:
   6. tick kernels: time, launches per tick, bound, plain and library times
   7. where a full-width tick's device time goes (torch.profiler)
   8. serving kernels (K5 tiered attention, K6 page migration) vs plain
-     versions on the card at full width: K5 in bf16 and f32, window None
-     and 40, free slots, mid-page lengths; K6 bitwise in bf16 and f32
+     versions on the card at full width: K5 at S1's and S3's widths in bf16
+     and f32, window None and 40, free slots, mid-page lengths; K6 bitwise
+     in bf16 and f32
   9. serving at full width: Llama 3.2 1B (random weights from a seed), 4
      tenants, 64 sequences, 512 decode steps, equilibria, impl "cuda" vs
      "ref" step by step from a shared state on teacher-forced tokens; then
@@ -30,7 +31,10 @@ one line each, each with its duration:
  10. decode == full-sequence forward at full width in float32 (TF32 off),
      4 sequences x 128 steps, with pages migrating
  11. serving kernels: time, launches per step, bound, plain, library times
- 12. where one decode step's device time goes (torch.profiler)
+     (K5's yardstick: the faster of scaled_dot_product_attention with
+     expanded K/V and with enable_gqa=True); the earlier designs' times
+ 12. where one decode step's device time goes (torch.profiler), and each
+     serving op's device launches per op call
  13. prefill kernels (K7 flash attention, K8 SSD scan) vs plain versions on
      the card: K7 at zamba2's and llama's heads, causal / window 64 /
      non-causal, Sq < Skv and a ragged S=200, f32 and bf16; K8 at zamba2's
@@ -47,12 +51,15 @@ one line each, each with its duration:
      and K8 over the whole length (128 chunks of state carry)
  15. hybrid serving at full width: Zamba2-7B, 4 tenants, 32 sequences, 256
      decode steps, equilibria, cuda vs ref step by step; tpp and static 16
-     steps each; one profiled step; K5 and K6 must launch
+     steps each; one profiled step; K5 and K6 must launch; K5 timed at
+     S3's widths on the run's own cache, as in phase 11
  16. hybrid decode == full-sequence forward (K7 and K8) in float32, 4
      sequences x 64 steps, with pages migrating
  17. prefill kernels: time, launches per prefill, bound, plain and library
-     (``scaled_dot_product_attention`` for K7; none for K8) times
- 18. where one Zamba2-7B prefill's device time goes (torch.profiler)
+     (``scaled_dot_product_attention`` for K7; none for K8) times, the
+     earlier designs' times; K8 also at S=32,768
+ 18. where one Zamba2-7B prefill's device time goes (torch.profiler), and
+     K8's device launches per op call
 
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -128,11 +135,23 @@ K7_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # relative) fails this bound
 K8_ATOL, K8_RTOL = 1e-5, 1e-4
 PATH_TAIL = 1024     # K7's query rows checked on the S=32,768 path
-# card times of the earlier designs of K1 (a block-wide argmax per winner)
-# and K7 (mma.sync over 64-query tiles), as PERF.md records them (NVIDIA
-# H100 80GB HBM3, 700 W), printed beside this run's times
-EARLIER_MS = {"seg_topk": 0.3567, "flash_attention": 1.4350,
-              "flash_attention_llama": 1.1220}
+# card times of the earlier designs of K1 (a block-wide argmax per winner),
+# K5 (a block per sequence and kv head walking page by page), K7 (mma.sync
+# over 64-query tiles) and K8 (a block per batch and head walking its
+# chunks in order), as PERF.md records them (NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's times
+EARLIER_MS = {"seg_topk": 0.3567, "pool_attention_partial": 0.3725,
+              "flash_attention": 1.4350, "flash_attention_llama": 1.1220,
+              "ssd_scan": 5.5703}
+# the device kernels behind each redesigned op (profiler names), counted
+# per op call
+DEVICE_KERNELS = {
+    "pool_attention_partial": ("pool_attention_split_kernel",
+                               "pool_attention_merge_kernel"),
+    "migrate_pages": ("migrate_pages_kernel",),
+    "ssd_scan": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                 "ssd_chunk_out_kernel"),
+}
 KERNEL_TAG = {"flash_attention": "K7", "ssd_scan": "K8"}
 PREFILL_B, PREFILL_S = 2, 4096           # cuda vs ref at full width
 # bf16: phase 9's bound, relative to max |logit|; f32: float32 sums in
@@ -488,8 +507,10 @@ def check_serve_kernels(torch, np, TA, TA_REF, KMIG, KMIG_REF):
     rng = np.random.default_rng(8)
     err = {k: 0.0 for k in SERVE_REPLACES}
     cases = {k: 0 for k in SERVE_REPLACES}
-    B, H, K, D, pt = 64, 32, 8, 64, 16
-    for Mp in (32, 16):                       # fast pool, slow pool
+    pt = 16
+    # S1's widths (Llama 3.2 1B, fast and slow pools), then S3's (Zamba2-7B)
+    for B, H, K, D, Mp in ((64, 32, 8, 64, 32), (64, 32, 8, 64, 16),
+                           (32, 32, 32, 112, 16)):
         q, pk, pv, slot, seq = _attn_case(np, rng, B, H, K, D, pt, Mp, 40)
         for dtype in (torch.bfloat16, torch.float32):
             a = [torch.as_tensor(x, device="cuda") for x in
@@ -505,9 +526,10 @@ def check_serve_kernels(torch, np, TA, TA_REF, KMIG, KMIG_REF):
                     err["pool_attention_partial"] = max(
                         err["pool_attention_partial"], d)
                     require(torch.allclose(g, w, atol=K5_TOL, rtol=K5_TOL),
-                            f"K5 Mp={Mp} {dtype} window={window}: max err "
-                            f"{d}")
+                            f"K5 B={B} H={H} K={K} D={D} Mp={Mp} {dtype} "
+                            f"window={window}: max err {d}")
                 cases["pool_attention_partial"] += 1
+    B, H, K, D = 64, 32, 8, 64
     L, Mf, Ms = 16, 32, 16
     for dtype in (torch.bfloat16, torch.float32):
         src = torch.randn((L, B, Mf, pt, K, D), device="cuda").to(dtype)
@@ -742,6 +764,61 @@ def profile_fn(torch, fn):
     return len(dev), busy / 1e3, top, wall
 
 
+def sdpa_yardstick(torch, F, q, k, v, mask, groups: int):
+    """(ms, form) of the faster single scaled_dot_product_attention call
+    over dense K/V: with K/V expanded to the query heads, and with
+    ``enable_gqa=True`` where the backend takes a mask with it."""
+    ke = k.repeat_interleave(groups, dim=1)
+    ve = v.repeat_interleave(groups, dim=1)
+    best = (device_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask)), "expanded K/V")
+    del ke, ve
+    try:
+        ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+        best = min(best, (ms, "enable_gqa"))
+    except (RuntimeError, TypeError):
+        pass                 # no backend takes the mask with enable_gqa
+    return best
+
+
+def k5_numbers(torch, F, TA, TA_REF, kv, pt: int, H: int) -> dict:
+    """K5 on a serving path's cache as it stands (one layer, both pools:
+    one op call each): its time, the plain version's, the SDPA yardstick
+    over the same valid tokens, the bound, and device launches per call."""
+    Kh, D = kv.fast_k.shape[-2], kv.fast_k.shape[-1]
+    B = kv.fast_k.shape[1]
+    Mf, Ms = kv.fast_page.shape[1], kv.slow_page.shape[1]
+    q = torch.randn((B, H, D), device="cuda").to(torch.bfloat16)
+    pools = (kv.fast_k[0], kv.fast_v[0], kv.slow_k[0], kv.slow_v[0])
+    n_valid = (valid_tokens(torch, kv.fast_page, kv.seq_len, pt)
+               + valid_tokens(torch, kv.slow_page, kv.seq_len, pt))
+    qs, ks, vs, mask = sdpa_inputs(torch, q, pools,
+                                   (kv.fast_page, kv.slow_page), kv.seq_len,
+                                   pt)
+
+    def pair(partial):
+        return lambda: (partial(q, pools[0], pools[1], kv.fast_page,
+                                kv.seq_len),
+                        partial(q, pools[2], pools[3], kv.slow_page,
+                                kv.seq_len))
+
+    elem = kv.fast_k.element_size()
+    nbytes = (n_valid * Kh * D * elem * 2 + B * H * D * elem
+              + B * (Mf + Ms) * 4 + B * 4
+              + 2 * (B * H * D * 4 + 2 * B * H * 4) + B * H * (Mf + Ms) * 4)
+    nops = n_valid * H * D * 4
+    lib_ms, lib_form = sdpa_yardstick(torch, F, qs, ks, vs, mask, H // Kh)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return dict(ms=device_ms(pair(TA.pool_attention_partial)),
+                plain_ms=device_ms(pair(TA_REF.pool_attention_partial_ref)),
+                library_ms=lib_ms, library_form=lib_form,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, n_valid=n_valid)
+
+
 def profile_serve_step(torch, step, model, snap, tok):
     """Wall ms (median of 3, synchronised) of one decode step from the
     snapshot ``snap``, and its device events under torch.profiler."""
@@ -948,7 +1025,7 @@ def with_dtype(model, dtype: str):
 
 # ---------------------------------------------------------- phase 18 ----
 KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
-                  ("K8 ssd_scan", ("ssd_scan_kernel",)),
+                  ("K8 ssd_scan", DEVICE_KERNELS["ssd_scan"]),
                   ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_")),
                   ("cast/copy", ("copy_kernel", "direct_copy", "to_copy")),
                   ("elementwise", ("elementwise", "vectorized")),
@@ -1262,8 +1339,9 @@ def main() -> int:
                                                  RMIG)
     phase("8-serve-kernels", f"pool_attention_partial within {K5_TOL} of "
           f"plain (max abs err {serve_err['pool_attention_partial']:.3g}) "
-          f"over {serve_cases['pool_attention_partial']} cases (bf16/f32, "
-          f"window None/40, fast/slow pools); migrate_pages bitwise over "
+          f"over {serve_cases['pool_attention_partial']} cases (S1's fast "
+          "and slow pools and S3's widths, bf16/f32, window None/40); "
+          f"migrate_pages bitwise over "
           f"{serve_cases['migrate_pages']} cases (bf16/f32, all-unselected, "
           "src slot == dst slot)")
 
@@ -1367,22 +1445,7 @@ def main() -> int:
     H, D, Kh = cfg.num_heads, cfg.resolved_head_dim, cfg.num_kv_heads
     L = cfg.num_layers
     Mf, Ms = kv.fast_page.shape[1], kv.slow_page.shape[1]
-    q = torch.randn((B, H, D), device="cuda").to(torch.bfloat16)
-    pools0 = (kv.fast_k[0], kv.fast_v[0], kv.slow_k[0], kv.slow_v[0])
-    n_valid = (valid_tokens(torch, kv.fast_page, kv.seq_len, pt)
-               + valid_tokens(torch, kv.slow_page, kv.seq_len, pt))
-    qs, ks, vs, mask = sdpa_inputs(torch, q, pools0,
-                                   (kv.fast_page, kv.slow_page), kv.seq_len,
-                                   pt)
-    ks = ks.repeat_interleave(H // Kh, dim=1)
-    vs = vs.repeat_interleave(H // Kh, dim=1)
-
-    def k5(partial):
-        return lambda: (partial(q, pools0[0], pools0[1], kv.fast_page,
-                                kv.seq_len),
-                        partial(q, pools0[2], pools0[3], kv.slow_page,
-                                kv.seq_len))
-
+    k5 = k5_numbers(torch, F, TA, TA_REF, kv, pt, H)
     rng = np.random.default_rng(11)
     sel = torch.zeros(B, dtype=torch.bool, device="cuda")
     sel[torch.as_tensor(rng.permutation(B)[:16], device="cuda")] = True
@@ -1398,56 +1461,46 @@ def main() -> int:
     gathered = kv.fast_k.view(-1, page_elems).index_select(0, src_rows)
     slow_flat = kv.slow_k.view(-1, page_elems)
     n_sel = int(sel.sum())
-    elem = kv.fast_k.element_size()
-    serve_bytes = {
-        "pool_attention_partial": (
-            n_valid * Kh * D * elem * 2 + B * H * D * elem
-            + B * (Mf + Ms) * 4 + B * 4
-            + 2 * (B * H * D * 4 + 2 * B * H * 4) + B * H * (Mf + Ms) * 4),
-        "migrate_pages": n_sel * L * page_elems * elem * 2 + 3 * B * 4,
-    }
-    serve_ops = {"pool_attention_partial": n_valid * H * D * 4,
-                 "migrate_pages": 0}
-    serve_kern = {
-        "pool_attention_partial": k5(TA.pool_attention_partial),
-        "migrate_pages": lambda: KMIG.migrate_pages(kv.fast_k, kv.slow_k, si,
-                                                    di, sel)}
-    serve_plain = {
-        "pool_attention_partial": k5(TA_REF.pool_attention_partial_ref),
-        "migrate_pages": lambda: RMIG.migrate_pages_ref(kv.fast_k, kv.slow_k,
-                                                        si, di, sel)}
-    serve_lib = {
-        "pool_attention_partial": lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask),
-        "migrate_pages": lambda: slow_flat.index_copy_(0, dst_rows, gathered)}
-    for name in SERVE_REPLACES:
-        k_ms = device_ms(serve_kern[name])
-        p_ms = device_ms(serve_plain[name])
-        lib_ms = device_ms(serve_lib[name])
-        t_bytes = serve_bytes[name] / HBM_BYTES_PER_S * 1e3
-        t_ops = serve_ops[name] / F32_OPS_PER_S * 1e3
+    mig_bytes = (n_sel * L * page_elems * kv.fast_k.element_size() * 2
+                 + 3 * B * 4)
+    mig = dict(
+        ms=device_ms(lambda: KMIG.migrate_pages(kv.fast_k, kv.slow_k, si, di,
+                                                sel)),
+        plain_ms=device_ms(lambda: RMIG.migrate_pages_ref(
+            kv.fast_k, kv.slow_k, si, di, sel)),
+        library_ms=device_ms(lambda: slow_flat.index_copy_(0, dst_rows,
+                                                           gathered)),
+        bound_ms=mig_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=mig_bytes)
+    for name, kn in (("pool_attention_partial", k5), ("migrate_pages", mig)):
         rows.append({
             "name": name, "route": "cuda", "source": SERVE_SOURCE,
             "replaces": SERVE_REPLACES[name],
             "launches": serve_launches[name],
-            "max_abs_err": serve_err[name], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "max_abs_err": serve_err[name], "ms": kn["ms"],
+            "plain_ms": kn["plain_ms"], "bound_ms": kn["bound_ms"],
+            "bound_by": kn["bound_by"], "library_ms": kn["library_ms"],
             "launches_per_step": serve_launches[name] / steps,
-            "bytes": serve_bytes[name],
-            "bound_copy_ms": serve_bytes[name] / bw * 1e3,
+            "bytes": kn["bytes"],
+            "bound_copy_ms": kn["bytes"] / bw * 1e3,
         })
-        what = ("one layer, both pools (2 launches), "
-                f"{n_valid} valid tokens" if name == "pool_attention_partial"
-                else f"{n_sel} of {B} sequences x {L} layers")
-        phase("11-serve-kernel", f"{name} [{what}]: {k_ms:.4f} ms (plain "
-              f"{p_ms:.4f}, library {lib_ms:.4f}, bound "
-              f"{rows[-1]['bound_ms']:.5f} at 3.35 TB/s, "
+        if name == "pool_attention_partial":
+            what = (f"S1 state, one layer, both pools (2 op calls), "
+                    f"{k5['n_valid']} valid tokens")
+            lib = (f"library {kn['library_ms']:.4f} (SDPA, "
+                   f"{kn['library_form']}, the faster form)")
+        else:
+            what = f"{n_sel} of {B} sequences x {L} layers"
+            lib = f"library {kn['library_ms']:.4f}"
+        earlier = (f"earlier design {EARLIER_MS[name]:.4f}, "
+                   if name in EARLIER_MS else "")
+        phase("11-serve-kernel", f"{name} [{what}]: {kn['ms']:.4f} ms "
+              f"({earlier}plain {kn['plain_ms']:.4f}, {lib}, bound "
+              f"{kn['bound_ms']:.5f} at 3.35 TB/s, "
               f"{rows[-1]['bound_copy_ms']:.5f} at measured copy "
               f"{bw / 1e12:.3f} TB/s) launches/step "
               f"{serve_launches[name] / steps:g}")
-    del gathered, ks, vs, qs, mask
+    del gathered
 
     # ---- 12. where one decode step's device time goes ---------------------
     step_c = SD.build_serve_step(cfg, tcfg, B, steps, impl="cuda")
@@ -1459,19 +1512,25 @@ def main() -> int:
                                   "saw no device event")
     else:
         n_dev, busy_ms, top, _ = prof
-        ours = {k: [(t, c) for nm, t, c in top if f"{k}_kernel" in nm]
+        ours = {k: [(t, c) for nm, t, c in top
+                    if any(d in nm for d in DEVICE_KERNELS[k])]
                 for k in SERVE_REPLACES}
+        for k, v in ours.items():
+            per_call = sum(c for _, c in v) / (serve_launches[k] / steps)
+            next(r for r in rows if r["name"] == k)[
+                "device_launches_per_call"] = per_call
         phase("12-serve-profile", f"one decode step at position {steps // 2}"
               f": {n_dev:g} device events, busy {busy_ms:.4f} ms of "
               f"{wall_ms:.4f} ms wall (idle share "
               f"{1 - busy_ms / wall_ms:.3f}); serving kernels ms/step: "
               + ", ".join(f"{k} {sum(t for t, _ in v):.4f} "
-                          f"x{sum(c for _, c in v):g}"
+                          f"x{sum(c for _, c in v):g} (device launches per "
+                          f"op call "
+                          f"{sum(c for _, c in v) / (serve_launches[k] / steps):g})"
                           for k, v in ours.items())
               + "; top by device ms: " + "; ".join(
                   f"{nm[:60]} {t:.4f} ms x{c:g}" for nm, t, c in top[:12]))
-    del run, kv, step_c, toks, ctx, rec, serve_kern, serve_plain, serve_lib
-    del pools0, slow_flat
+    del run, kv, step_c, toks, ctx, rec, slow_flat
     torch.cuda.empty_cache()
 
     # ---- 13. prefill kernels (K7, K8) vs plain versions ------------------
@@ -1625,11 +1684,34 @@ def main() -> int:
                                    "saw no device event")
     else:
         n_dev, busy_ms, top, _ = zprof
+        ours = {k: [(t, c) for nm, t, c in top
+                    if any(d in nm for d in DEVICE_KERNELS[k])]
+                for k in SERVE_REPLACES}
         phase("15-hybrid-profile", f"one decode step at position "
               f"{zsteps // 2}: {n_dev:g} device events, busy {busy_ms:.4f} "
               f"ms of {zwall:.4f} ms wall (idle share "
-              f"{1 - busy_ms / zwall:.3f}); top by device ms: " + "; ".join(
+              f"{1 - busy_ms / zwall:.3f}); serving kernels ms/step: "
+              + ", ".join(f"{k} {sum(t for t, _ in v):.4f} "
+                          f"x{sum(c for _, c in v):g} (device launches per "
+                          f"op call "
+                          f"{sum(c for _, c in v) / (hyb_launches[k] / zsteps):g})"
+                          for k, v in ours.items())
+              + "; top by device ms: " + "; ".join(
                   f"{nm[:60]} {t:.4f} ms x{c:g}" for nm, t, c in top[:10]))
+    # K5 at S3's widths, on the hybrid run's own cache as it ends
+    k5_s3 = k5_numbers(torch, F, TA, TA_REF, zkv, ztcfg.page_tokens,
+                       zcfg.num_heads)
+    k5_row = next(r for r in rows if r["name"] == "pool_attention_partial")
+    k5_row["s3"] = {k: k5_s3[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "n_valid")}
+    phase("15-hybrid-kernel", f"pool_attention_partial [S3 state, one KV "
+          f"layer, both pools (2 op calls), {k5_s3['n_valid']} valid "
+          f"tokens, H={zcfg.num_heads} K={zcfg.num_kv_heads} "
+          f"D={zcfg.resolved_head_dim}]: {k5_s3['ms']:.4f} ms (plain "
+          f"{k5_s3['plain_ms']:.4f}, library {k5_s3['library_ms']:.4f} "
+          f"(SDPA, {k5_s3['library_form']}, the faster form), bound "
+          f"{k5_s3['bound_ms']:.5f} at 3.35 TB/s) launches/step "
+          f"{hyb_launches['pool_attention_partial'] / zsteps:g}")
     del zrun, zkv, zstep_c
     torch.cuda.empty_cache()
     side = []
@@ -1699,7 +1781,7 @@ def main() -> int:
             t_ops=nops / BF16_OPS_PER_S * 1e3, bytes=nbytes, ops=nops,
             peak="bf16 989 TFLOP/s")
 
-    def k8_numbers(H, P, N, G=1, B=1, S=PREFILL_S, Q=256):
+    def k8_numbers(H, P, N, G=1, B=1, S=PREFILL_S, Q=256, plain=True):
         g = torch.Generator(device="cuda").manual_seed(18)
         x = torch.randn((B, S, H, P), generator=g, device="cuda") * 0.5
         a = -F.softplus(torch.randn((B, S, H), generator=g, device="cuda")
@@ -1715,7 +1797,7 @@ def main() -> int:
         return dict(
             ms=device_ms(lambda: SSD.ssd_scan(x, a, b, c, chunk=Q), n=10),
             plain_ms=device_ms(lambda: SSD_REF.ssd_scan_ref(x, a, b, c, Q),
-                               n=5),
+                               n=5) if plain else None,
             library_ms=None, t_bytes=nbytes / HBM_BYTES_PER_S * 1e3,
             t_ops=nops / F32_OPS_PER_S * 1e3, bytes=nbytes, ops=nops,
             peak="f32 67 TFLOP/s (x, y, h and the products are float32)")
@@ -1723,6 +1805,7 @@ def main() -> int:
     knum = {"flash_attention": k7_numbers(zcfg.num_heads, zcfg.num_kv_heads,
                                           zcfg.resolved_head_dim),
             "ssd_scan": k8_numbers(112, 64, 64)}
+    k8_long = k8_numbers(112, 64, 64, S=TIMED_S, plain=False)
     k7_llama = k7_numbers(cfg.num_heads, cfg.num_kv_heads,
                           cfg.resolved_head_dim)
     for name, kn in knum.items():
@@ -1752,6 +1835,13 @@ def main() -> int:
               f"{bound:.5f}: bytes {kn['t_bytes']:.5f} at 3.35 TB/s, "
               f"operations {kn['t_ops']:.5f} at {kn['peak']}); launches per "
               f"prefill {rows[-1]['launches_per_prefill']}")
+    k8_row = next(r for r in rows if r["name"] == "ssd_scan")
+    k8_row["s32768"] = {"ms": k8_long["ms"], "bound_ms": max(
+        k8_long["t_bytes"], k8_long["t_ops"])}
+    phase("17-prefill-kernel", f"ssd_scan [B=1 S={TIMED_S} zamba2 widths, "
+          f"bf16 B/C]: {k8_long['ms']:.4f} ms an op call (bound "
+          f"{k8_row['s32768']['bound_ms']:.5f}: operations at "
+          f"{k8_long['peak']})")
     phase("17-prefill-kernel", f"flash_attention [llama widths H=32 K=8 D=64"
           f", B=1 S={PREFILL_S}, bf16]: {k7_llama['ms']:.4f} ms (earlier "
           f"design {EARLIER_MS['flash_attention_llama']:.4f}, plain "
@@ -1770,8 +1860,12 @@ def main() -> int:
             cls = classify(nm)
             ms0, c0 = by_cls.get(cls, (0.0, 0))
             by_cls[cls] = (ms0 + t, c0 + cnt)
+        k8_dev = by_cls.get("K8 ssd_scan", (0.0, 0))[1]
+        k8_row["device_launches_per_call"] = k8_dev / zcfg.num_layers
         phase("18-prefill-profile", f"{zcfg.name} prefill B={TIMED_B} "
-              f"S={TIMED_S}: {n_dev} device events, busy {busy_ms:.1f} ms of"
+              f"S={TIMED_S}: K8 device launches per op call "
+              f"{k8_dev / zcfg.num_layers:g}; {n_dev} device events, busy "
+              f"{busy_ms:.1f} ms of"
               f" {pwall:.1f} ms wall (idle share {1 - busy_ms / pwall:.4f}); "
               "device ms by class: " + ", ".join(
                   f"{k} {v[0]:.1f} x{v[1]}" for k, v in sorted(

@@ -43,17 +43,16 @@ _SIGNATURES = {
                                 _I, _I, _I, _P),
     },
     "serving": {
-        "pool_attention_partial_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                          _I, _I, _I, _I, _F, _I, _P, _P, _P,
-                                          _P, _P),
+        "pool_attention_partial_launch": (_P, _I, _P, _P, _P, _P,
+                                          *(_I,) * 8, _F, *(_I,) * 3,
+                                          *(_P,) * 8),
         "migrate_pages_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P),
     },
     "prefill": {
         # three strides of each of four tensors, as long long
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                    *(_LL,) * 12, _I, _I, _I, _F, _I, _P),
-        "ssd_scan_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, *(_LL,) * 12, _I, _P),
+        "ssd_scan_launch": (*(_P,) * 8, *(_I,) * 7, *(_LL,) * 12, _I, _P),
     },
 }
 SOURCES = tuple(_SIGNATURES)

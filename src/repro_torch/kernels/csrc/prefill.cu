@@ -28,24 +28,40 @@
 // and any head dim up to 128; strided [B, H, S, D] views (last dimension
 // contiguous) are read in place.
 //
-// ssd_scan: the Mamba2 SSD chunked scan. Each (batch, head) carries its
-// state h [P, N] from chunk to chunk, the TPU kernel's sequential chunk
-// axis: one block of 256 threads per (batch, head) walks its chunks in
-// order with h in shared memory (float32). Inside a chunk of Q steps it
-// works in 64-row tiles, so the Q x Q decay-weighted scores never exist
-// whole (at Q = 256 they alone would take 256 KiB): for each tile of
-// output rows i, y_i = exp(a_cum_i) * (C_i h^T) + sum over key tiles
-// j <= i of ((C_i B_j^T) o L_ij) X_j, with L = exp(a_cum_i - a_cum_j)
-// selected to 0 above the diagonal (never multiplied by a mask: exp
-// overflows there, and inf * 0 is NaN); then h = exp(a_cum_last) h +
-// X^T (B o exp(a_cum_last - a_cum)). a_cum and its differences are kept in
-// float64 and rounded once before exp: in float32, a_cum_i - a_cum_j
-// cancels to about one ulp of |a_cum| (1.2e-4 at a chunk's -1,600 under
-// strong decays), and two float32 sums taken in different orders then
-// disagree by ~1e-3 in y. B and C come per group ([B, S, G, N],
-// head h reads group h / (H / G)) and x, a, b, c are read through their
-// strides, so the caller neither repeats groups nor transposes. Bound by
-// operations (about Q^2 (N + P) + 4 Q P N flops per chunk and head).
+// ssd_scan: the Mamba2 SSD chunked scan. The TPU kernel carries each
+// (batch, head)'s state h [P, N] from chunk to chunk in order; on this
+// card that chain left SMs idle and stalled on latency, so the scan is
+// split as Mamba2's chunk-parallel form splits it, three launches behind
+// one call:
+//   1. chunk states (ssd_chunk_state_kernel), a block per (batch, head,
+//      chunk, 64 x 64 block of [N, P]): a_cum of the chunk in float64
+//      (into scratch, for launches 2 and 3; its last entry is the chunk's
+//      total A_c) and s_c = (B o exp(a_cum_last - a_cum))^T X, into
+//      scratch;
+//   2. state pass (ssd_state_pass_kernel), a thread per (batch, head, n,
+//      p), sequential over chunks: h_in[c] = h, h = exp(A_c) h + s_c
+//      (h_in overwrites s_c in the scratch), then the final h. The plain
+//      version rounds exp of a sum of chunk totals once per chunk pair;
+//      this pass multiplies one chunk's decay at a time, within about nc
+//      ulps (~1e-5 relative at 128 chunks);
+//   3. chunk outputs (ssd_chunk_out_kernel), a block per (batch, head,
+//      chunk, 64-row tile i, 64 columns of P), the heaviest tiles (largest
+//      i) first: y_i = exp(a_cum_i) (C_i h_in^T) + sum over key tiles
+//      j <= i of ((C_i B_j^T) o L_ij) X_j, y written once. L = exp(a_cum_i
+//      - a_cum_j) is selected to 0 above the diagonal (never multiplied by
+//      a mask: exp overflows there, and inf * 0 is NaN).
+// a_cum and its differences are kept in float64 and rounded once before
+// exp: in float32, a_cum_i - a_cum_j cancels to about one ulp of |a_cum|
+// (1.2e-4 at a chunk's -1,600 under strong decays), and two float32 sums
+// taken in different orders then disagree by ~1e-3 in y. B, C and X tiles
+// are staged in shared memory with 16-byte cp.async, B and X double-
+// buffered (bf16 B and C converted to float32 in shared memory once per
+// tile); the products are register-tiled float32 on the CUDA cores, 4 x 4
+// outputs a thread. B and C come per group ([B, S, G, N], head h reads
+// group h / (H / G)) and x, a, b, c are read through their strides, so the
+// caller neither repeats groups nor transposes (rows that are not 16-byte
+// aligned are staged with element loads). Bound by operations (about
+// Q^2 (N + P) + 4 Q P N flops per chunk and head).
 //
 // Plain C interface: each launcher returns cudaGetLastError() right after
 // its launch (0 on success), and the caller raises on anything else.
@@ -711,216 +727,432 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ------------------------------------------------------------ ssd scan
-constexpr int kSsdThreads = 256;
-constexpr int kSsdT = 64;              // rows of a tile inside a chunk
+// Three launches behind one call, each parallel over chunks:
+//   1. ssd_chunk_state_kernel, block (b, h, chunk, 64 x 64 block of [N, P]):
+//      A_c = a_cum_last and s_c = (B o exp(a_cum_last - a_cum))^T X;
+//   2. ssd_state_pass_kernel, a thread per (b, h, n, p): h_in[c] = h,
+//      h = exp(A_c) h + s_c over the chunks in order (h_in replaces s_c in
+//      the scratch), then the final h;
+//   3. ssd_chunk_out_kernel, block (b, h, chunk, 64-row tile i, 64 columns
+//      of P), the heaviest tiles (largest i) first:
+//      y_i = exp(a_cum_i) (C_i h_in^T) + sum_{j <= i} ((C_i B_j^T) o L_ij) X_j.
+// The products are register-tiled on the CUDA cores in float32: 256
+// threads as 16 x 16, each owning 4 x 4 outputs of a 64 x 64 block (rows
+// ty + 16 ii, columns tx * 4 + jj), operands read from shared memory as
+// float4 along the contraction, rows padded by 4 floats against bank
+// conflicts.
+constexpr int kSsThreads = 256;
+constexpr int kSsT = 64;               // rows of a tile, columns of a block
+constexpr int kSsP = kSsT + 4;         // padded f32 row of a 64-column tile
 constexpr int kSsdMaxP = 128;
-constexpr int kSsdMaxN = 128;
-constexpr int kSsdPCols = kSsdMaxP / 16;
-constexpr int kSsdHRegs = kSsdMaxP * kSsdMaxN / kSsdThreads;
+constexpr int kSsdMaxN = 128;          // C_i and B_j rows whole in shared memory
 
-// Shared memory: acum_s[Q] (doubles), then floats h_s[P][N+1],
-// c_s[T][N+1], b_s[T][N+1], x_s[T][P], s_s[T][T+1].
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of() {
+  return T(0.f);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Stage an nrows x ncols_pad tile into shared memory (row pitch dpitch
+// elements): tile row r is src + r * row_stride; rows >= valid_rows and
+// columns >= ncols are zero. vec: 16-byte cp.async per chunk (needs
+// 16-byte aligned rows and ncols a multiple of the chunk); else element
+// loads and stores.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* dst, int dpitch, const T* src,
+                                           long long row_stride, int nrows,
+                                           int valid_rows, int ncols,
+                                           int ncols_pad, bool vec) {
+  constexpr int EPC = 16 / sizeof(T);
+  if (vec) {
+    const int nch = ncols_pad / EPC;
+    for (int i = threadIdx.x; i < nrows * nch; i += kSsThreads) {
+      const int r = i / nch, ch = i - r * nch;
+      const bool ok = r < valid_rows && ch * EPC < ncols;
+      cp_async16(dst + r * dpitch + ch * EPC,
+                 ok ? src + r * row_stride + ch * EPC : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * ncols_pad; i += kSsThreads) {
+      const int r = i / ncols_pad, cc = i - r * ncols_pad;
+      dst[r * dpitch + cc] = r < valid_rows && cc < ncols
+                                 ? src[r * row_stride + cc]
+                                 : zero_of<T>();
+    }
+  }
+}
+
+// a_cum of one chunk of Q steps in float64, by warp 0: a run of
+// consecutive steps per lane (loads issued eight at a time), then a scan
+// of the lanes' totals. Launch 1 computes it once per chunk and keeps it
+// in scratch for launches 2 and 3.
+__device__ __forceinline__ void chunk_cumsum(const float* ab, long long ass,
+                                             int Q, double* acum_s) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) return;
+  const int per = (Q + 31) / 32;
+  const int lo = lane * per, hi = min(lo + per, Q);
+  double run = 0.0;
+  for (int t0 = lo; t0 < hi; t0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = t0 + u < hi ? ab[(long long)(t0 + u) * ass] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (t0 + u < hi) {
+        run += (double)v[u];
+        acum_s[t0 + u] = run;
+      }
+  }
+  double incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  const double off = incl - run;
+  for (int t = lo; t < hi; ++t) acum_s[t] += off;
+}
+
+// acc[ii][jj] += sum over the contraction k0 .. k0 + 3 of
+// a[(ty + 16 ii) * ap + k] * b[k * bp + tx * 4 + jj] (a's rows float4
+// along k, b's rows float4 along the output columns)
+__device__ __forceinline__ void fma_rows_cols(float (&acc)[4][4],
+                                              const float* a, int ap,
+                                              const float* b, int bp, int k0,
+                                              int ty, int tx) {
+  float4 av[4], bv[4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+    av[ii] = *reinterpret_cast<const float4*>(a + (ty + 16 * ii) * ap + k0);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    bv[k] = *reinterpret_cast<const float4*>(b + (k0 + k) * bp + tx * 4);
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const float a4[4] = {av[ii].x, av[ii].y, av[ii].z, av[ii].w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc[ii][0] = fmaf(a4[k], bv[k].x, acc[ii][0]);
+      acc[ii][1] = fmaf(a4[k], bv[k].y, acc[ii][1]);
+      acc[ii][2] = fmaf(a4[k], bv[k].z, acc[ii][2]);
+      acc[ii][3] = fmaf(a4[k], bv[k].w, acc[ii][3]);
+    }
+  }
+}
+
+// Launch 1. Shared memory: x_s 2 x [64][kSsP] f32, bt_s [64][kSsP] f32
+// (B o w transposed: [n][row]), braw 2 x [64][64 + EPC] raw B, acum_s[Q]
+// doubles, w_s[Q] floats. The chunk's a_cum goes to scratch acum [B, H, S]
+// (its last entry is A_c).
 template <typename TBC>
-__global__ void __launch_bounds__(kSsdThreads)
-ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                const TBC* __restrict__ bm, const TBC* __restrict__ cm,
-                float* __restrict__ y, float* __restrict__ h_out, int S,
-                int H, int HG, int P, int N, int Q, long long xsb,
-                long long xss, long long xsh, long long asb, long long ass,
-                long long ash, long long bsb, long long bss, long long bsg,
-                long long csb, long long css, long long csg) {
-  extern __shared__ float smem[];
-  const int NP = N + 1;
-  double* acum_s = reinterpret_cast<double*>(smem);
-  float* h_s = smem + 2 * Q;
-  float* c_s = h_s + P * NP;
-  float* b_s = c_s + kSsdT * NP;
-  float* x_s = b_s + kSsdT * NP;
-  float* s_s = x_s + kSsdT * P;
+__global__ void __launch_bounds__(kSsThreads)
+ssd_chunk_state_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                       const TBC* __restrict__ bm, float* __restrict__ states,
+                       double* __restrict__ acum, int H, int HG, int P,
+                       int N, int Q, int nc, int vecx, int vecb,
+                       long long xsb, long long xss, long long xsh,
+                       long long asb, long long ass, long long ash,
+                       long long bsb, long long bss, long long bsg) {
+  constexpr int EPC = 16 / sizeof(TBC);
+  constexpr int kRaw = kSsT + EPC;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* x_s = reinterpret_cast<float*>(smem_raw);
+  float* bt_s = x_s + 2 * kSsT * kSsP;
+  TBC* braw = reinterpret_cast<TBC*>(bt_s + kSsT * kSsP);
+  double* acum_s = reinterpret_cast<double*>(braw + 2 * kSsT * kRaw);
+  float* w_s = reinterpret_cast<float*>(acum_s + Q);
 
-  const int bidx = blockIdx.x / H, hh = blockIdx.x % H, g = hh / HG;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ty = tid >> 4, tx = tid & 15;     // 16 x 16 thread grid
-  const float* xb = x + bidx * xsb + hh * xsh;
-  const float* ab = a + bidx * asb + hh * ash;
-  const TBC* bb = bm + bidx * bsb + g * bsg;
-  const TBC* cb = cm + bidx * csb + g * csg;
-  float* yb = y + ((long long)bidx * S * H + hh) * P;   // [B,S,H,P]
-  const int PN = P * N;
+  const int npb = (P + kSsT - 1) / kSsT, nnb = (N + kSsT - 1) / kSsT;
+  long long rem = blockIdx.x;
+  const int pb = (int)(rem % npb);
+  rem /= npb;
+  const int nb = (int)(rem % nnb);
+  rem /= nnb;
+  const int c = (int)(rem % nc);
+  rem /= nc;
+  const int hh = (int)(rem % H), bidx = (int)(rem / H), g = hh / HG;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int c0 = c * Q;
+  const int pw = min(kSsT, P - pb * kSsT), nw = min(kSsT, N - nb * kSsT);
+  const float* xb = x + bidx * xsb + hh * xsh + (long long)c0 * xss + pb * kSsT;
+  const TBC* bb = bm + bidx * bsb + g * bsg + (long long)c0 * bss + nb * kSsT;
 
-  for (int i = tid; i < P * NP; i += kSsdThreads) h_s[i] = 0.f;
-  const int ntile = (Q + kSsdT - 1) / kSsdT;
+  chunk_cumsum(a + bidx * asb + hh * ash + (long long)c0 * ass, ass, Q,
+               acum_s);
+  __syncthreads();
+  const double a_last = acum_s[Q - 1];
+  for (int t = tid; t < Q; t += kSsThreads)
+    w_s[t] = expf((float)(a_last - acum_s[t]));
+  if (nb == 0 && pb == 0) {
+    double* ac = acum + ((long long)bidx * H + hh) * nc * Q + c0;
+    for (int t = tid; t < Q; t += kSsThreads) ac[t] = acum_s[t];
+  }
 
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    // a_cum of this chunk in float64: warp 0, a run of consecutive steps
-    // per lane, then a scan of the lanes' totals
-    __syncthreads();
-    if (warp == 0) {
-      const int per = (Q + 31) / 32;
-      const int lo = lane * per, hi = min(lo + per, Q);
-      double run = 0.0;
-      for (int t = lo; t < hi; ++t) {
-        run += (double)ab[(long long)(c0 + t) * ass];
-        acum_s[t] = run;
-      }
-      double incl = run;
-      for (int o = 1; o < 32; o <<= 1) {
-        const double u = __shfl_up_sync(0xffffffffu, incl, o);
-        if (lane >= o) incl += u;
-      }
-      const double off = incl - run;
-      for (int t = lo; t < hi; ++t) acum_s[t] += off;
+  const int nrt = (Q + kSsT - 1) / kSsT;
+  auto issue = [&](int rt, int st) {
+    const int r0 = rt * kSsT, nr = min(kSsT, Q - r0);
+    stage_tile<float>(x_s + st * kSsT * kSsP, kSsP, xb + (long long)r0 * xss,
+                      xss, kSsT, nr, pw, kSsT, vecx);
+    stage_tile<TBC>(braw + st * kSsT * kRaw, kRaw, bb + (long long)r0 * bss,
+                    bss, kSsT, nr, nw, kSsT, vecb);
+    cp_async_commit();
+  };
+
+  float acc[4][4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
+  issue(0, 0);
+  for (int rt = 0; rt < nrt; ++rt) {
+    const int st = rt & 1;
+    cp_async_wait_all();
+    __syncthreads();          // tile rt landed; tile rt - 1 consumed
+    if (rt + 1 < nrt) issue(rt + 1, st ^ 1);
+    const int r0 = rt * kSsT;
+    const TBC* br = braw + st * kSsT * kRaw;
+    for (int i = tid; i < kSsT * kSsT; i += kSsThreads) {
+      const int r = i & (kSsT - 1), n = i >> 6;
+      const float w = r0 + r < Q ? w_s[r0 + r] : 0.f;
+      bt_s[n * kSsP + r] = to_f32(br[r * kRaw + n]) * w;
     }
     __syncthreads();
+    const float* xs = x_s + st * kSsT * kSsP;
+    for (int k0 = 0; k0 < kSsT; k0 += 4)
+      fma_rows_cols(acc, bt_s, kSsP, xs, kSsP, k0, ty, tx);
+  }
+  float* sb = states + (((long long)bidx * H + hh) * nc + c) * (long long)N * P;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int n = nb * kSsT + ty + 16 * ii;
+    if (n >= N) continue;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int p = tx * 4 + jj;
+      if (p < pw) sb[(long long)n * P + pb * kSsT + p] = acc[ii][jj];
+    }
+  }
+}
 
-    for (int it = 0; it < ntile; ++it) {
-      const int i0 = it * kSsdT;
-      const int ni = min(kSsdT, Q - i0);
-      __syncthreads();
-      for (int e = tid; e < kSsdT * N; e += kSsdThreads) {
-        const int r = e / N, n = e - r * N;
-        c_s[r * NP + n] =
-            r < ni ? to_f32(cb[(long long)(c0 + i0 + r) * css + n]) : 0.f;
+// Launch 2: the sequential pass over chunks, parallel over (b, h, n, p).
+// states holds s_c on entry and h_in[c] on exit ([B, H, nc, N, P]);
+// A_c = a_cum at the chunk's last step.
+__global__ void __launch_bounds__(kSsThreads)
+ssd_state_pass_kernel(float* __restrict__ states,
+                      const double* __restrict__ acum,
+                      float* __restrict__ h_out, int N, int P, int nc,
+                      int Q) {
+  const int NP = N * P;
+  const int e = blockIdx.y * kSsThreads + threadIdx.x;
+  const long long bh = blockIdx.x;
+  if (e >= NP) return;
+  float* st = states + bh * nc * NP + e;
+  const double* ac = acum + bh * nc * Q + (Q - 1);
+  float h = 0.f;
+  int c = 0;
+  for (; c + 8 <= nc; c += 8) {
+    float s[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s[u] = st[(long long)(c + u) * NP];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      st[(long long)(c + u) * NP] = h;
+      h = expf((float)ac[(long long)(c + u) * Q]) * h + s[u];
+    }
+  }
+  for (; c < nc; ++c) {
+    const float s = st[(long long)c * NP];
+    st[(long long)c * NP] = h;
+    h = expf((float)ac[(long long)c * Q]) * h + s;
+  }
+  const int n = e / P, p = e - n * P;
+  h_out[bh * NP + (long long)p * N + n] = h;
+}
+
+// Launch 3. Shared memory: cf_s [64][Nf] (C_i, f32), hs_s
+// [max(Nr, 64)][kSsP] (h_in^T [n][p], then the tile's scores), x_s 2 x
+// [64][kSsP], braw 2 x [64][Nraw] (raw B; for f32 B the operand itself),
+// bf_s [64][Nf] (bf16 B converted; C's raw rows before that), acum_s[Q]
+// doubles (the chunk's a_cum from launch 1's scratch). Nr = N rounded up
+// to 4, Nf = Nr + 4.
+template <typename TBC>
+__global__ void __launch_bounds__(kSsThreads)
+ssd_chunk_out_kernel(const float* __restrict__ x,
+                     const double* __restrict__ acum,
+                     const TBC* __restrict__ bm, const TBC* __restrict__ cm,
+                     const float* __restrict__ states, float* __restrict__ y,
+                     int Bn, int S, int H, int HG, int P, int N, int Q,
+                     int nc, int vecx, int vecb, int vecc, int vech,
+                     long long xsb, long long xss, long long xsh,
+                     long long bsb, long long bss, long long bsg,
+                     long long csb, long long css, long long csg) {
+  constexpr bool kConv = sizeof(TBC) != sizeof(float);
+  constexpr int EPC = 16 / sizeof(TBC);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Nr = (N + 3) & ~3, Nf = Nr + 4;
+  const int Ne = (N + EPC - 1) / EPC * EPC;     // raw columns staged
+  const int Nraw = kConv ? Ne + EPC : Nf;
+  float* cf_s = reinterpret_cast<float*>(smem_raw);
+  float* hs_s = cf_s + kSsT * Nf;
+  float* x_s = hs_s + max(Nr, kSsT) * kSsP;
+  TBC* braw = reinterpret_cast<TBC*>(x_s + 2 * kSsT * kSsP);
+  float* bf_s = reinterpret_cast<float*>(braw + 2 * kSsT * Nraw);
+  double* acum_s = reinterpret_cast<double*>(bf_s + (kConv ? kSsT * Nf : 0));
+
+  // heaviest tiles first: blocks of the last row tile come first
+  const int ntile = (Q + kSsT - 1) / kSsT, npb = (P + kSsT - 1) / kSsT;
+  const long long per = (long long)Bn * H * nc * npb;
+  const int it = ntile - 1 - (int)(blockIdx.x / per);
+  long long rem = blockIdx.x % per;
+  const int pb = (int)(rem % npb);
+  rem /= npb;
+  const int c = (int)(rem % nc);
+  rem /= nc;
+  const int hh = (int)(rem % H), bidx = (int)(rem / H);
+  const int g = hh / HG, c0 = c * Q, i0 = it * kSsT;
+  const int ni = min(kSsT, Q - i0), pw = min(kSsT, P - pb * kSsT);
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float* xb = x + bidx * xsb + hh * xsh + (long long)c0 * xss + pb * kSsT;
+  const TBC* bb = bm + bidx * bsb + g * bsg + (long long)c0 * bss;
+  const TBC* cb = cm + bidx * csb + g * csg + (long long)(c0 + i0) * css;
+  const float* hb = states + (((long long)bidx * H + hh) * nc + c) *
+                                 (long long)N * P + pb * kSsT;
+
+  const double* ac = acum + ((long long)bidx * H + hh) * nc * Q + c0;
+  for (int t = tid; t < min(Q, i0 + kSsT); t += kSsThreads) acum_s[t] = ac[t];
+  // group 0: C_i, h_in^T, B_0, X_0
+  stage_tile<TBC>(kConv ? reinterpret_cast<TBC*>(bf_s)
+                        : reinterpret_cast<TBC*>(cf_s),
+                  kConv ? Nraw : Nf, cb, css, kSsT, ni, N, Ne, vecc);
+  stage_tile<float>(hs_s, kSsP, hb, P, Nr, N, pw, kSsT, vech);
+  auto issue = [&](int jt, int st) {
+    const int j0 = jt * kSsT, nj = min(kSsT, Q - j0);
+    stage_tile<TBC>(braw + st * kSsT * Nraw, Nraw, bb + (long long)j0 * bss,
+                    bss, kSsT, nj, N, Ne, vecb);
+    stage_tile<float>(x_s + st * kSsT * kSsP, kSsP,
+                      xb + (long long)j0 * xss, xss, kSsT, nj, pw, kSsT, vecx);
+    cp_async_commit();
+  };
+  // raw bf16 rows (pitch Nraw) to float32 rows (pitch Nf), 8 at a time
+  auto convert = [&](const TBC* src, float* dst) {
+    const int nch = Ne / EPC;
+    for (int i = tid; i < kSsT * nch; i += kSsThreads) {
+      const int r = i / nch, ch = i - r * nch;
+      const TBC* sp = src + r * Nraw + ch * EPC;
+      float* dp = dst + r * Nf + ch * EPC;
+#pragma unroll
+      for (int e = 0; e < EPC; ++e)
+        if (ch * EPC + e < Nr) dp[e] = to_f32(sp[e]);
+    }
+  };
+
+  float yacc[4][4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) yacc[ii][jj] = 0.f;
+  issue(0, 0);
+  for (int jt = 0; jt <= it; ++jt) {
+    const int st = jt & 1;
+    cp_async_wait_all();
+    __syncthreads();          // tile jt landed; tile jt - 1 consumed
+    if (jt == 0) {
+      if (kConv) {
+        convert(reinterpret_cast<const TBC*>(bf_s), cf_s);
+        __syncthreads();
       }
-      __syncthreads();
-
-      // y_i = exp(a_cum_i) * (C_i h^T): rows ty + 16 ii, columns tx + 16 jj
-      float yacc[4][kSsdPCols];
+      // y_i = exp(a_cum_i) (C_i h_in^T)
+      for (int k0 = 0; k0 < Nr; k0 += 4)
+        fma_rows_cols(yacc, cf_s, Nf, hs_s, kSsP, k0, ty, tx);
 #pragma unroll
       for (int ii = 0; ii < 4; ++ii) {
         const int r = ty + 16 * ii;
         const float w = r < ni ? expf((float)acum_s[i0 + r]) : 0.f;
 #pragma unroll
-        for (int jj = 0; jj < kSsdPCols; ++jj) {
-          const int p = tx + 16 * jj;
-          float t = 0.f;
-          if (p < P)
-            for (int n = 0; n < N; ++n) t += c_s[r * NP + n] * h_s[p * NP + n];
-          yacc[ii][jj] = t * w;
-        }
-      }
-
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * kSsdT;
-        const int nj = min(kSsdT, Q - j0);
-        __syncthreads();
-        for (int e = tid; e < kSsdT * N; e += kSsdThreads) {
-          const int r = e / N, n = e - r * N;
-          b_s[r * NP + n] =
-              r < nj ? to_f32(bb[(long long)(c0 + j0 + r) * bss + n]) : 0.f;
-        }
-        for (int e = tid; e < kSsdT * P; e += kSsdThreads) {
-          const int r = e / P, p = e - r * P;
-          x_s[e] = r < nj ? xb[(long long)(c0 + j0 + r) * xss + p] : 0.f;
-        }
-        __syncthreads();
-        // scores (C_i B_j^T) o L: rows ty + 16 ii, keys tx + 16 jj
-        float s[4][4];
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cr[4], br[4];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) cr[ii] = c_s[(ty + 16 * ii) * NP + n];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) br[jj] = b_s[(tx + 16 * jj) * NP + n];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) s[ii][jj] += cr[ii] * br[jj];
-        }
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii) {
-          const int r = ty + 16 * ii, gi = i0 + r;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int cidx = tx + 16 * jj, gj = j0 + cidx;
-            const bool ok = gi >= gj && r < ni && cidx < nj;
-            s_s[r * (kSsdT + 1) + cidx] =
-                ok ? s[ii][jj] * expf((float)(acum_s[gi] - acum_s[gj]))
-                   : 0.f;
-          }
-        }
-        __syncthreads();
-        for (int cidx = 0; cidx < nj; ++cidx) {
-          float sr[4];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii)
-            sr[ii] = s_s[(ty + 16 * ii) * (kSsdT + 1) + cidx];
-#pragma unroll
-          for (int jj = 0; jj < kSsdPCols; ++jj) {
-            const int p = tx + 16 * jj;
-            if (p < P) {
-              const float xv = x_s[cidx * P + p];
-#pragma unroll
-              for (int ii = 0; ii < 4; ++ii) yacc[ii][jj] += sr[ii] * xv;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int r = ty + 16 * ii;
-        if (r >= ni) continue;
-        float* yr = yb + (long long)(c0 + i0 + r) * H * P;
-#pragma unroll
-        for (int jj = 0; jj < kSsdPCols; ++jj) {
-          const int p = tx + 16 * jj;
-          if (p < P) yr[p] = yacc[ii][jj];
-        }
+        for (int jj = 0; jj < 4; ++jj) yacc[ii][jj] *= w;
       }
     }
-
-    // h = exp(a_cum_last) h + X^T (B o exp(a_cum_last - a_cum))
-    const double a_last = acum_s[Q - 1];
-    float hacc[kSsdHRegs];
+    if (jt < it) issue(jt + 1, st ^ 1);
+    const float* bop;
+    if (kConv) {
+      convert(braw + st * kSsT * Nraw, bf_s);
+      bop = bf_s;
+    } else {
+      bop = reinterpret_cast<const float*>(braw + st * kSsT * Nraw);
+    }
+    __syncthreads();          // B_j ready; h_in^T no longer read
+    // scores (C_i B_j^T) o L_ij, L selected to 0 above the diagonal:
+    // rows ty + 16 ii, keys tx + 16 jj
+    float s[4][4];
 #pragma unroll
-    for (int k2 = 0; k2 < kSsdHRegs; ++k2) hacc[k2] = 0.f;
-    for (int jt = 0; jt < ntile; ++jt) {
-      const int j0 = jt * kSsdT;
-      const int nj = min(kSsdT, Q - j0);
-      __syncthreads();
-      for (int e = tid; e < kSsdT * N; e += kSsdThreads) {
-        const int r = e / N, n = e - r * N;
-        b_s[r * NP + n] =
-            r < nj ? to_f32(bb[(long long)(c0 + j0 + r) * bss + n]) *
-                         expf((float)(a_last - acum_s[j0 + r]))
-                   : 0.f;
-      }
-      for (int e = tid; e < kSsdT * P; e += kSsdThreads) {
-        const int r = e / P, p = e - r * P;
-        x_s[e] = r < nj ? xb[(long long)(c0 + j0 + r) * xss + p] : 0.f;
-      }
-      __syncthreads();
+    for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-      for (int k2 = 0; k2 < kSsdHRegs; ++k2) {
-        const int e = tid + k2 * kSsdThreads;
-        if (e < PN) {
-          const int p = e / N, n = e - p * N;
-          float t = hacc[k2];
-          for (int r = 0; r < nj; ++r) t += x_s[r * P + p] * b_s[r * NP + n];
-          hacc[k2] = t;
+      for (int jj = 0; jj < 4; ++jj) s[ii][jj] = 0.f;
+    for (int k0 = 0; k0 < Nr; k0 += 4) {
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+        av[ii] = *reinterpret_cast<const float4*>(cf_s + (ty + 16 * ii) * Nf + k0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        bv[jj] = *reinterpret_cast<const float4*>(bop + (tx + 16 * jj) * Nf + k0);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float t = s[ii][jj];
+          t = fmaf(av[ii].x, bv[jj].x, t);
+          t = fmaf(av[ii].y, bv[jj].y, t);
+          t = fmaf(av[ii].z, bv[jj].z, t);
+          t = fmaf(av[ii].w, bv[jj].w, t);
+          s[ii][jj] = t;
         }
+    }
+    const int j0 = jt * kSsT, nj = min(kSsT, Q - j0);
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii) {
+      const int r = ty + 16 * ii, gi = i0 + r;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int cc = tx + 16 * jj, gj = j0 + cc;
+        float v = 0.f;
+        if (gi >= gj && r < ni && cc < nj)
+          v = s[ii][jj] * expf((float)(acum_s[gi] - acum_s[gj]));
+        hs_s[r * kSsP + cc] = v;
       }
     }
     __syncthreads();
-    const float decay = expf((float)a_last);
-#pragma unroll
-    for (int k2 = 0; k2 < kSsdHRegs; ++k2) {
-      const int e = tid + k2 * kSsdThreads;
-      if (e < PN) {
-        const int p = e / N, n = e - p * N;
-        h_s[p * NP + n] = decay * h_s[p * NP + n] + hacc[k2];
-      }
-    }
+    const float* xs = x_s + st * kSsT * kSsP;
+    for (int k0 = 0; k0 < kSsT; k0 += 4)
+      fma_rows_cols(yacc, hs_s, kSsP, xs, kSsP, k0, ty, tx);
   }
-  __syncthreads();
-  float* hb = h_out + (long long)blockIdx.x * PN;
-  for (int e = tid; e < PN; e += kSsdThreads) {
-    const int p = e / N, n = e - p * N;
-    hb[e] = h_s[p * NP + n];
+  float* yb = y + ((long long)bidx * S + c0 + i0) * H * P + (long long)hh * P +
+              pb * kSsT;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int r = ty + 16 * ii;
+    if (r >= ni) continue;
+    float* yr = yb + (long long)r * H * P;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      if (tx * 4 + jj < pw) yr[tx * 4 + jj] = yacc[ii][jj];
   }
 }
 
@@ -1083,38 +1315,85 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 
 // x [B,S,H,P] f32, a [B,S,H] f32, b/c [B,S,G,N] (bf16 or f32), each
 // through its (batch, step, head-or-group) strides; y [B,S,H,P] f32 and
-// h_out [B,H,P,N] f32 contiguous. S is a multiple of the chunk Q.
+// h_out [B,H,P,N] f32 contiguous; scratch states [B,H,nc,N,P] f32 and
+// acum [B,H,S] f64. S is a multiple of the chunk Q.
 int ssd_scan_launch(const float* x, const float* a, const void* b,
-                    const void* c, float* y, float* h_out, int B, int S,
-                    int H, int G, int P, int N, int Q, long long xsb,
-                    long long xss, long long xsh, long long asb,
-                    long long ass, long long ash, long long bsb,
-                    long long bss, long long bsg, long long csb,
-                    long long css, long long csg, int is_bf16,
+                    const void* c, float* y, float* h_out, float* states,
+                    double* acum, int B, int S, int H, int G, int P, int N,
+                    int Q, long long xsb, long long xss, long long xsh,
+                    long long asb, long long ass, long long ash,
+                    long long bsb, long long bss, long long bsg,
+                    long long csb, long long css, long long csg, int is_bf16,
                     cudaStream_t stream) {
   if (B <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 || P > kSsdMaxP ||
       N <= 0 || N > kSsdMaxN || Q <= 0 || S <= 0 || S % Q != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)P * (N + 1) + 2 * (size_t)Q +
-                       2 * (size_t)kSsdT * (N + 1) + (size_t)kSsdT * P +
-                       (size_t)kSsdT * (kSsdT + 1));
-  const dim3 grid((unsigned)(B * H));
-  const int HG = H / G;
+  const int nc = S / Q, HG = H / G;
+  const int nnb = (N + kSsT - 1) / kSsT, npb = (P + kSsT - 1) / kSsT;
+  const int ntile = (Q + kSsT - 1) / kSsT;
+  const int elem = is_bf16 ? 2 : 4, epc = 16 / elem;
+  // 16-byte loads: rows a multiple of 16 bytes at 16-byte aligned addresses
+  // (a stride of a dimension of size 1 is never stepped)
+  auto al = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vecx = al(x) && P % 4 == 0 && (S == 1 || xss % 4 == 0) &&
+                   (B == 1 || xsb % 4 == 0) && (H == 1 || xsh % 4 == 0);
+  const int vecb = al(b) && N % epc == 0 && (S == 1 || bss % epc == 0) &&
+                   (B == 1 || bsb % epc == 0) && (G == 1 || bsg % epc == 0);
+  const int vecc = al(c) && N % epc == 0 && (S == 1 || css % epc == 0) &&
+                   (B == 1 || csb % epc == 0) && (G == 1 || csg % epc == 0);
+  const int vech = P % 4 == 0;
+  const int Nr = (N + 3) & ~3, Nf = Nr + 4;
+  const int Ne = (N + epc - 1) / epc * epc;
+  const int Nraw = is_bf16 ? Ne + epc : Nf;
+  const size_t smem1 = sizeof(float) * 3 * kSsT * kSsP +
+                       (size_t)2 * kSsT * (kSsT + epc) * elem +
+                       (sizeof(double) + sizeof(float)) * Q;
+  const size_t smem3 =
+      sizeof(float) * ((size_t)kSsT * Nf + (size_t)(Nr > kSsT ? Nr : kSsT) * kSsP +
+                       (size_t)2 * kSsT * kSsP + (is_bf16 ? (size_t)kSsT * Nf : 0)) +
+      (size_t)2 * kSsT * Nraw * elem + sizeof(double) * Q;
+  const unsigned long long n1 = (unsigned long long)B * H * nc * nnb * npb;
+  const unsigned long long n3 = (unsigned long long)ntile * B * H * nc * npb;
+  if (n1 >= (1ull << 31) || n3 >= (1ull << 31) || (long long)B * H >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  const dim3 g1((unsigned)n1);
+  const dim3 g2((unsigned)(B * H),
+                (unsigned)((N * P + kSsThreads - 1) / kSsThreads));
   cudaError_t e;
   if (is_bf16) {
-    auto kern = ssd_scan_kernel<__nv_bfloat16>;
-    if ((e = set_smem(kern, smem)) != cudaSuccess) return (int)e;
-    kern<<<grid, kSsdThreads, smem, stream>>>(
-        x, a, (const __nv_bfloat16*)b, (const __nv_bfloat16*)c, y, h_out, S,
-        H, HG, P, N, Q, xsb, xss, xsh, asb, ass, ash, bsb, bss, bsg, csb,
-        css, csg);
+    auto k1 = ssd_chunk_state_kernel<__nv_bfloat16>;
+    auto k3 = ssd_chunk_out_kernel<__nv_bfloat16>;
+    if ((e = set_smem(k1, smem1)) != cudaSuccess ||
+        (e = set_smem(k3, smem3)) != cudaSuccess)
+      return (int)e;
+    k1<<<g1, kSsThreads, smem1, stream>>>(
+        x, a, (const __nv_bfloat16*)b, states, acum, H, HG, P, N, Q, nc,
+        vecx, vecb, xsb, xss, xsh, asb, ass, ash, bsb, bss, bsg);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    ssd_state_pass_kernel<<<g2, kSsThreads, 0, stream>>>(states, acum, h_out,
+                                                         N, P, nc, Q);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    k3<<<(unsigned)n3, kSsThreads, smem3, stream>>>(
+        x, acum, (const __nv_bfloat16*)b, (const __nv_bfloat16*)c, states, y,
+        B, S, H, HG, P, N, Q, nc, vecx, vecb, vecc, vech, xsb, xss, xsh, bsb,
+        bss, bsg, csb, css, csg);
   } else {
-    auto kern = ssd_scan_kernel<float>;
-    if ((e = set_smem(kern, smem)) != cudaSuccess) return (int)e;
-    kern<<<grid, kSsdThreads, smem, stream>>>(
-        x, a, (const float*)b, (const float*)c, y, h_out, S, H, HG, P, N, Q,
-        xsb, xss, xsh, asb, ass, ash, bsb, bss, bsg, csb, css, csg);
+    auto k1 = ssd_chunk_state_kernel<float>;
+    auto k3 = ssd_chunk_out_kernel<float>;
+    if ((e = set_smem(k1, smem1)) != cudaSuccess ||
+        (e = set_smem(k3, smem3)) != cudaSuccess)
+      return (int)e;
+    k1<<<g1, kSsThreads, smem1, stream>>>(
+        x, a, (const float*)b, states, acum, H, HG, P, N, Q, nc, vecx,
+        vecb, xsb, xss, xsh, asb, ass, ash, bsb, bss, bsg);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    ssd_state_pass_kernel<<<g2, kSsThreads, 0, stream>>>(states, acum, h_out,
+                                                         N, P, nc, Q);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    k3<<<(unsigned)n3, kSsThreads, smem3, stream>>>(
+        x, acum, (const float*)b, (const float*)c, states, y, B, S, H, HG, P,
+        N, Q, nc, vecx, vecb, vecc, vech, xsb, xss, xsh, bsb, bss, bsg, csb,
+        css, csg);
   }
   return (int)cudaGetLastError();
 }

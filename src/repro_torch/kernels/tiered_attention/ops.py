@@ -26,10 +26,11 @@ def pool_attention_partial(q, pool_k, pool_v, slot_page, seq_len, *,
     seq_len = seq_len.to(torch.int32).contiguous()
     if q.is_cuda:
         pool_attention_partial.launches += 1
+        if q.dtype not in (torch.bfloat16, torch.float32):
+            q = q.to(torch.float32)
         return K.pool_attention_partial_cuda(
-            q.to(torch.float32).contiguous(), pool_k.contiguous(),
-            pool_v.contiguous(), slot_page, seq_len, window=window,
-            sm_scale=sm_scale)
+            q.contiguous(), pool_k.contiguous(), pool_v.contiguous(),
+            slot_page, seq_len, window=window, sm_scale=sm_scale)
     return R.pool_attention_partial_ref(q, pool_k, pool_v, slot_page,
                                         seq_len, window=window,
                                         sm_scale=sm_scale)

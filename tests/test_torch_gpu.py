@@ -213,8 +213,18 @@ MIGRATE_SHAPES = [(2, 4, 6, 5, 4, 2, 16), (1, 8, 4, 4, 8, 1, 32),
                   (3, 2, 8, 8, 2, 4, 8)]
 
 
+# K5's card shapes beyond the reference's: S1's (Llama 3.2 1B: 64
+# sequences, 32 heads on 8 kv heads of 64, 32 fast and 16 slow slots of 16
+# tokens), S3's (Zamba2-7B: 32 sequences, 32 heads of 112 with G = 1, 16
+# slots each), a small batch whose pools the launcher splits (16 and 10
+# splits) and pages of 32 tokens (two of a warp's 16-token units) with
+# G = 4
+K5_CARD_SHAPES = [(64, 32, 8, 64, 32, 16, 16), (32, 32, 32, 112, 16, 16, 16),
+                  (1, 32, 8, 64, 64, 40, 16), (2, 8, 2, 64, 8, 6, 32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", ATTN_SHAPES + [(64, 32, 8, 64, 32, 16, 16)])
+@pytest.mark.parametrize("shape", ATTN_SHAPES + K5_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 40])
 def test_pool_attention_matches_plain_on_card(shape, dtype, window, cuda):
@@ -402,8 +412,13 @@ def test_prefill_library_runs_wgmma_and_tma(cuda):
     assert "HGMMA" in sass and "UTMALDG" in sass
 
 
+# Zamba2-7B's Mamba2 widths (112 heads of 64, state 64, one group) at
+# S = 8,192 in chunks of 64: 128 chunks of state carry
+SSD_ZAMBA2_8K = (1, 8192, 112, 64, 64, 64, 1)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("shape", SSD_SHAPES + [SSD_ZAMBA2_8K])
 @pytest.mark.parametrize("bc_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("decay", ["test", "init", "strong"])
 def test_ssd_scan_matches_plain_on_card(shape, bc_dtype, decay, cuda):

@@ -21,13 +21,17 @@ from repro.kernels.migrate.ops import migrate_pages as j_migrate_pages
 from repro.kernels.select.ops import seg_reduce as j_seg_reduce
 from repro.kernels.select.ops import seg_sums as j_seg_sums
 from repro.kernels.select.ops import seg_topk as j_seg_topk
+from repro.kernels.tiered_attention.kernel import \
+    pool_attention_partial_tpu as j_partial_tpu
 from repro.kernels.tiered_attention.ops import tiered_attention as j_tiered
 from repro.kernels.tiered_attention.ref import \
     pool_attention_partial_ref as j_partial_ref
 from repro.memtier.kvcache import tiered_paged_attention as j_serving_attn
 from repro_torch.kernels.migrate import ops as TMIG
 from repro_torch.kernels.select import ops as TSEL
+from repro_torch.kernels.tiered_attention import kernel as TTA_K
 from repro_torch.kernels.tiered_attention import ops as TTA
+from repro_torch.kernels.tiered_attention import ref as TTA_REF
 from repro_torch.kernels.select import ref as TSEL_REF
 from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, TOPK_EDGE_CASES,
                             attention_case, migrate_case, moves_case,
@@ -261,6 +265,161 @@ def test_tiered_attention_matches_serving_path():
                                  (q, fk, fv, sk, sv, fp, sp, seq_len)))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+
+
+# The CUDA kernel's algorithm (csrc/serving.cu pool_attention_split_kernel
+# and pool_attention_merge_kernel), modelled in torch so that its logic is
+# pinned where no kernel runs: splits of contiguous slots, the list of
+# valid slots with their token ranges, each warp walking entries w, w + 4,
+# ... in units of up to 16 tokens with its own online softmax, page masses
+# following the warp's running max, the warps merged in order, then the
+# splits merged.
+def split_partial_model(q, pool_k, pool_v, slot_page, seq_len, *, window,
+                        splits, warps=TTA_K.WARPS, unit=TTA_K.UNIT):
+    B, Mp, pt, K, D = pool_k.shape
+    H = q.shape[1]
+    G = H // K
+    neg = TTA_REF.NEG_INF
+    per = -(-Mp // splits)
+    n = -(-Mp // per)
+    acc_p = torch.zeros((n, B, H, D))
+    m_p = torch.full((n, B, H), neg)
+    l_p = torch.zeros((n, B, H))
+    mass = torch.zeros((B, H, Mp))
+    for b in range(B):
+        seq = int(seq_len[b])
+        for kk in range(K):
+            hs = slice(kk * G, (kk + 1) * G)
+            qg = q[b, hs].float() / np.sqrt(D)                     # [G, D]
+            for s in range(n):
+                p0, p1 = s * per, min(Mp, (s + 1) * per)
+                ents = []
+                for p in range(p0, p1):
+                    page = int(slot_page[b, p])
+                    if page < 0:
+                        continue
+                    hi = min(max(seq - page * pt + 1, 0), pt)
+                    lo = (min(max(seq - window - page * pt + 1, 0), pt)
+                          if window is not None else 0)
+                    if hi > lo:
+                        ents.append((p, lo, hi))
+                mass_s = torch.zeros((G, p1 - p0))
+                stab = torch.full((G, p1 - p0), neg)
+                m_w = torch.full((warps, G), neg)
+                l_w = torch.zeros((warps, G))
+                acc_w = torch.zeros((warps, G, D))
+                for w in range(warps):
+                    m, l, acc = m_w[w], l_w[w], acc_w[w]
+                    for p, lo, hi in ents[w::warps]:
+                        for k in range(lo // unit, (hi - 1) // unit + 1):
+                            rows = slice(max(lo, k * unit),
+                                         min(hi, (k + 1) * unit))
+                            kr = pool_k[b, p, rows, kk].float()
+                            vr = pool_v[b, p, rows, kk].float()
+                            sc = qg @ kr.T                          # [G, n]
+                            m_new = torch.maximum(m, sc.amax(dim=1))
+                            pr = torch.exp(sc - m_new[:, None])
+                            usum = pr.sum(dim=1)
+                            corr = torch.exp(m - m_new)
+                            l = l * corr + usum
+                            acc = acc * corr[:, None] + pr @ vr
+                            m = m_new
+                            mpage = (usum if k == lo // unit
+                                     else mpage * corr + usum)
+                        mass_s[:, p - p0] = mpage
+                        stab[:, p - p0] = m
+                    m_w[w], l_w[w], acc_w[w] = m, l, acc
+                m = m_w.amax(dim=0)
+                c = torch.exp(m_w - m)                              # [W, G]
+                mass[b, hs, p0:p1] = mass_s * torch.exp(stab - m[:, None])
+                acc_p[s, b, hs] = (acc_w * c[..., None]).sum(0)
+                m_p[s, b, hs], l_p[s, b, hs] = m, (l_w * c).sum(0)
+    if n == 1:
+        return acc_p[0], m_p[0], l_p[0], mass
+    m = m_p.amax(dim=0)
+    c = torch.exp(m_p - m)                                          # [n,B,H]
+    owner = torch.arange(Mp) // per
+    return ((acc_p * c[..., None]).sum(0), m, (l_p * c).sum(0),
+            mass * c.permute(1, 2, 0)[:, :, owner])
+
+
+def split_case(name):
+    """Pool-partial inputs for the split model: (q [B,H,D], pool_k, pool_v,
+    slot_page, seq_len) of one pool. "attn<i>_<fast|slow>" are the seeded
+    ATTN_SHAPES pools; "ragged" has Mp = 13 (not a multiple of the splits'
+    length), slots 3-5 free (the second of five splits holds only free
+    slots) and pages in shuffled slots; "zamba2" has D = 112 with G = 1;
+    "long_pages" has pages of 32 tokens (two units a page) and G = 8 (two
+    head groups)."""
+    if name.startswith("attn"):
+        i, pool = name[4:].split("_")
+        q, fk, fv, sk, sv, fp, sp, seq_len = attention_case(
+            ATTN_SHAPES[int(i)])
+        pk, pv, page = (fk, fv, fp) if pool == "fast" else (sk, sv, sp)
+        return q[:, 0], pk, pv, page, seq_len
+    B, H, K, D, Mp, pt = {"ragged": (2, 8, 4, 64, 13, 8),
+                          "zamba2": (2, 4, 4, 112, 10, 16),
+                          "long_pages": (2, 16, 2, 32, 6, 32)}[name]
+    rng = np.random.default_rng(15)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    pk, pv = (rng.standard_normal((B, Mp, pt, K, D)).astype(np.float32)
+              for _ in range(2))
+    page = np.stack([rng.permutation(Mp) for _ in range(B)]).astype(np.int32)
+    if name == "ragged":
+        page[:, 3:6] = -1
+    seq_len = np.array([Mp * pt - 5, (Mp - 2) * pt + 3], np.int32)
+    return q, pk, pv, page, seq_len
+
+
+SPLIT_CASES = [f"attn{i}_{pool}" for i in range(len(ATTN_SHAPES))
+               for pool in ("fast", "slow")] + ["ragged", "zamba2",
+                                                "long_pages"]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("window", [None, 40])
+def test_pool_attention_split_model_matches_plain(case, splits, window):
+    """The kernel's split partials and merge within 1e-5 of the plain
+    version, and within the existing 2e-5 of the reference's Pallas kernel
+    in interpret mode (its masses rescaled from their per-block stabilisers
+    to the final m): 1, 2 and 5 splits, a split with only free slots,
+    window 40 cutting whole pages, Mp not a multiple of the split's length,
+    D = 112 with G = 1, pages of two units."""
+    q, pk, pv, page, seq_len = split_case(case)
+    got = split_partial_model(
+        torch.as_tensor(q), torch.as_tensor(pk), torch.as_tensor(pv),
+        torch.as_tensor(page), torch.as_tensor(seq_len), window=window,
+        splits=splits)
+    want = TTA_REF.pool_attention_partial_ref(
+        *(torch.as_tensor(a) for a in (q, pk, pv, page, seq_len)),
+        window=window)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    Mp = pk.shape[1]
+    blk = max(d for d in range(1, 9) if Mp % d == 0)
+    acc, m, l, mass, stab = j_partial_tpu(
+        *(jnp.asarray(a) for a in (q, pk, pv, page, seq_len)),
+        window=window, page_block=blk, interpret=True)
+    mass = np.asarray(mass) * np.exp(
+        np.repeat(np.asarray(stab), blk, axis=-1) - np.asarray(m)[..., None])
+    for g, w in zip(got, (acc, m, l, mass)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=1e-5)
+
+
+def test_pool_attention_split_policy():
+    """One split at the serving paths' widths (Llama 3.2 1B: 64 sequences x
+    8 kv heads; Zamba2-7B: 32 x 32), several for a small batch, none
+    shorter than a page per warp, at most 32."""
+    assert TTA_K.num_splits(64, 8, 32) == (1, 32)
+    assert TTA_K.num_splits(64, 8, 16) == (1, 16)
+    assert TTA_K.num_splits(32, 32, 16) == (1, 16)
+    assert TTA_K.num_splits(1, 8, 64) == (16, 4)
+    assert TTA_K.num_splits(1, 8, 40) == (10, 4)
+    assert TTA_K.num_splits(2, 4, 13) == (3, 5)
+    assert TTA_K.num_splits(2, 4, 3) == (1, 3)
+    assert TTA_K.num_splits(1, 1, 4096) == (32, 128)
 
 
 # -------------------------------------------------------- migrate pages ----

@@ -39,6 +39,7 @@ from repro_torch.models import transformer as TF
 from repro_torch.train.step import make_prefill_step as t_prefill
 from test_torch_gpu import (FLASH_MASKS, FLASH_SHAPES, SSD_SHAPES,
                             flash_case, ssd_case)
+from repro_torch.kernels.ssd_scan import ref as TSSD_REF
 
 CPU = "cpu"
 FWD_RTOL = 1e-4
@@ -166,6 +167,87 @@ def test_ssd_scan_rejects_ragged_chunks_and_counts_no_cpu_launch():
     assert TSSD.ssd_scan.launches == before
     with pytest.raises(ValueError, match="multiple"):
         TSSD.ssd_scan(x, a, bb, cc, chunk=24)
+
+
+# The CUDA kernels' algorithm (csrc/prefill.cu: ssd_chunk_state_kernel,
+# ssd_state_pass_kernel, ssd_chunk_out_kernel), modelled in torch so that
+# its split points and order of operations are pinned where no kernel
+# runs: chunk states summed over 64-row tiles, the state pass multiplying
+# one chunk's decay at a time, chunk outputs per 64-row tile with key tiles
+# j <= i; a_cum and its differences in float64, rounded once before exp,
+# L selected to 0 above the diagonal.
+def ssd_split_model(x, a, b, c, chunk: int, tile: int = 64):
+    B, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    nc, f32 = S // chunk, torch.float32
+    bh = torch.repeat_interleave(b, H // G, dim=2).to(f32).reshape(
+        B, nc, chunk, H, N)
+    ch = torch.repeat_interleave(c, H // G, dim=2).to(f32).reshape(
+        B, nc, chunk, H, N)
+    xr = x.to(f32).reshape(B, nc, chunk, H, P)
+    acum = a.to(torch.float64).reshape(B, nc, chunk, H).cumsum(dim=2)
+    a_last = acum[:, :, -1]                                     # [B,nc,H]
+    w = torch.exp((a_last[:, :, None] - acum).to(f32))          # [B,nc,Q,H]
+    # 1. chunk states s_c [N, P], summed tile by tile
+    states = torch.zeros((B, nc, H, N, P))
+    for r0 in range(0, chunk, tile):
+        r = slice(r0, r0 + tile)
+        states = states + torch.einsum(
+            "bcrhn,bcrhp->bchnp", bh[:, :, r] * w[:, :, r, :, None], xr[:, :, r])
+    # 2. the state pass: h_in[c] = h; h = exp(A_c) h + s_c
+    h = torch.zeros((B, H, N, P))
+    h_in = []
+    for cc in range(nc):
+        h_in.append(h)
+        h = torch.exp(a_last[:, cc].to(f32))[..., None, None] * h + \
+            states[:, cc]
+    h_in = torch.stack(h_in, dim=1)                             # [B,nc,H,N,P]
+    # 3. chunk outputs, 64-row tile i against key tiles j <= i
+    y = torch.empty((B, nc, chunk, H, P))
+    for i0 in range(0, chunk, tile):
+        i = slice(i0, i0 + tile)
+        gi = torch.arange(i0, min(i0 + tile, chunk))
+        yi = torch.einsum("bcihn,bchnp->bcihp", ch[:, :, i], h_in) * \
+            torch.exp(acum[:, :, i].to(f32))[..., None]
+        for j0 in range(0, i0 + 1, tile):
+            j = slice(j0, j0 + tile)
+            gj = torch.arange(j0, min(j0 + tile, chunk))
+            sc = torch.einsum("bcihn,bcjhn->bcijh", ch[:, :, i], bh[:, :, j])
+            diff = (acum[:, :, i, None] - acum[:, :, None, j]).to(f32)
+            tri = (gi[:, None] >= gj[None, :])[None, None, :, :, None]
+            sc = torch.where(tri, sc * torch.exp(diff), 0.0)
+            yi = yi + torch.einsum("bcijh,bcjhp->bcihp", sc, xr[:, :, j])
+        y[:, :, i] = yi
+    return y.reshape(B, S, H, P), h.transpose(-1, -2).contiguous()
+
+
+# (b, s, h, p, n, chunk, g): the card tests' shapes, then one chunk over
+# the whole sequence, 128 chunks at a small width, and a chunk of 96 (a
+# 64-row tile and a 32-row one)
+SSD_MODEL_SHAPES = SSD_SHAPES + [(1, 64, 2, 16, 8, 64, 1),
+                                 (1, 1024, 2, 8, 8, 8, 1),
+                                 (1, 192, 2, 16, 16, 96, 2)]
+
+
+@pytest.mark.parametrize("shape", SSD_MODEL_SHAPES)
+@pytest.mark.parametrize("decay", ["test", "init", "strong"])
+def test_ssd_split_model_matches_plain_and_reference(shape, decay):
+    """The kernels' chunk-parallel split within the card bound (atol 1e-5,
+    rtol 1e-4) of the plain version, and within the reference's kernel-test
+    bound (atol 1e-4, rtol 5e-2) of its Pallas kernel in interpret mode."""
+    x, a, bb, cc = ssd_case(shape, decay=decay)
+    chunk = shape[5]
+    y, h = ssd_split_model(T_(x), T_(a), T_(bb), T_(cc), chunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    y_p, h_p = TSSD_REF.ssd_scan_ref(T_(x), T_(a), T_(bb), T_(cc), chunk)
+    torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=1e-4)
+    y_i, h_i = j_ssd(*_ssd_ref_inputs(x, a, bb, cc), chunk=chunk,
+                     impl="pallas_interpret")
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_i), atol=1e-4,
+                               rtol=5e-2)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_i), atol=1e-4,
+                               rtol=5e-2)
 
 
 # -------------------------------------------------------------- pieces ----
