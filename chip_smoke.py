@@ -18,7 +18,9 @@ one line each, each with its duration:
   4. the tick at full width: T=64, L=262,144, equilibria, 20 ticks, "cuda"
      vs "ref" on the card; every tick kernel must launch in this run
   5. ``stacked64`` in all four modes, "cuda" vs "ref"
-  6. tick kernels: time, launches per tick, bound, plain and library times
+  6. tick kernels: time, launches per tick, bound, plain and library times,
+     the earlier designs' times and the launch floor (an empty kernel); K1
+     and K4 also at the arguments of C1's first and tenth (settled) ticks
   7. where a full-width tick's device time goes (torch.profiler)
   8. serving kernels (K5 tiered attention, K6 page migration) vs plain
      versions on the card at full width: K5 at S1's and S3's widths in bf16
@@ -136,11 +138,14 @@ K7_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 K8_ATOL, K8_RTOL = 1e-5, 1e-4
 PATH_TAIL = 1024     # K7's query rows checked on the S=32,768 path
 # card times of the earlier designs of K1 (a block-wide argmax per winner),
-# K5 (a block per sequence and kv head walking page by page), K7 (mma.sync
-# over 64-query tiles) and K8 (a block per batch and head walking its
-# chunks in order), as PERF.md records them (NVIDIA H100 80GB HBM3, 700 W),
-# printed beside this run's times
-EARLIER_MS = {"seg_topk": 0.3567, "pool_attention_partial": 0.3725,
+# K3 (a block of 256 threads per row, one scalar load at a time), K4 (one
+# block walking the stream twice, a chunked scan), K5 (a block per sequence
+# and kv head walking page by page), K7 (mma.sync over 64-query tiles) and
+# K8 (a block per batch and head walking its chunks in order), as PERF.md
+# records them (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+# times
+EARLIER_MS = {"seg_topk": 0.3567, "seg_sums": 0.0112, "commit_moves": 0.0319,
+              "pool_attention_partial": 0.3725,
               "flash_attention": 1.4350, "flash_attention_llama": 1.1220,
               "ssd_scan": 5.5703}
 # the device kernels behind each redesigned op (profiler names), counted
@@ -1242,6 +1247,9 @@ def main() -> int:
         "seg_sums": lambda: xmask.sum(dim=1, dtype=torch.int32),
         "commit_moves": None,
     }
+    # the launch floor: an empty kernel of the same library, timed alike
+    floor_ms = device_ms(lambda: libs["selection"].call(
+        "empty_launch", torch.cuda.current_stream().cuda_stream))
     rows = []
     for name in REPLACES:
         k_ms = device_ms(kern[name])
@@ -1259,6 +1267,7 @@ def main() -> int:
             "launches_per_tick": launches[name] / MAIN_TICKS,
             "bytes": nbytes[name],
             "bound_copy_ms": nbytes[name] / bw * 1e3,
+            "launch_floor_ms": floor_ms,
         })
         earlier = (f"earlier design {EARLIER_MS[name]:.4f}, "
                    if name in EARLIER_MS else "")
@@ -1266,23 +1275,32 @@ def main() -> int:
                           f"{p_ms:.4f}, library {lib_ms if lib_ms is None else f'{lib_ms:.4f}'}"
                           f", bound {rows[-1]['bound_ms']:.5f} at 3.35 TB/s, "
                           f"{rows[-1]['bound_copy_ms']:.5f} at measured copy "
-                          f"{bw / 1e12:.3f} TB/s) launches/tick "
+                          f"{bw / 1e12:.3f} TB/s, launch floor "
+                          f"{floor_ms:.4f}) launches/tick "
                           f"{launches[name] / MAIN_TICKS:g}")
 
-    # K1 at the quotas C1's ticks hand it: the arguments of its calls in the
+    # K1 and K4 at the arguments C1's ticks hand them: their calls in the
     # first tick of the bench trace (the one that moves pages: quotas up to
-    # about 200) and in the tenth (settled: quotas 0), recorded on the way in
-    # (the op counts its launches on the module's global of its name, the
-    # recorder while it is in place; the count is carried over both ways)
-    calls = []
-    orig_topk = KSEL.seg_topk
+    # about 200) and in the tenth (settled: quotas 0, nothing taken),
+    # recorded on the way in (an op counts its launches on the module's
+    # global of its name, the recorder while it is in place; the count is
+    # carried over both ways)
+    calls = {"seg_topk": [], "commit_moves": []}
+    orig_topk, orig_moves = KSEL.seg_topk, KMIG.commit_moves
 
     def recording_topk(score, valid, quotas, k):
-        calls.append((score.clone(), valid.clone(), quotas.clone(), k))
+        calls["seg_topk"].append((score.clone(), valid.clone(),
+                                  quotas.clone(), k))
         return orig_topk(score, valid, quotas, k)
 
+    def recording_moves(*args, **kw):
+        calls["commit_moves"].append(
+            ([a.clone() if torch.is_tensor(a) else a for a in args], kw))
+        return orig_moves(*args, **kw)
+
     recording_topk.launches = orig_topk.launches
-    KSEL.seg_topk = recording_topk
+    recording_moves.launches = orig_moves.launches
+    KSEL.seg_topk, KMIG.commit_moves = recording_topk, recording_moves
     tick_calls = {}
     try:
         tick = make_tick(cfg, owner, "equilibria", K_MAX, impl="cuda",
@@ -1291,26 +1309,50 @@ def main() -> int:
         a_t = torch.as_tensor(acc[0], device="cuda")
         alive_t = torch.ones_like(a_t, dtype=torch.bool)
         for t in range(10):
-            calls.clear()
+            for v in calls.values():
+                v.clear()
             state, _ = tick(state, (a_t, alive_t))
             if t in (0, 9):
-                tick_calls["first" if t == 0 else "tenth"] = list(calls)
+                tick_calls["first" if t == 0 else "tenth"] = {
+                    k: list(v) for k, v in calls.items()}
     finally:
-        KSEL.seg_topk = orig_topk
+        KSEL.seg_topk, KMIG.commit_moves = orig_topk, orig_moves
         orig_topk.launches = recording_topk.launches
-    per_tick = {}
+        orig_moves.launches = recording_moves.launches
+    per_tick, moves_tick = {}, {}
     for label, cs in tick_calls.items():
-        require(len(cs) > 0, f"the {label} tick called no seg_topk")
+        require(len(cs["seg_topk"]) > 0 and len(cs["commit_moves"]) > 0,
+                f"the {label} tick called no seg_topk or no commit_moves")
         per_tick[label] = [(device_ms(functools.partial(orig_topk, *c)),
                             int(c[2].max()), float(c[2].clamp(min=0).float()
-                                                   .mean())) for c in cs]
-    rows[0]["ms_per_tick_at_tick_quotas"] = {
+                                                   .mean()))
+                           for c in cs["seg_topk"]]
+        # K4: ms a call and taken lanes (args: tier, ring, head, pages,
+        # take, ...); bound as the phase's nbytes formula at this n_take
+        moves_tick[label] = []
+        for args, kw in cs["commit_moves"]:
+            n_t = int(args[4].sum())
+            nb = args[3].shape[0] * 13 + 8 + n_t * 4 + min(
+                n_t, args[1].shape[0]) * 20
+            moves_tick[label].append((device_ms(functools.partial(
+                orig_moves, *args, **kw)), n_t, nb / HBM_BYTES_PER_S * 1e3))
+    row_of = {r["name"]: r for r in rows}
+    row_of["seg_topk"]["ms_per_tick_at_tick_quotas"] = {
         label: sum(ms for ms, _, _ in v) for label, v in per_tick.items()}
+    row_of["commit_moves"]["ms_per_tick_at_tick_state"] = {
+        label: sum(ms for ms, _, _ in v) for label, v in moves_tick.items()}
     phase("6-kernel", "seg_topk at C1's own quotas (k=256, ms a call, quota "
           "max/mean): " + "; ".join(
               f"{label} tick {sum(ms for ms, _, _ in v):.4f} ms (" + ", ".join(
                   f"{ms:.4f} at {qmax}/{qmean:.1f}" for ms, qmax, qmean in v)
               + ")" for label, v in per_tick.items()))
+    phase("6-kernel", "commit_moves at C1's own tick states (N="
+          f"{N}, C={C}; ms a call, taken lanes, bound ms; launch floor "
+          f"{floor_ms:.4f}): " + "; ".join(
+              f"{label} tick {sum(ms for ms, _, _ in v):.4f} ms (" + ", ".join(
+                  f"{ms:.4f} at {n_t} taken, bound {b:.5f}"
+                  for ms, n_t, b in v) + ")"
+              for label, v in moves_tick.items()))
     del calls, tick_calls, state, tick
 
     # ---- 7. where a full-width tick's device time goes --------------------

@@ -5,20 +5,21 @@ another revision, in one process on one card.
     git archive <rev> src/repro_torch/kernels/csrc/prefill.cu | tar -x -C old/
     python3 scripts/compare_k7.py --old-source old/src/repro_torch/kernels/csrc/prefill.cu
 
-Both sources are built with the same ``nvcc`` flags and called through the
-same C launcher (``flash_attention_launch``, whose signature both keep) on
-the same bf16 inputs at B=1, S=4,096, causal: zamba2's heads (H=K=32,
-D=112) and llama's (H=32, K=8, D=64), the shapes of ``chip_smoke.py``'s
-phase 17. Each pair is timed in turns (old, new, new, old; median of CUDA
-event times over back-to-back launches) and checked against the plain
-version within the bf16 bound 2e-2. Prints the card's name and power limit
-first.
+Both sources are built with the same ``nvcc`` flags (the old one through
+``kernels/build.py`` ``build_variant``) and called through the same C
+launcher (``flash_attention_launch``, whose signature both keep) on the
+same bf16 inputs at B=1, S=4,096, causal: zamba2's heads (H=K=32, D=112)
+and llama's (H=32, K=8, D=64), the shapes of ``chip_smoke.py``'s phase 17.
+Each pair is timed in turns (old, new, new, old; each turn the median of
+CUDA-event times over 20 back-to-back launches, ``chip_smoke.device_ms``)
+and checked against the plain version within the bf16 bound 2e-2. A line
+gives each kernel's fastest turn, then the turns. Prints the card's name
+and power limit first.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import math
 import pathlib
 import subprocess
@@ -26,26 +27,10 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(1, str(ROOT))
 
 SHAPES = {"zamba2": (32, 32, 112), "llama": (32, 8, 64)}   # H, K, D
 B, S = 1, 4096
-
-
-def build_old(source: pathlib.Path):
-    """Compile ``source`` into a library of its own and bind its launcher."""
-    from repro_torch.kernels import build
-    text = source.read_bytes()
-    out = build.BUILD_DIR / (
-        "prefill_old_" + hashlib.sha256(text).hexdigest()[:16] + ".so")
-    if not out.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(out),
-                        str(source)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    lib.flash_attention_launch.argtypes = list(
-        build._SIGNATURES["prefill"]["flash_attention_launch"])
-    lib.flash_attention_launch.restype = ctypes.c_int
-    return lib
 
 
 def launch(lib, q, k, v):
@@ -67,21 +52,6 @@ def launch(lib, q, k, v):
     return out
 
 
-def device_ms(torch, fn, n: int = 20) -> float:
-    """Median CUDA-event time of ``fn`` over ``n`` back-to-back launches."""
-    fn()
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-    torch.cuda._sleep(100_000_000)
-    for s, e in ev:
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return sorted(s.elapsed_time(e) for s, e in ev)[n // 2]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old-source", type=pathlib.Path, required=True)
@@ -90,12 +60,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("compare_k7: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels.build import load_library
+    from chip_smoke import device_ms
+    from repro_torch.kernels.build import build_variant, load_library
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    libs = {"old": build_old(args.old_source),
+    libs = {"old": build_variant("prefill", args.old_source),
             "new": load_library("prefill").lib}
     g = torch.Generator(device="cuda").manual_seed(17)
     for name, (H, K, D) in SHAPES.items():
@@ -113,7 +84,7 @@ def main() -> int:
         times = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             times[which].append(device_ms(
-                torch, lambda: launch(libs[which], q, k, v)))
+                lambda: launch(libs[which], q, k, v), n=20))
         print(f"K7 [{name} H={H} K={K} D={D}, B={B} S={S}, causal, bf16]: "
               + ", ".join(f"{w} {min(t):.4f} ms (turns "
                           + " ".join(f"{x:.4f}" for x in t)

@@ -234,8 +234,10 @@ def _contiguous_layout(owner: np.ndarray, n_tenants: int,
     layout = plan_layout(owner, n_tenants, device)
     if layout is None:
         raise NotImplementedError(
-            "non-contiguous static owner vectors need segment_ranks, which "
-            "the port does not have yet; build owners with build_trace")
+            "non-contiguous static owner vectors need the non-contiguous "
+            "branch of static_strategy (select_top_quota over segment_ranks "
+            "and its reductions), which the port does not have yet (ROADMAP "
+            "B1/A11); build owners with build_trace")
     return layout
 
 

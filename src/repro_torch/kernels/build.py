@@ -41,6 +41,7 @@ _SIGNATURES = {
         "seg_sums_launch": (_P, _P, _I, _I, _P, _P),
         "commit_moves_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _P),
+        "empty_launch": (_P,),
     },
     "serving": {
         "pool_attention_partial_launch": (_P, _I, _P, _P, _P, _P,
@@ -129,22 +130,54 @@ def _compile(names) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def _bind(lib: ctypes.CDLL, name: str, missing_ok: bool = False) -> None:
+    """Set the C signatures of source ``name``'s launchers on ``lib``."""
+    for fn_name, argtypes in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name, None)
+        if fn is None and missing_ok:
+            continue
+        if fn is None:
+            raise AttributeError(f"{name}: launcher {fn_name} is missing")
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+
+
 @functools.cache
 def load_library(name: str = "selection") -> KernelLibrary:
     """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
     _compile([name])
     _, out = _artifact(name)
     lib = ctypes.CDLL(str(out))
-    for fn_name, argtypes in _SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    _bind(lib, name)
     err_fn = getattr(lib, f"{name}_error_string")
     err_fn.argtypes = [ctypes.c_int]
     err_fn.restype = ctypes.c_char_p
     log_path = out.with_suffix(".log")
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(name, lib, out, _BUILD_S.get(name, 0.0), log)
+
+
+def build_variant(name: str, source: pathlib.Path) -> ctypes.CDLL:
+    """Compile ``source``, another revision of ``csrc/<name>.cu``, with the
+    same flags into a library of its own (once per source hash) and bind
+    the launchers of ``name`` that it defines: for timing one revision of a
+    kernel against another in one process. The port loads only
+    ``load_library``'s builds."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device")
+    text = pathlib.Path(source).read_bytes()
+    digest = hashlib.sha256(
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{name}_variant_{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                            str(source)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{r.stderr}")
+    lib = ctypes.CDLL(str(out))
+    _bind(lib, name, missing_ok=True)
+    return lib
 
 
 def build_all() -> Dict[str, KernelLibrary]:

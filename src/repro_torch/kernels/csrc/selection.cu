@@ -8,23 +8,27 @@
 //
 // All four move a few hundred kilobytes to a few megabytes and do a handful
 // of integer operations per byte, so device-memory bytes bound them on this
-// card. The TPU versions carried a row block through VMEM; here one thread
+// card, and at the tick's widths that bound is under a launch's fixed
+// cost. The TPU versions carried a row block through VMEM; here one thread
 // block owns one tenant row (blocks run in parallel, in no order), and every
 // reduction across the row is a warp-shuffle tree plus one shared-memory
-// hop across warps. Integer adds are done in unsigned arithmetic so that
-// overflow wraps exactly as int32 does in the reference.
+// hop across warps; commit_moves spreads its one stream over a cluster of
+// blocks. Integer adds are done in unsigned arithmetic so that overflow
+// wraps exactly as int32 does in the reference.
 //
 // Plain C interface: each launcher returns cudaGetLastError() right after
 // its launch (0 on success), and the caller raises on anything else.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kTopkThreads = 512;
 constexpr int kScanThreads = 1024;
-constexpr int kSumThreads = 256;
 
 // ------------------------------------------------------------ warp helpers
 __device__ __forceinline__ unsigned warp_sum_u32(unsigned v) {
@@ -280,69 +284,302 @@ seg_reduce_kernel(const int* __restrict__ x,
 }
 
 // ---------------------------------------------------------------- seg_sums
+// Replaces repro/kernels/select/kernel.py seg_sums_tpu: masked int32 row
+// sums. At C1's widths (T=64, S=4,096) the row data are 1.3 MB, a bound of
+// 0.4 us at 3.35 TB/s, far below one launch's fixed cost, so what bounds it
+// is latency: how many loads each thread has in flight before its first
+// add, and how few barriers follow. Each thread takes units of four lanes,
+// one 16-byte load of x and one 4-byte load of the matching valid bytes,
+// kSumInflight units issued before any is added. A row whose start is not
+// 16-byte aligned (S % 4 != 0) takes up to three lanes before the first
+// aligned unit and the ragged tail one lane a thread; rows whose x and valid
+// are out of phase (views at odd offsets) go one lane at a time.
+constexpr int kSumInflight = 4;
+
+__device__ __forceinline__ unsigned masked4(int4 x, unsigned v) {
+  return ((v & 0xffu) ? (unsigned)x.x : 0u) +
+         ((v & 0xff00u) ? (unsigned)x.y : 0u) +
+         ((v & 0xff0000u) ? (unsigned)x.z : 0u) +
+         ((v & 0xff000000u) ? (unsigned)x.w : 0u);
+}
+
+// This thread's share of one row's masked sum, for thread r of n.
+__device__ __forceinline__ unsigned masked_row_sum(
+    const int* __restrict__ xrow, const unsigned char* __restrict__ vrow,
+    int S, int r, int n) {
+  const unsigned px = (unsigned)((uintptr_t)xrow >> 2) & 3u;
+  const unsigned pv = (unsigned)(uintptr_t)vrow & 3u;
+  const int head = px == pv ? min((int)((4u - px) & 3u), S) : S;
+  const int units = (S - head) >> 2;
+  const int tail = head + 4 * units;
+  unsigned acc = 0u;
+  for (int c = r; c < head; c += n) {
+    const unsigned xv = (unsigned)xrow[c];
+    acc += vrow[c] ? xv : 0u;
+  }
+  for (int c = tail + r; c < S; c += n) {
+    const unsigned xv = (unsigned)xrow[c];
+    acc += vrow[c] ? xv : 0u;
+  }
+  const int4* x4 = reinterpret_cast<const int4*>(xrow + head);
+  const unsigned* v4 = reinterpret_cast<const unsigned*>(vrow + head);
+  for (int u = r; u < units; u += kSumInflight * n) {
+    int4 xs[kSumInflight];
+    unsigned vs[kSumInflight];
+#pragma unroll
+    for (int i = 0; i < kSumInflight; ++i) {
+      const int w = u + i * n;
+      xs[i] = w < units ? __ldg(x4 + w) : make_int4(0, 0, 0, 0);
+      vs[i] = w < units ? __ldg(v4 + w) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kSumInflight; ++i) acc += masked4(xs[i], vs[i]);
+  }
+  return acc;
+}
+
+// Block sum of one value per thread, valid in thread 0 only: one barrier.
+__device__ __forceinline__ unsigned block_sum_to_first(unsigned v,
+                                                       unsigned* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum_u32(v);
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? scratch[lane] : 0u;
+    v = warp_sum_u32(v);
+  }
+  return v;
+}
+
+// One block of 1,024 threads per row: at S=4,096 one unit a thread, all
+// of the row's loads in flight at once, and one barrier. (A cluster per
+// row meeting in distributed shared memory, which covers the card at
+// T=64, took 0.0073 ms as 4 blocks of 256 threads and as 8 of 128 against
+// this design's 0.0062 at C1's widths on an H100: the row is
+// latency-bound either way, and the cluster barriers cost more than the
+// extra SMs gain.)
+constexpr int kSumThreads = 1024;
+
 __global__ void __launch_bounds__(kSumThreads)
 seg_sums_kernel(const int* __restrict__ x,
                 const unsigned char* __restrict__ valid, int S,
                 int* __restrict__ sums) {
-  __shared__ unsigned scratch[33];
-  const int row = blockIdx.x;
-  const int* xrow = x + (size_t)row * S;
-  const unsigned char* vrow = valid + (size_t)row * S;
-  unsigned acc = 0u;
-  for (int c = threadIdx.x; c < S; c += blockDim.x)
-    if (vrow[c]) acc += (unsigned)xrow[c];
-  acc = block_sum_u32(acc, scratch);
+  __shared__ unsigned scratch[32];
+  const size_t row = blockIdx.x;
+  unsigned acc = masked_row_sum(x + row * S, valid + row * S, S,
+                                threadIdx.x, blockDim.x);
+  acc = block_sum_to_first(acc, scratch);
   if (threadIdx.x == 0) sums[row] = (int)acc;
 }
 
 // ------------------------------------------------------------ commit_moves
-// One block walks the N-lane move stream twice: first to count the taken
-// lanes (total), then with a chunked exclusive scan that gives each taken
-// lane its offset; the lane writes tier[page] and, when it is among the
-// newest C, its ring row at slot floor_mod(head + off, C). Slots of the
-// kept window are distinct, pages of taken lanes are distinct, so no two
-// lanes store to one address. `head` stays on the device.
-__global__ void __launch_bounds__(kScanThreads)
+// Replaces repro/kernels/migrate/kernel.py commit_moves_tpu: the tier
+// scatter of the taken lanes of a compact move stream and the newest-C-wins
+// ring append at floor_mod(head + offset, C). At C1's widths (N = 16,384
+// lanes, C = 4,096) it moves about 0.3 MB, a bound of 0.1 us, under one
+// launch's fixed cost. What bounds it is latency (the loads on the way to
+// each lane's offset, the barriers of the scan that hands them out) and
+// the scattered stores, a tier word and a 20-byte ring row per taken lane,
+// which one SM issues at about one 32-byte sector a cycle: from one block
+// they take 0.0366 ms at half the lanes taken on an H100.
+//
+// One pass of the stream by one thread-block cluster of up to 16 blocks of
+// 64 threads, so that C1's stores spread over 16 SMs. Each thread owns a
+// run of `run` consecutive lanes (a multiple of 16; 16 at C1, one 16-byte
+// load of take), counts its taken lanes with __popc and, when it has any,
+// loads its first 16 lanes' pages, tenants and hot bits (16-byte loads)
+// before the scan. One exclusive scan of the run counts gives each run its
+// first offset and the total, so keep_from = total - C is known before any
+// store: a block scan (one barrier: every warp scans the warp totals
+// itself), then the blocks' totals, read from each block's shared memory
+// through distributed shared memory after one cluster barrier; a release
+// arrive after those reads, waited on at the end, keeps each block
+// resident until no other block's load of its shared memory is in
+// flight. The thread
+// then commits its taken lanes in order: tier[page], and for
+// off >= keep_from the ring row (one floor mod a run; the kept lanes'
+// slots then step by one). Longer streams (N > 16,384) lengthen the runs,
+// so the pass stays one scan for any N. Slots of the kept window are
+// distinct and pages of taken lanes are distinct, so no two lanes store to
+// one address. Unaligned pointers and a run cut by N go lane by lane.
+// `head` stays on the device.
+constexpr int kMoveGroup = 16;      // lanes per 16-byte load of take
+constexpr int kMoveThreads = 64;
+constexpr int kMoveCluster = 16;    // above 8: a non-portable cluster size
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Bit k set where byte k of w is non-zero.
+__device__ __forceinline__ unsigned nonzero_bytes(unsigned w) {
+  const unsigned m = __vcmpne4(w, 0u) & 0x01010101u;
+  return (m | m >> 7 | m >> 14 | m >> 21) & 0xfu;
+}
+
+// The taken lanes of [j, min(j + 16, hi)) as a mask, bit i for lane j + i.
+__device__ __forceinline__ unsigned take_mask(
+    const unsigned char* __restrict__ take, int j, int hi, bool vec) {
+  if (vec && j + kMoveGroup <= hi) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(take + j));
+    return nonzero_bytes(w.x) | nonzero_bytes(w.y) << 4 |
+           nonzero_bytes(w.z) << 8 | nonzero_bytes(w.w) << 12;
+  }
+  unsigned m = 0u;
+  for (int i = 0; i < kMoveGroup && j + i < hi; ++i)
+    m |= (take[j + i] ? 1u : 0u) << i;
+  return m;
+}
+
+// Lanes [j, j + 16) of p (0 past hi).
+__device__ __forceinline__ void load_group(const int* __restrict__ p, int j,
+                                           int hi, bool vec,
+                                           int (&out)[kMoveGroup]) {
+  if (vec && j + kMoveGroup <= hi) {
+    const int4* q = reinterpret_cast<const int4*>(p + j);
+#pragma unroll
+    for (int g = 0; g < kMoveGroup / 4; ++g) {
+      const int4 v = __ldg(q + g);
+      out[4 * g] = v.x;
+      out[4 * g + 1] = v.y;
+      out[4 * g + 2] = v.z;
+      out[4 * g + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMoveGroup; ++i)
+      out[i] = j + i < hi ? __ldg(p + j + i) : 0;
+  }
+}
+
+struct MoveArgs {
+  int* tier;
+  int L;
+  int* ring;
+  int C;
+  int head;
+  int keep_from;
+  int t, direction, to_tier;
+};
+
+// Commit the taken lanes of one group (mask m) from offset *off on. *slot
+// is the ring slot of the thread's last kept lane (-1 before its first):
+// the kept lanes of a run have consecutive offsets, so only the first
+// takes a floor mod and the rest step by one.
+__device__ __forceinline__ void commit_group(
+    const MoveArgs& a, unsigned m, unsigned* off, int* slot,
+    const int (&pg)[kMoveGroup], const int (&tn)[kMoveGroup],
+    const int (&hb)[kMoveGroup]) {
+#pragma unroll
+  for (int i = 0; i < kMoveGroup; ++i) {
+    if (!((m >> i) & 1u)) continue;
+    const int page = pg[i];
+    if (page >= 0 && page < a.L) a.tier[page] = a.to_tier;
+    if ((int)*off >= a.keep_from) {
+      if (*slot < 0) {
+        const int s = (int)((unsigned)a.head + *off);     // int32 wrap
+        *slot = s % a.C;
+        if (*slot < 0) *slot += a.C;                       // floor mod
+      } else if (++*slot == a.C) {
+        *slot = 0;
+      }
+      int* r = a.ring + (size_t)*slot * 5;
+      r[0] = a.t;
+      r[1] = tn[i];
+      r[2] = page;
+      r[3] = a.direction;
+      r[4] = hb[i];
+    }
+    *off += 1u;
+  }
+}
+
+__global__ void __launch_bounds__(kMoveThreads)
 commit_moves_kernel(int* __restrict__ tier, int L, int* __restrict__ ring,
                     int C, const int* __restrict__ head_in,
                     int* __restrict__ head_out,
                     const int* __restrict__ pages,
                     const unsigned char* __restrict__ take,
                     const int* __restrict__ tenants,
-                    const int* __restrict__ hot_bits, int N, int t,
+                    const int* __restrict__ hot_bits, int N, int run, int t,
                     int direction, int to_tier) {
-  __shared__ unsigned scratch[33];
-  unsigned cnt = 0u;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) cnt += take[i] ? 1u : 0u;
-  const unsigned total = block_sum_u32(cnt, scratch);
-  const int head = *head_in;
-  const int keep_from = (int)total - C;
-  unsigned carry = 0u;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    unsigned v = (i < N && take[i]) ? 1u : 0u;
-    unsigned chunk_total;
-    unsigned inc = block_incl_scan_u32(v, scratch, &chunk_total);
-    if (v) {
-      const int off = (int)(carry + inc - 1u);
-      const int page = pages[i];
-      if (page >= 0 && page < L) tier[page] = to_tier;
-      if (off >= keep_from) {
-        int s = (int)((unsigned)head + (unsigned)off);   // int32 wrap
-        int slot = s % C;
-        if (slot < 0) slot += C;                         // floor mod
-        int* r = ring + (size_t)slot * 5;
-        r[0] = t;
-        r[1] = tenants[i];
-        r[2] = page;
-        r[3] = direction;
-        r[4] = hot_bits[i];
-      }
-    }
-    carry += chunk_total;
+  __shared__ unsigned scratch[32];
+  __shared__ unsigned block_total;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const unsigned cs = cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const bool vec = ((((uintptr_t)take) | ((uintptr_t)pages) |
+                     ((uintptr_t)tenants) | ((uintptr_t)hot_bits)) & 15u) == 0;
+  const long long first =
+      ((long long)rank * blockDim.x + threadIdx.x) * (long long)run;
+  const int lo = (int)min(first, (long long)N);
+  const int hi = (int)min((long long)lo + run, (long long)N);
+  const int head = __ldg(head_in);
+
+  // 1. count the run; hold its first group's lanes in registers
+  const unsigned m0 = lo < hi ? take_mask(take, lo, hi, vec) : 0u;
+  unsigned cnt = __popc(m0);
+  for (int j = lo + kMoveGroup; j < hi; j += kMoveGroup)
+    cnt += __popc(take_mask(take, j, hi, vec));
+  int pg[kMoveGroup], tn[kMoveGroup], hb[kMoveGroup];
+  if (m0) {
+    load_group(pages, lo, hi, vec, pg);
+    load_group(tenants, lo, hi, vec, tn);
+    load_group(hot_bits, lo, hi, vec, hb);
   }
-  if (threadIdx.x == 0) *head_out = (int)((unsigned)head + total);
+
+  // 2. one exclusive scan of the run counts: within the block, then over
+  // the cluster's block totals
+  const unsigned inc = warp_incl_scan_u32(cnt);
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  const unsigned wsc = warp_incl_scan_u32(lane < nw ? scratch[lane] : 0u);
+  const unsigned btot = __shfl_sync(0xffffffffu, wsc, nw - 1);
+  if (threadIdx.x == 0) block_total = btot;
+  const unsigned wbase = warp > 0 ? __shfl_sync(0xffffffffu, wsc, warp - 1)
+                                  : 0u;
+  cluster_arrive();
+  cluster_wait();                       // every block's total is published
+  const unsigned bt = lane < (int)cs
+      ? *cluster.map_shared_rank(&block_total, (unsigned)lane) : 0u;
+  const unsigned bsc = warp_incl_scan_u32(bt);
+  const unsigned total = __shfl_sync(0xffffffffu, bsc, cs - 1);
+  const unsigned bbase = rank > 0 ? __shfl_sync(0xffffffffu, bsc, rank - 1)
+                                  : 0u;
+  // done reading the other blocks: a release arrive orders the remote loads
+  // before it, so no block passes the final wait (and exits) while a load
+  // of its shared memory is still in flight
+  cluster_arrive();
+  unsigned off = bbase + wbase + inc - cnt;
+  int slot = -1;
+  const MoveArgs a{tier, L, ring, C, head, (int)total - C, t, direction,
+                   to_tier};
+
+  // 3. commit the run's taken lanes in order
+  if (m0) commit_group(a, m0, &off, &slot, pg, tn, hb);
+  for (int j = lo + kMoveGroup; j < hi; j += kMoveGroup) {
+    const unsigned m = take_mask(take, j, hi, vec);
+    if (!m) continue;
+    load_group(pages, j, hi, vec, pg);
+    load_group(tenants, j, hi, vec, tn);
+    load_group(hot_bits, j, hi, vec, hb);
+    commit_group(a, m, &off, &slot, pg, tn, hb);
+  }
+  if (rank == 0 && threadIdx.x == 0)
+    *head_out = (int)((unsigned)head + total);
+  cluster_wait();        // no block leaves while another reads its total
 }
+
+// -------------------------------------------------------------- launch floor
+// Does nothing: its time is the fixed cost of one launch, the floor under
+// the tick kernels' sub-microsecond bounds.
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -380,8 +617,7 @@ int seg_reduce_launch(const int* x, const unsigned char* valid, int T, int S,
 
 int seg_sums_launch(const int* x, const unsigned char* valid, int T, int S,
                     int* sums, cudaStream_t stream) {
-  if (T > 0)
-    seg_sums_kernel<<<T, kSumThreads, 0, stream>>>(x, valid, S, sums);
+  if (T > 0) seg_sums_kernel<<<T, kSumThreads, 0, stream>>>(x, valid, S, sums);
   return (int)cudaGetLastError();
 }
 
@@ -390,9 +626,39 @@ int commit_moves_launch(int* tier, int L, int* ring, int C,
                         const unsigned char* take, const int* tenants,
                         const int* hot_bits, int N, int t, int direction,
                         int to_tier, cudaStream_t stream) {
-  commit_moves_kernel<<<1, kScanThreads, 0, stream>>>(
-      tier, L, ring, C, head_in, head_out, pages, take, tenants, hot_bits, N,
-      t, direction, to_tier);
+  // one thread per 16 lanes on up to kMoveCluster blocks, then longer runs
+  const int groups = (int)(((long long)N + kMoveGroup - 1) / kMoveGroup);
+  int blocks = (groups + kMoveThreads - 1) / kMoveThreads;
+  blocks = blocks < 1 ? 1 : blocks > kMoveCluster ? kMoveCluster : blocks;
+  const int runs = (groups + blocks * kMoveThreads - 1) /
+                   (blocks * kMoveThreads);
+  const int run = kMoveGroup * (runs < 1 ? 1 : runs);
+  if (kMoveCluster > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        commit_moves_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kMoveThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, commit_moves_kernel, tier, L, ring, C, head_in, head_out, pages,
+      take, tenants, hot_bits, N, run, t, direction, to_tier);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+int empty_launch(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
   return (int)cudaGetLastError();
 }
 

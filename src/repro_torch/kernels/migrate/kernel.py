@@ -10,12 +10,17 @@ it. Bound by device-memory bytes: two bytes moved per byte copied, no
 arithmetic.
 
 ``commit_moves_cuda`` (``csrc/selection.cu``) replaces
-``repro/kernels/migrate/kernel.py`` ``commit_moves_tpu``: one thread block
-walks the compact [N = T·k] move stream twice — a count of the taken lanes,
-then a chunked exclusive scan that hands each taken lane its ring offset —
-and commits the tier store and the packed ring row in the same pass. Bound
-by device-memory bytes (the stream, the touched tier words and ring rows);
-a single block suffices because N is a few tens of thousands of lanes.
+``repro/kernels/migrate/kernel.py`` ``commit_moves_tpu``: one cluster of
+up to 16 thread blocks walks the compact [N = T·k] move stream once. Each
+thread owns a run of consecutive lanes (16 at the tick's N = 16,384: one
+16-byte load of ``take``), counts it with ``__popc`` and loads its lanes
+with 16-byte loads; one exclusive scan of the run counts (in the block,
+then over the blocks' totals through distributed shared memory) gives
+every run its first ring offset and the total, and the thread then
+commits the tier store and the packed ring row of each taken lane. Its
+bound (the stream, the touched tier words and ring rows) is under a
+launch's fixed cost, so latency (loads in flight, barriers) and the
+scattered stores, spread over 16 SMs, are what the design cuts.
 ``tier`` and ``ring_data`` are updated in place, as the TPU kernel aliases
 them; ``head`` stays on the device and the new head is written by the
 kernel.

@@ -14,8 +14,10 @@ synchronisation, no fallback.
   whatever the quota.
 * ``seg_reduce_cuda`` replaces ``seg_reduce_tpu``: one block per row, a
   chunked warp-shuffle scan with a running carry.
-* ``seg_sums_cuda`` replaces ``seg_sums_tpu``: one block per row, a
-  warp-shuffle reduction.
+* ``seg_sums_cuda`` replaces ``seg_sums_tpu``: one block of 1,024 threads
+  per row, 16-byte loads of x beside 4-byte loads of the matching valid
+  bytes, up to four of each in flight per thread before the first add,
+  and one barrier.
 
 All three are bound by device-memory bytes (a few integer operations per
 byte read).

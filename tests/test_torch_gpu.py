@@ -116,6 +116,59 @@ def moves_case(seed):
     return tier, data, head, pages, take, tenants, hot, t, direction, to_tier
 
 
+# K3 (seg_sums) at shapes the seeded grid never reaches: C1's full width,
+# rows whose start is not 16-byte aligned (S % 4 != 0, S % 16 != 0 for the
+# valid bytes), a single lane, a single row, a long row and more rows than
+# the card has SMs; "offset" places x one element past an aligned start
+# (x and valid out of phase: the kernel's lane-by-lane path)
+SUMS_CARD_SHAPES = [(64, 4096), (64, 4097), (64, 4093), (64, 1), (1, 4096),
+                    (1, 262144), (200, 4096), (7, 3000)]
+
+
+def sums_card_case(shape, values):
+    """(x int32, valid bool) of ``shape``: 0/1 values (what the tick feeds)
+    or full-range values whose sums wrap."""
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    if values == "mask":
+        x = rng.integers(0, 2, shape).astype(np.int32)
+    else:
+        x = rng.integers(-2**31, 2**31, shape, dtype=np.int64
+                         ).astype(np.int32)
+    return x, rng.random(shape) < 0.7
+
+
+# K4 (commit_moves) at shapes the seeded grid never reaches:
+# name -> (N, C, share of lanes taken, head). C1's stream (N = 16,384,
+# C = 4,096) with more and fewer taken lanes than the ring holds, N one off
+# the 16-lane run either way, N past one block's 1,024 runs of 16, heads
+# within 3C of 2**31 - 1 (the slot sum wraps), and a one-slot ring
+MOVES_CARD_CASES = {
+    "c1_over_ring": (16384, 4096, 0.5, 7),
+    "c1_under_ring": (16384, 4096, 0.1, 7),
+    "c1_settled": (16384, 4096, 0.0, 7),
+    "n16383": (16383, 4096, 0.5, 2**31 - 1 - 5000),
+    "n16385": (16385, 4096, 0.5, 2**31 - 1 - 11000),
+    "n131072": (131072, 4096, 0.3, 2**31 - 1 - 40),
+    "head_near_max": (16384, 4096, 0.4, 2**31 - 1),
+    "ring_of_one": (16384, 1, 0.5, 2**31 - 2),
+}
+
+
+def moves_card_case(name):
+    """moves_case's tuple at MOVES_CARD_CASES[name]: distinct pages of
+    L = 262,144 on the taken lanes, the sentinel L on the rest."""
+    N, C, p_take, head = MOVES_CARD_CASES[name]
+    rng = np.random.default_rng(300 + list(MOVES_CARD_CASES).index(name))
+    L = 262144
+    tier = rng.integers(0, 2, L).astype(np.int32)
+    data = rng.integers(-5, 5, (C, 5)).astype(np.int32)
+    take = rng.random(N) < p_take
+    pages = np.where(take, rng.permutation(L)[:N], L).astype(np.int32)
+    tenants = rng.integers(0, 64, N).astype(np.int32)
+    hot = rng.standard_normal(N).astype(np.float32)
+    return (tier, data, np.int32(head), pages, take, tenants, hot, 11, 1, 0)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -164,6 +217,52 @@ def test_seg_topk_edge_cases_match_plain_on_card(name, cuda):
     args = [torch.as_tensor(a, device=cuda) for a in (score, valid, quotas)]
     got = TSEL.seg_topk(*args, k)
     want = TSEL_REF.seg_topk_ref(*args, k)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+def _at_offset(a: np.ndarray, device, offset: int) -> torch.Tensor:
+    """``a`` on ``device`` as a contiguous view ``offset`` elements into a
+    larger buffer (its data pointer is then not 16-byte aligned)."""
+    flat = torch.zeros(a.size + offset, dtype=torch.as_tensor(a[:0]).dtype,
+                       device=device)
+    flat[offset:] = torch.as_tensor(a.reshape(-1), device=device)
+    return flat[offset:].view(a.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SUMS_CARD_SHAPES)
+@pytest.mark.parametrize("values", ["mask", "full"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_seg_sums_matches_plain_on_card(shape, values, offset, cuda):
+    """K3 bitwise against its plain version at C1's width, on unaligned
+    rows, S=1, T=1, a long row, T=200 and x out of phase with valid."""
+    x, valid = sums_card_case(shape, values)
+    xt = _at_offset(x, cuda, offset)
+    vt = torch.as_tensor(valid, device=cuda)
+    assert torch.equal(TSEL.seg_sums(xt, vt), TSEL_REF.seg_sums_ref(xt, vt))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MOVES_CARD_CASES))
+@pytest.mark.parametrize("offset", [0, 1])
+def test_commit_moves_matches_plain_on_card(name, offset, cuda):
+    """K4 bitwise against its plain version on C1's stream with the ring
+    over- and under-filled and nothing taken, N = 16,383 and 16,385,
+    N = 131,072, heads near 2**31 - 1 and C = 1; offset 1 puts the stream
+    at unaligned addresses (the lane-by-lane path)."""
+    (tier, data, head, pages, take, tenants, hot, t, direction,
+     to_tier) = moves_card_case(name)
+    a = [torch.as_tensor(z, device=cuda) for z in (tier, data, head)]
+    stream = [_at_offset(z, cuda, offset) for z in (pages, take, tenants)]
+    h = _at_offset(hot, cuda, offset)
+    want = TMIG_REF.commit_moves_ref(*[z.clone() for z in a + stream],
+                                     h.view(torch.int32), t,
+                                     direction=direction, to_tier=to_tier)
+    got = TMIG.commit_moves(*a, *stream, h, t, direction=direction,
+                            to_tier=to_tier)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     torch.cuda.synchronize()

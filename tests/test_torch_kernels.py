@@ -33,9 +33,11 @@ from repro_torch.kernels.tiered_attention import kernel as TTA_K
 from repro_torch.kernels.tiered_attention import ops as TTA
 from repro_torch.kernels.tiered_attention import ref as TTA_REF
 from repro_torch.kernels.select import ref as TSEL_REF
-from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, TOPK_EDGE_CASES,
-                            attention_case, migrate_case, moves_case,
-                            topk_case, topk_edge_case)
+from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, MOVES_CARD_CASES,
+                            SUMS_CARD_SHAPES, TOPK_EDGE_CASES,
+                            attention_case, migrate_case, moves_card_case,
+                            moves_case, sums_card_case, topk_case,
+                            topk_edge_case)
 
 JAX_IMPLS = ("ref", "pallas_interpret")
 
@@ -173,12 +175,32 @@ def test_seg_reduce_and_sums_match_reference(seed, impl):
         j_seg_sums(jnp.asarray(x), jnp.asarray(valid), impl=impl), "sums")
 
 
-# --------------------------------------------------------- commit_moves ----
 @pytest.mark.parametrize("impl", JAX_IMPLS)
-@pytest.mark.parametrize("seed", range(8))
+@pytest.mark.parametrize("values", ["mask", "full"])
+@pytest.mark.parametrize("shape", SUMS_CARD_SHAPES)
+def test_seg_sums_card_shapes_match_reference(shape, values, impl):
+    """K3's plain version against the reference at the card tests' shapes
+    (C1's width, unaligned rows, S=1, T=1, a long row, T=200)."""
+    x, valid = sums_card_case(shape, values)
+    _eq(TSEL.seg_sums(torch.as_tensor(x), torch.as_tensor(valid)),
+        j_seg_sums(jnp.asarray(x), jnp.asarray(valid), impl=impl), "sums")
+
+
+# --------------------------------------------------------- commit_moves ----
+def _moves_case(case):
+    """A seeded small case (an int) or a card case by name."""
+    return (moves_case(case) if isinstance(case, int)
+            else moves_card_case(case))
+
+
+MOVES_CASES = [*range(8), *MOVES_CARD_CASES]
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("seed", MOVES_CASES)
 def test_commit_moves_matches_reference(seed, impl):
     (tier, data, head, pages, take, tenants, hot, t, direction,
-     to_tier) = moves_case(seed)
+     to_tier) = _moves_case(seed)
     want = j_commit_moves(jnp.asarray(tier), jnp.asarray(data),
                           jnp.asarray(head), jnp.asarray(pages),
                           jnp.asarray(take), jnp.asarray(tenants),
@@ -191,6 +213,90 @@ def test_commit_moves_matches_reference(seed, impl):
                             to_tier=to_tier)
     for name, g, w in zip(("tier", "ring_data", "head"), got, want):
         _eq(g, w, name)
+
+
+# The CUDA kernel's partition (csrc/selection.cu commit_moves_kernel),
+# modelled in numpy so that its offset arithmetic is pinned where no kernel
+# runs: one thread per 16 lanes on up to 16 blocks of 64 threads (one
+# cluster), then longer runs; each run's count, one exclusive scan of the
+# counts (within each block, then over the block totals; the total with
+# it), the kept window [total - C, total) and the slot floor_mod(head +
+# off, C) in int32, taken once a run and then stepped by one.
+MOVE_GROUP, MOVE_THREADS, MOVE_CLUSTER = 16, 64, 16
+
+
+def moves_partition(N: int):
+    """(blocks, run) of the launch for an N-lane stream."""
+    groups = -(-N // MOVE_GROUP)
+    blocks = min(max(-(-groups // MOVE_THREADS), 1), MOVE_CLUSTER)
+    return blocks, MOVE_GROUP * max(1, -(-groups // (blocks * MOVE_THREADS)))
+
+
+def commit_moves_model(tier, data, head, pages, take, tenants, hot_bits, t,
+                       direction, to_tier):
+    L, C, N = tier.shape[0], data.shape[0], take.shape[0]
+    blocks, run = moves_partition(N)
+    lo = np.minimum(np.arange(blocks * MOVE_THREADS) * run, N)
+    hi = np.minimum(lo + run, N)
+    counts = np.array([int(take[a:b].sum()) for a, b in zip(lo, hi)]
+                      ).reshape(blocks, MOVE_THREADS)
+    within = np.cumsum(counts, axis=1) - counts      # the block scan
+    block_totals = counts.sum(axis=1)
+    block_base = np.cumsum(block_totals) - block_totals   # over the cluster
+    base = (block_base[:, None] + within).reshape(-1)
+    total = int(block_totals.sum())
+    keep_from = total - C
+    tier, ring = tier.copy(), data.copy()
+    stored_slots = set()
+
+    def wrap(v):
+        return (v + 2**31) % 2**32 - 2**31
+
+    for r in range(blocks * MOVE_THREADS):
+        off, slot = int(base[r]), None
+        for i in np.flatnonzero(take[lo[r]:hi[r]]) + lo[r]:
+            page = int(pages[i])
+            if 0 <= page < L:       # a page taken twice stores one value
+                tier[page] = to_tier
+            if off >= keep_from:
+                slot = (wrap(int(head) + off) % C if slot is None
+                        else (slot + 1) % C)         # floor mod, then step
+                assert slot not in stored_slots      # no two rows, one slot
+                stored_slots.add(slot)
+                ring[slot] = (t, tenants[i], page, direction, hot_bits[i])
+            off += 1
+    return tier, ring, np.int32(wrap(int(head) + total))
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("case", MOVES_CASES)
+def test_commit_moves_partition_model_matches_reference(case, impl):
+    """The kernel's runs, scan, keep window and slots, bitwise against the
+    reference's commit_moves on the seeded grid and the card cases (N =
+    16,384 over and under the ring, nothing taken, 16,383, 16,385,
+    131,072, heads near 2**31 - 1, C = 1)."""
+    (tier, data, head, pages, take, tenants, hot, t, direction,
+     to_tier) = _moves_case(case)
+    want = j_commit_moves(jnp.asarray(tier), jnp.asarray(data),
+                          jnp.asarray(head), jnp.asarray(pages),
+                          jnp.asarray(take), jnp.asarray(tenants),
+                          jnp.asarray(hot), jnp.asarray(np.int32(t)),
+                          direction=direction, to_tier=to_tier, impl=impl)
+    got = commit_moves_model(tier, data, head, pages, take, tenants,
+                             hot.view(np.int32), t, direction, to_tier)
+    for name, g, w in zip(("tier", "ring_data", "head"), got, want):
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=name)
+
+
+@pytest.mark.parametrize("N,blocks,run", [
+    (1, 1, 16), (33, 1, 16), (2000, 2, 16), (16384, 16, 16), (16383, 16, 16),
+    (16385, 16, 32), (131072, 16, 128)])
+def test_commit_moves_partition_sizes(N, blocks, run):
+    """One 16-lane run a thread on up to 16 blocks of 64 threads, then
+    longer runs: the runs always cover the stream, so one scan serves any
+    N."""
+    assert moves_partition(N) == (blocks, run)
+    assert run % 16 == 0 and blocks * MOVE_THREADS * run >= N
 
 
 def test_commit_moves_ring_overflow_keeps_newest():
