@@ -14,6 +14,7 @@ one line each, each with its duration:
   1. device: nvidia-smi name and power limit, torch/CUDA versions, the build
   2. tick kernels (K1-K4) vs plain versions on the card, bitwise, at full
      width (T=64, S=4096, k=256; L=262,144, C=4096, N=16,384) and edge cases
+     (K2 also on unaligned rows and x / valid views at odd offsets)
   3. the reference's ``static_small`` golden through ``simulate(impl="cuda")``
   4. the tick at full width: T=64, L=262,144, equilibria, 20 ticks, "cuda"
      vs "ref" on the card; every tick kernel must launch in this run
@@ -25,7 +26,8 @@ one line each, each with its duration:
   8. serving kernels (K5 tiered attention, K6 page migration) vs plain
      versions on the card at full width: K5 at S1's and S3's widths in bf16
      and f32, window None and 40, free slots, mid-page lengths; K6 bitwise
-     in bf16 and f32
+     in bf16 and f32, one pool and K+V in one launch, at S1's and S3's
+     pages, odd page sizes, unaligned pools, indices out of range
   9. serving at full width: Llama 3.2 1B (random weights from a seed), 4
      tenants, 64 sequences, 512 decode steps, equilibria, impl "cuda" vs
      "ref" step by step from a shared state on teacher-forced tokens; then
@@ -34,7 +36,8 @@ one line each, each with its duration:
      4 sequences x 128 steps, with pages migrating
  11. serving kernels: time, launches per step, bound, plain, library times
      (K5's yardstick: the faster of scaled_dot_product_attention with
-     expanded K/V and with enable_gqa=True); the earlier designs' times
+     expanded K/V and with enable_gqa=True); the earlier designs' times;
+     K6 as one pool and as the K+V pair the tiering step launches
  12. where one decode step's device time goes (torch.profiler), and each
      serving op's device launches per op call
  13. prefill kernels (K7 flash attention, K8 SSD scan) vs plain versions on
@@ -53,8 +56,8 @@ one line each, each with its duration:
      and K8 over the whole length (128 chunks of state carry)
  15. hybrid serving at full width: Zamba2-7B, 4 tenants, 32 sequences, 256
      decode steps, equilibria, cuda vs ref step by step; tpp and static 16
-     steps each; one profiled step; K5 and K6 must launch; K5 timed at
-     S3's widths on the run's own cache, as in phase 11
+     steps each; one profiled step; K5 and K6 must launch; K5 and K6 timed
+     at S3's widths on the run's own cache, as in phase 11
  16. hybrid decode == full-sequence forward (K7 and K8) in float32, 4
      sequences x 64 steps, with pages migrating
  17. prefill kernels: time, launches per prefill, bound, plain and library
@@ -138,14 +141,18 @@ K7_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 K8_ATOL, K8_RTOL = 1e-5, 1e-4
 PATH_TAIL = 1024     # K7's query rows checked on the S=32,768 path
 # card times of the earlier designs of K1 (a block-wide argmax per winner),
-# K3 (a block of 256 threads per row, one scalar load at a time), K4 (one
-# block walking the stream twice, a chunked scan), K5 (a block per sequence
-# and kv head walking page by page), K7 (mma.sync over 64-query tiles) and
+# K2 (a block scan per 1,024-lane chunk with a running carry), K3 (a block
+# of 256 threads per row, one scalar load at a time), K4 (one block
+# walking the stream twice, a chunked scan), K5 (a block per sequence and
+# kv head walking page by page), K6 (a block per layer and sequence, one
+# 16-byte load in flight a thread; its time also held the wrapper's cast
+# of a bool sel to int32), K7 (mma.sync over 64-query tiles) and
 # K8 (a block per batch and head walking its chunks in order), as PERF.md
 # records them (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 # times
-EARLIER_MS = {"seg_topk": 0.3567, "seg_sums": 0.0112, "commit_moves": 0.0319,
-              "pool_attention_partial": 0.3725,
+EARLIER_MS = {"seg_topk": 0.3567, "seg_reduce": 0.0084, "seg_sums": 0.0112,
+              "commit_moves": 0.0319, "pool_attention_partial": 0.3725,
+              "migrate_pages": 0.0095,
               "flash_attention": 1.4350, "flash_attention_llama": 1.1220,
               "ssd_scan": 5.5703}
 # the device kernels behind each redesigned op (profiler names), counted
@@ -303,6 +310,17 @@ def check_kernels(torch, np, OPS, REFS):
              torch.as_tensor(valid, device=cuda))
         same("seg_reduce", KSEL.seg_reduce(*a), RSEL.seg_reduce_ref(*a))
         same("seg_sums", (KSEL.seg_sums(*a),), (RSEL.seg_sums_ref(*a),))
+    # K2's alignment paths: rows not 16-byte aligned, a long row (runs of
+    # many units), x and valid as views at odd offsets (in phase and out)
+    for T, S, x_off, v_off in ((T0, S0 + 1, 0, 0), (T0, S0 - 3, 1, 1),
+                               (T0, S0, 1, 0), (1, 262144, 0, 3),
+                               (200, S0, 3, 3)):
+        x = rng.integers(-2**31, 2**31, (T, S), dtype=np.int64
+                         ).astype(np.int32)
+        a = (at_offset(torch, torch.as_tensor(x, device=cuda), x_off),
+             at_offset(torch, torch.as_tensor(rng.random((T, S)) < 0.7,
+                                              device=cuda), v_off))
+        same("seg_reduce", KSEL.seg_reduce(*a), RSEL.seg_reduce_ref(*a))
 
     # commit_moves: full-width stream with more taken lanes than C (ring
     # overflow) and head near 2**31 (wraps), then a small stream
@@ -333,6 +351,14 @@ def check_kernels(torch, np, OPS, REFS):
              run(RMIG.commit_moves_ref, True))
     torch.cuda.synchronize()
     return err, cases
+
+
+def at_offset(torch, t, offset: int):
+    """``t`` as a contiguous view ``offset`` elements into a larger buffer
+    (not 16-byte aligned for an odd offset)."""
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
 
 
 # ----------------------------------------------------------- phase 3 ----
@@ -534,24 +560,48 @@ def check_serve_kernels(torch, np, TA, TA_REF, KMIG, KMIG_REF):
                             f"K5 B={B} H={H} K={K} D={D} Mp={Mp} {dtype} "
                             f"window={window}: max err {d}")
                 cases["pool_attention_partial"] += 1
-    B, H, K, D = 64, 32, 8, 64
-    L, Mf, Ms = 16, 32, 16
-    for dtype in (torch.bfloat16, torch.float32):
-        src = torch.randn((L, B, Mf, pt, K, D), device="cuda").to(dtype)
-        dst0 = torch.randn((L, B, Ms, pt, K, D), device="cuda").to(dtype)
+    # K6, one pool and K+V in one launch: S1's and S3's pools at full depth,
+    # then a page of 15 elements (not a multiple of 16 bytes) with more
+    # sequences than one block compacts at once; aligned and unaligned
+    for (L, B, Mf, Ms, pt_, K, D), offsets in (
+            ((16, 64, 32, 16, 16, 8, 64), (0, 1)),
+            ((14, 32, 16, 16, 16, 32, 112), (0, 1)),
+            ((3, 300, 4, 3, 3, 1, 5), (0,))):
         si = torch.as_tensor(rng.integers(0, Mf, B).astype(np.int32),
                              device="cuda")
         di = torch.as_tensor(rng.integers(0, Ms, B).astype(np.int32),
                              device="cuda")
         sel = torch.as_tensor(rng.random(B) < 0.25, device="cuda")
         same = torch.clamp(si, max=Ms - 1)
-        for s_i, d_i, se in ((si, di, sel), (same, same, sel),
-                             (si, di, torch.zeros_like(sel))):
-            got = KMIG.migrate_pages(src, dst0.clone(), s_i, d_i, se)
-            want = KMIG_REF.migrate_pages_ref(src, dst0.clone(), s_i, d_i,
-                                              se)
-            require(torch.equal(got, want), f"K6 {dtype}: kernel != plain")
-            cases["migrate_pages"] += 1
+        oob_s, oob_d = si.clone(), di.clone()
+        oob_s[0::3], oob_s[1::3], oob_d[0::2], oob_d[1::2] = -3, Mf + 2, \
+            Ms + 5, -1
+        for dtype in (torch.bfloat16, torch.float32):
+            for offset in offsets:
+                pools = [at_offset(torch, torch.randn(
+                    (L, B, m, pt_, K, D), device="cuda").to(dtype), offset)
+                    for m in (Mf, Ms, Mf, Ms)]
+                for s_i, d_i, se in ((si, di, sel), (same, same, sel),
+                                     (si, di, torch.zeros_like(sel)),
+                                     (oob_s, oob_d, torch.ones_like(sel))):
+                    got = KMIG.migrate_pages(pools[0], pools[1].clone(), s_i,
+                                             d_i, se)
+                    want = KMIG_REF.migrate_pages_ref(
+                        pools[0], pools[1].clone(), s_i, d_i, se)
+                    require(torch.equal(got, want),
+                            f"K6 {dtype} L={L} B={B} K={K} D={D} offset "
+                            f"{offset}: kernel != plain")
+                    got = KMIG.migrate_pages_kv(
+                        pools[0], pools[1].clone(), pools[2],
+                        pools[3].clone(), s_i, d_i, se)
+                    want = KMIG_REF.migrate_pages_kv_ref(
+                        pools[0], pools[1].clone(), pools[2],
+                        pools[3].clone(), s_i, d_i, se)
+                    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                            f"K6 K+V {dtype} L={L} B={B} K={K} D={D} offset "
+                            f"{offset}: kernel != plain")
+                    cases["migrate_pages"] += 2
+                del pools
     torch.cuda.synchronize()
     return err, cases
 
@@ -822,6 +872,48 @@ def k5_numbers(torch, F, TA, TA_REF, kv, pt: int, H: int) -> dict:
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, n_valid=n_valid)
+
+
+def k6_numbers(torch, np, KMIG, RMIG, kv, seed: int, n_sel: int = 16
+               ) -> dict:
+    """K6 on a serving path's cache (all its layers), moving the pages of
+    ``n_sel`` sequences from the fast to the slow pools: one pool (the
+    single-pool op) with its plain and library (``index_copy_`` of the
+    gathered pages) times, and K+V in one launch (what the tiering step
+    calls). Bound: each page read once and written once, plus the
+    indices."""
+    L, B, Mf = kv.fast_k.shape[:3]
+    Ms = kv.slow_k.shape[2]
+    rng = np.random.default_rng(seed)
+    sel = torch.zeros(B, dtype=torch.bool, device="cuda")
+    sel[torch.as_tensor(rng.permutation(B)[:n_sel], device="cuda")] = True
+    # int64 indices and a bool mask, as the tiering step passes them
+    si = torch.as_tensor(rng.integers(0, Mf, B), device="cuda")
+    di = torch.as_tensor(rng.integers(0, Ms, B), device="cuda")
+    page_elems = kv.fast_k[0, 0, 0].numel()
+    sel_b = sel.nonzero()[:, 0]
+    lay = torch.arange(L, device="cuda")[:, None]
+    src_rows = ((lay * B + sel_b) * Mf + si[sel_b]).reshape(-1)
+    dst_rows = ((lay * B + sel_b) * Ms + di[sel_b]).reshape(-1)
+    gathered = kv.fast_k.view(-1, page_elems).index_select(0, src_rows)
+    slow_flat = kv.slow_k.view(-1, page_elems)
+    one = n_sel * L * page_elems * kv.fast_k.element_size() * 2
+    nb, nb_kv = one + 3 * B * 4, 2 * one + 3 * B * 4
+    pools = (kv.fast_k, kv.slow_k, kv.fast_v, kv.slow_v)
+    return dict(
+        ms=device_ms(lambda: KMIG.migrate_pages(kv.fast_k, kv.slow_k, si, di,
+                                                sel)),
+        plain_ms=device_ms(lambda: RMIG.migrate_pages_ref(
+            kv.fast_k, kv.slow_k, si, di, sel)),
+        library_ms=device_ms(lambda: slow_flat.index_copy_(0, dst_rows,
+                                                           gathered)),
+        bound_ms=nb / HBM_BYTES_PER_S * 1e3, bound_by="bytes", bytes=nb,
+        n_sel=n_sel,
+        kv=dict(ms=device_ms(lambda: KMIG.migrate_pages_kv(*pools, si, di,
+                                                           sel)),
+                plain_ms=device_ms(lambda: RMIG.migrate_pages_kv_ref(
+                    *pools, si, di, sel)),
+                bound_ms=nb_kv / HBM_BYTES_PER_S * 1e3, bytes=nb_kv))
 
 
 def profile_serve_step(torch, step, model, snap, tok):
@@ -1384,8 +1476,10 @@ def main() -> int:
           f"over {serve_cases['pool_attention_partial']} cases (S1's fast "
           "and slow pools and S3's widths, bf16/f32, window None/40); "
           f"migrate_pages bitwise over "
-          f"{serve_cases['migrate_pages']} cases (bf16/f32, all-unselected, "
-          "src slot == dst slot)")
+          f"{serve_cases['migrate_pages']} cases (one pool and K+V, S1's "
+          "and S3's pools and a 15-element page, bf16/f32, aligned and "
+          "unaligned pools, all-unselected, src slot == dst slot, indices "
+          "out of range)")
 
     # ---- 9. tiered-KV serving at full width --------------------------------
     swrap = {"pool_attention_partial": TA.pool_attention_partial,
@@ -1488,32 +1582,8 @@ def main() -> int:
     L = cfg.num_layers
     Mf, Ms = kv.fast_page.shape[1], kv.slow_page.shape[1]
     k5 = k5_numbers(torch, F, TA, TA_REF, kv, pt, H)
-    rng = np.random.default_rng(11)
-    sel = torch.zeros(B, dtype=torch.bool, device="cuda")
-    sel[torch.as_tensor(rng.permutation(B)[:16], device="cuda")] = True
-    si = torch.as_tensor(rng.integers(0, Mf, B).astype(np.int32),
-                         device="cuda")
-    di = torch.as_tensor(rng.integers(0, Ms, B).astype(np.int32),
-                         device="cuda")
-    page_elems = pt * Kh * D
-    sel_b = sel.nonzero()[:, 0]
-    lay = torch.arange(L, device="cuda")[:, None]
-    src_rows = ((lay * B + sel_b) * Mf + si[sel_b].long()).reshape(-1)
-    dst_rows = ((lay * B + sel_b) * Ms + di[sel_b].long()).reshape(-1)
-    gathered = kv.fast_k.view(-1, page_elems).index_select(0, src_rows)
-    slow_flat = kv.slow_k.view(-1, page_elems)
-    n_sel = int(sel.sum())
-    mig_bytes = (n_sel * L * page_elems * kv.fast_k.element_size() * 2
-                 + 3 * B * 4)
-    mig = dict(
-        ms=device_ms(lambda: KMIG.migrate_pages(kv.fast_k, kv.slow_k, si, di,
-                                                sel)),
-        plain_ms=device_ms(lambda: RMIG.migrate_pages_ref(
-            kv.fast_k, kv.slow_k, si, di, sel)),
-        library_ms=device_ms(lambda: slow_flat.index_copy_(0, dst_rows,
-                                                           gathered)),
-        bound_ms=mig_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        bytes=mig_bytes)
+    mig = k6_numbers(torch, np, KMIG, RMIG, kv, 11)
+    n_sel = mig["n_sel"]
     for name, kn in (("pool_attention_partial", k5), ("migrate_pages", mig)):
         rows.append({
             "name": name, "route": "cuda", "source": SERVE_SOURCE,
@@ -1532,8 +1602,12 @@ def main() -> int:
             lib = (f"library {kn['library_ms']:.4f} (SDPA, "
                    f"{kn['library_form']}, the faster form)")
         else:
-            what = f"{n_sel} of {B} sequences x {L} layers"
-            lib = f"library {kn['library_ms']:.4f}"
+            what = f"{n_sel} of {B} sequences x {L} layers, one pool"
+            lib = (f"library {kn['library_ms']:.4f} (index_copy_); K+V in "
+                   f"one launch {kn['kv']['ms']:.4f} (plain "
+                   f"{kn['kv']['plain_ms']:.4f}, bound "
+                   f"{kn['kv']['bound_ms']:.5f})")
+            rows[-1]["kv"] = kn["kv"]
         earlier = (f"earlier design {EARLIER_MS[name]:.4f}, "
                    if name in EARLIER_MS else "")
         phase("11-serve-kernel", f"{name} [{what}]: {kn['ms']:.4f} ms "
@@ -1542,7 +1616,6 @@ def main() -> int:
               f"{rows[-1]['bound_copy_ms']:.5f} at measured copy "
               f"{bw / 1e12:.3f} TB/s) launches/step "
               f"{serve_launches[name] / steps:g}")
-    del gathered
 
     # ---- 12. where one decode step's device time goes ---------------------
     step_c = SD.build_serve_step(cfg, tcfg, B, steps, impl="cuda")
@@ -1572,7 +1645,7 @@ def main() -> int:
                           for k, v in ours.items())
               + "; top by device ms: " + "; ".join(
                   f"{nm[:60]} {t:.4f} ms x{c:g}" for nm, t, c in top[:12]))
-    del run, kv, step_c, toks, ctx, rec, slow_flat
+    del run, kv, step_c, toks, ctx, rec
     torch.cuda.empty_cache()
 
     # ---- 13. prefill kernels (K7, K8) vs plain versions ------------------
@@ -1754,6 +1827,23 @@ def main() -> int:
           f"(SDPA, {k5_s3['library_form']}, the faster form), bound "
           f"{k5_s3['bound_ms']:.5f} at 3.35 TB/s) launches/step "
           f"{hyb_launches['pool_attention_partial'] / zsteps:g}")
+    k6_s3 = k6_numbers(torch, np, KMIG, RMIG, zkv, 15)
+    k6_row = next(r for r in rows if r["name"] == "migrate_pages")
+    k6_row["s3"] = {k: k6_s3[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bytes", "kv")}
+    k6_row["s3"]["bound_copy_ms"] = k6_s3["bytes"] / bw * 1e3
+    k6_row["s3"]["kv"]["bound_copy_ms"] = k6_s3["kv"]["bytes"] / bw * 1e3
+    phase("15-hybrid-kernel", f"migrate_pages [S3 state, {k6_s3['n_sel']} "
+          f"of {zB} sequences x {KC.kv_layer_count(zcfg)} layers, one pool]: "
+          f"{k6_s3['ms']:.4f} ms (plain {k6_s3['plain_ms']:.4f}, library "
+          f"{k6_s3['library_ms']:.4f} (index_copy_), bound "
+          f"{k6_s3['bound_ms']:.5f} at 3.35 TB/s, "
+          f"{k6_row['s3']['bound_copy_ms']:.5f} at measured copy); K+V in "
+          f"one launch {k6_s3['kv']['ms']:.4f} (plain "
+          f"{k6_s3['kv']['plain_ms']:.4f}, bound "
+          f"{k6_s3['kv']['bound_ms']:.5f}, "
+          f"{k6_row['s3']['kv']['bound_copy_ms']:.5f} at measured copy) "
+          f"launches/step {hyb_launches['migrate_pages'] / zsteps:g}")
     del zrun, zkv, zstep_c
     torch.cuda.empty_cache()
     side = []

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the tick kernels K3 (``seg_sums``) and K4 (``commit_moves``) of this
-checkout against other builds of ``csrc/selection.cu``, in one process on
-one card.
+"""Time the tick kernels K2 (``seg_reduce``), K3 (``seg_sums``) and K4
+(``commit_moves``) of this checkout against other builds of
+``csrc/selection.cu``, in one process on one card.
 
     git archive <rev> src/repro_torch/kernels/csrc/selection.cu | tar -x -C old/
     python3 scripts/compare_tick_kernels.py \\
@@ -10,17 +10,18 @@ one card.
 Every source (``--source NAME=PATH``, repeatable; ``new`` is this checkout's
 library) is built with the flags of ``kernels/build.py``
 (``build_variant``) and called through the same C launchers
-(``seg_sums_launch``, ``commit_moves_launch``, whose signatures every
-revision keeps) at C1's widths: K3 on T=64 rows of S=4,096 0/1 values, all
-valid (``chip_smoke.py`` phase 6's inputs), and at T=64, S=4,097 (rows not
-16-byte aligned); K4 on the N=16,384 move stream of L=262,144 pages into a
-ring of C=4,096 with half the lanes taken and with none taken (a settled
-tick). Each build is first held bitwise against the plain versions; then
-every case is timed in turns (the builds in order, then in reverse; each
-turn the median of CUDA-event times over 50 back-to-back launches,
-``chip_smoke.device_ms``) beside the launch floor, an empty kernel of this
-checkout. A case's line gives each build's median over its turns, then the
-turns. Prints the card's name and power limit first.
+(``seg_reduce_launch``, ``seg_sums_launch``, ``commit_moves_launch``,
+whose signatures every revision keeps) at C1's widths: K2 and K3 on T=64
+rows of S=4,096 0/1 values, all valid (``chip_smoke.py`` phase 6's
+inputs), and at T=64, S=4,097 (rows not 16-byte aligned); K4 on the
+N=16,384 move stream of L=262,144 pages into a ring of C=4,096 with half
+the lanes taken and with none taken (a settled tick). Each build is first
+held bitwise against the plain versions; then every case is timed in
+turns (the builds in order, then in reverse; each turn the median of
+CUDA-event times over 50 back-to-back launches, ``chip_smoke.device_ms``)
+beside the launch floor, an empty kernel of this checkout. A case's line
+gives each build's median over its turns, then the turns. Prints the
+card's name and power limit first.
 
 ``--stress LAUNCHES`` instead launches K4 of ``new``, then of each source,
 LAUNCHES times back to back on streams of N=16,384 and N=262,144 lanes
@@ -49,6 +50,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def seg_reduce(lib, x, valid):
+    import torch
+    from repro_torch.kernels.build import stream_of
+    sums = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
+    prefix = torch.empty_like(x)
+    check(lib.seg_reduce_launch(x.data_ptr(), valid.data_ptr(), x.shape[0],
+                                x.shape[1], sums.data_ptr(),
+                                prefix.data_ptr(), stream_of(x)),
+          "seg_reduce_launch")
+    return sums, prefix
+
+
 def seg_sums(lib, x, valid):
     import torch
     from repro_torch.kernels.build import stream_of
@@ -56,7 +69,7 @@ def seg_sums(lib, x, valid):
     check(lib.seg_sums_launch(x.data_ptr(), valid.data_ptr(), x.shape[0],
                               x.shape[1], sums.data_ptr(), stream_of(x)),
           "seg_sums_launch")
-    return sums
+    return (sums,)
 
 
 def commit_moves(lib, tier, ring, head, pages, take, tenants, hot_bits):
@@ -135,7 +148,7 @@ def main() -> int:
     from repro_torch.kernels.build import (build_variant, load_library,
                                            stream_of)
     from repro_torch.kernels.migrate.ref import commit_moves_ref
-    from repro_torch.kernels.select.ref import seg_sums_ref
+    from repro_torch.kernels.select.ref import seg_reduce_ref, seg_sums_ref
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -149,12 +162,13 @@ def main() -> int:
         return 0
     rng = np.random.default_rng(1)
     cases = {}
-    for s in (S, S + 1):
-        x = torch.as_tensor(rng.integers(0, 2, (T, s)).astype(np.int32),
-                            device="cuda")
-        cases[f"seg_sums T={T} S={s}"] = (
-            seg_sums, (x, torch.ones((T, s), dtype=torch.bool,
-                                     device="cuda")))
+    for fn in (seg_reduce, seg_sums):
+        for s in (S, S + 1):
+            x = torch.as_tensor(rng.integers(0, 2, (T, s)).astype(np.int32),
+                                device="cuda")
+            cases[f"{fn.__name__} T={T} S={s}"] = (
+                fn, (x, torch.ones((T, s), dtype=torch.bool,
+                                   device="cuda")))
     for p_take in (0.5, 0.0):
         cases[f"commit_moves N={T * K_MAX} taken {p_take:.0%}"] = (
             commit_moves, moves_inputs(torch, np, rng, p_take))
@@ -163,17 +177,19 @@ def main() -> int:
         for name, lib in libs.items():
             a = [z.clone() for z in inputs]
             b = [z.clone() for z in inputs]
-            if fn is seg_sums:
-                want = (seg_sums_ref(*b),)
-                got = (fn(lib, *a),)
+            if fn in (seg_reduce, seg_sums):
+                ref = (seg_reduce_ref if fn is seg_reduce
+                       else lambda x, v: (seg_sums_ref(x, v),))
+                want = ref(*b)
+                got = fn(lib, *a)
                 # full-range values whose sums wrap, on the same rows
                 w = torch.as_tensor(rng.integers(
                     -2**31, 2**31, tuple(a[0].shape), dtype=np.int64).astype(
                     np.int32), device="cuda")
                 v = torch.as_tensor(rng.random(tuple(a[0].shape)) < 0.5,
                                     device="cuda")
-                want += (seg_sums_ref(w, v),)
-                got += (fn(lib, w, v),)
+                want += ref(w, v)
+                got += fn(lib, w, v)
             else:
                 want = commit_moves_ref(*b, 5, direction=0, to_tier=0)
                 got = fn(lib, *a)

@@ -47,7 +47,8 @@ _SIGNATURES = {
         "pool_attention_partial_launch": (_P, _I, _P, _P, _P, _P,
                                           *(_I,) * 8, _F, *(_I,) * 3,
                                           *(_P,) * 8),
-        "migrate_pages_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _P),
+        "migrate_pages_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                                 _I, _LL, _P),
     },
     "prefill": {
         # three strides of each of four tensors, as long long

@@ -28,7 +28,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kTopkThreads = 512;
-constexpr int kScanThreads = 1024;
 
 // ------------------------------------------------------------ warp helpers
 __device__ __forceinline__ unsigned warp_sum_u32(unsigned v) {
@@ -43,27 +42,6 @@ __device__ __forceinline__ unsigned warp_incl_scan_u32(unsigned v) {
     if (lane >= o) v += n;
   }
   return v;
-}
-
-// Block-wide inclusive scan of one value per thread (blockDim.x a multiple
-// of 32). Returns this thread's inclusive prefix; *total gets the block sum.
-// Ends with a barrier, so `scratch` may be reused right after.
-__device__ unsigned block_incl_scan_u32(unsigned v, unsigned* scratch,
-                                        unsigned* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  unsigned inc = warp_incl_scan_u32(v);
-  if (lane == 31) scratch[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    unsigned w = lane < nw ? scratch[lane] : 0u;
-    scratch[lane] = warp_incl_scan_u32(w);
-  }
-  __syncthreads();
-  unsigned base = warp > 0 ? scratch[warp - 1] : 0u;
-  *total = scratch[31];
-  __syncthreads();
-  return base + inc;
 }
 
 // Block-wide sum, result valid in every thread. Ends with a barrier.
@@ -259,30 +237,6 @@ seg_topk_kernel(const float* __restrict__ score,
   if (tid == 0) counts[row] = r;
 }
 
-// -------------------------------------------------------------- seg_reduce
-// One block per row: chunked block scan with a running carry. Writes the
-// exclusive prefix of the masked row and the row total.
-__global__ void __launch_bounds__(kScanThreads)
-seg_reduce_kernel(const int* __restrict__ x,
-                  const unsigned char* __restrict__ valid, int S,
-                  int* __restrict__ sums, int* __restrict__ prefix) {
-  __shared__ unsigned scratch[32];
-  const int row = blockIdx.x;
-  const int* xrow = x + (size_t)row * S;
-  const unsigned char* vrow = valid + (size_t)row * S;
-  int* prow = prefix + (size_t)row * S;
-  unsigned carry = 0u;
-  for (int base = 0; base < S; base += blockDim.x) {
-    const int c = base + threadIdx.x;
-    unsigned v = (c < S && vrow[c]) ? (unsigned)xrow[c] : 0u;
-    unsigned chunk_total;
-    unsigned inc = block_incl_scan_u32(v, scratch, &chunk_total);
-    if (c < S) prow[c] = (int)(carry + inc - v);
-    carry += chunk_total;
-  }
-  if (threadIdx.x == 0) sums[row] = (int)carry;
-}
-
 // ---------------------------------------------------------------- seg_sums
 // Replaces repro/kernels/select/kernel.py seg_sums_tpu: masked int32 row
 // sums. At C1's widths (T=64, S=4,096) the row data are 1.3 MB, a bound of
@@ -371,6 +325,144 @@ seg_sums_kernel(const int* __restrict__ x,
                                 threadIdx.x, blockDim.x);
   acc = block_sum_to_first(acc, scratch);
   if (threadIdx.x == 0) sums[row] = (int)acc;
+}
+
+// -------------------------------------------------------------- seg_reduce
+// Replaces repro/kernels/select/kernel.py seg_reduce_tpu: the masked int32
+// row sums and each row's exclusive prefix. At C1's widths (T=64,
+// S=4,096) it reads 1.3 MB and writes 1 MB, a bound of 0.7 us at 3.35
+// TB/s, under one launch's fixed cost, so latency bounds it: loads in
+// flight before the first add, and barriers. One block of 1,024 threads
+// per row, one scan: thread r owns a run of consecutive 4-lane units (one
+// at S=4,096; longer rows get longer runs), issues all of a run's loads
+// (16-byte loads of x, 4-byte loads of the matching valid bytes; up to
+// kReduceInflight units at once, held in registers) before its first
+// add, and one block exclusive scan of the run totals gives every run its
+// first prefix. The thread then writes its lanes' prefixes, as 16-byte
+// stores where the prefix row is aligned alike. The lanes before x's
+// first 16-byte boundary go to thread 0, ahead of its run, and the ragged
+// tail to the last thread, after its run; rows whose x and valid are out
+// of phase go lane by lane in run order. Runs longer than the registers
+// hold read their units again for the stores.
+constexpr int kReduceThreads = 1024;
+constexpr int kReduceInflight = 4;
+
+// The exclusive prefixes of a unit from *run on, as one int4; advances
+// *run past it.
+__device__ __forceinline__ int4 unit_prefix(int4 x, unsigned v,
+                                            unsigned* run) {
+  int4 o;
+  o.x = (int)*run;
+  *run += (v & 0xffu) ? (unsigned)x.x : 0u;
+  o.y = (int)*run;
+  *run += (v & 0xff00u) ? (unsigned)x.y : 0u;
+  o.z = (int)*run;
+  *run += (v & 0xff0000u) ? (unsigned)x.z : 0u;
+  o.w = (int)*run;
+  *run += (v & 0xff000000u) ? (unsigned)x.w : 0u;
+  return o;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+seg_reduce_kernel(const int* __restrict__ x,
+                  const unsigned char* __restrict__ valid, int S,
+                  int* __restrict__ sums, int* __restrict__ prefix) {
+  __shared__ unsigned scratch[32];
+  const int n = blockDim.x, r = threadIdx.x;
+  const int lane = r & 31, warp = r >> 5, nw = n >> 5;
+  const size_t row = blockIdx.x;
+  const int* xrow = x + row * S;
+  const unsigned char* vrow = valid + row * S;
+  int* prow = prefix + row * S;
+  const unsigned px = (unsigned)((uintptr_t)xrow >> 2) & 3u;
+  const unsigned pv = (unsigned)(uintptr_t)vrow & 3u;
+  // this thread's lanes: [a0, a1) one at a time, units [u0, u1), then
+  // [b0, b1) one at a time
+  int head = 0, a0, a1, u0 = 0, u1 = 0, b0 = 0, b1 = 0;
+  if (px == pv) {
+    head = min((int)((4u - px) & 3u), S);
+    const int units = (S - head) >> 2;
+    const int run = (units + n - 1) / n;
+    a0 = 0;
+    a1 = r == 0 ? head : 0;
+    u0 = min(r * run, units);
+    u1 = min(u0 + run, units);
+    b0 = head + 4 * units;
+    b1 = r == n - 1 ? S : b0;
+  } else {
+    const int run = (S + n - 1) / n;
+    a0 = min(r * run, S);
+    a1 = min(a0 + run, S);
+  }
+  const int4* x4 = reinterpret_cast<const int4*>(xrow + head);
+  const unsigned* v4 = reinterpret_cast<const unsigned*>(vrow + head);
+  const int nu = u1 - u0;
+  const bool held = nu <= kReduceInflight;
+
+  // 1. the run's total, every load issued before the first add
+  int4 xs[kReduceInflight];
+  unsigned vs[kReduceInflight];
+  unsigned tot = 0u;
+  for (int c = a0; c < a1; ++c) tot += vrow[c] ? (unsigned)xrow[c] : 0u;
+  for (int u = u0; u < u1; u += kReduceInflight) {
+#pragma unroll
+    for (int i = 0; i < kReduceInflight; ++i) {
+      const bool in = u + i < u1;
+      xs[i] = in ? __ldg(x4 + u + i) : make_int4(0, 0, 0, 0);
+      vs[i] = in ? __ldg(v4 + u + i) : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < kReduceInflight; ++i) tot += masked4(xs[i], vs[i]);
+  }
+  for (int c = b0; c < b1; ++c) tot += vrow[c] ? (unsigned)xrow[c] : 0u;
+
+  // 2. one exclusive scan of the run totals: a warp scan, then every warp
+  // scans the warp totals itself (one barrier)
+  const unsigned inc = warp_incl_scan_u32(tot);
+  if (lane == 31) scratch[warp] = inc;
+  __syncthreads();
+  const unsigned wsc = warp_incl_scan_u32(lane < nw ? scratch[lane] : 0u);
+  const unsigned total = __shfl_sync(0xffffffffu, wsc, nw - 1);
+  const unsigned wbase = __shfl_sync(0xffffffffu, wsc, warp > 0 ? warp - 1
+                                                                : 0);
+  unsigned run = (warp > 0 ? wbase : 0u) + inc - tot;
+  if (r == 0) sums[row] = (int)total;
+
+  // 3. the prefixes, in lane order
+  for (int c = a0; c < a1; ++c) {
+    prow[c] = (int)run;
+    run += vrow[c] ? (unsigned)xrow[c] : 0u;
+  }
+  const bool pvec = (((uintptr_t)(prow + head)) & 15u) == 0;
+  int4* p4 = reinterpret_cast<int4*>(prow + head);
+  for (int u = u0; u < u1; u += kReduceInflight) {
+    if (!held) {
+#pragma unroll
+      for (int i = 0; i < kReduceInflight; ++i) {
+        const bool in = u + i < u1;
+        xs[i] = in ? __ldg(x4 + u + i) : make_int4(0, 0, 0, 0);
+        vs[i] = in ? __ldg(v4 + u + i) : 0u;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kReduceInflight; ++i) {
+      if (u + i >= u1) break;
+      const int4 o = unit_prefix(xs[i], vs[i], &run);
+      if (pvec) {
+        p4[u + i] = o;
+      } else {
+        int* q = prow + head + 4 * (u + i);
+        q[0] = o.x;
+        q[1] = o.y;
+        q[2] = o.z;
+        q[3] = o.w;
+      }
+    }
+  }
+  for (int c = b0; c < b1; ++c) {
+    prow[c] = (int)run;
+    run += vrow[c] ? (unsigned)xrow[c] : 0u;
+  }
 }
 
 // ------------------------------------------------------------ commit_moves
@@ -610,8 +702,8 @@ int seg_topk_launch(const float* score, const unsigned char* valid,
 int seg_reduce_launch(const int* x, const unsigned char* valid, int T, int S,
                       int* sums, int* prefix, cudaStream_t stream) {
   if (T > 0)
-    seg_reduce_kernel<<<T, kScanThreads, 0, stream>>>(x, valid, S, sums,
-                                                      prefix);
+    seg_reduce_kernel<<<T, kReduceThreads, 0, stream>>>(x, valid, S, sums,
+                                                        prefix);
   return (int)cudaGetLastError();
 }
 

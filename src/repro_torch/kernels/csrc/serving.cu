@@ -54,9 +54,20 @@
 //
 // migrate_pages: for every selected sequence, copy one [pt, K, D] page from
 // the source pool into a slot of the destination pool, in every layer, in
-// place. Pure data movement, bound by device-memory bytes: one block per
-// (layer, sequence) moves the page with 16-byte vector loads/stores and an
-// unselected sequence's block returns at once.
+// place, for one pool pair or for two that share the indices (K and V).
+// Pure data movement, bound by device-memory bytes (each page read once
+// and written once); what the design cuts is latency and wasted blocks:
+//   * a fixed grid of two blocks per SM, whatever the batch: each block
+//     compacts the selected sequences (a ballot and a scan over `sel`,
+//     with their clamped slots) into shared memory, then walks the work
+//     items (pool, layer, selected sequence, 16 KiB chunk of the page) in
+//     a grid-stride loop, so an unselected sequence costs no block and
+//     a large page spreads over many SMs;
+//   * each thread issues all eight of its 16-byte loads of a chunk before
+//     its first store (`__restrict__` pools), so a chunk is one memory
+//     round trip, not eight in a row.
+// A page whose size is not a multiple of 16 bytes, or a pool not 16-byte
+// aligned, is copied byte by byte in the same walk.
 //
 // Plain C interface: each launcher returns cudaGetLastError() right after
 // its launch (0 on success), and the caller raises on anything else.
@@ -67,7 +78,6 @@
 
 namespace {
 
-constexpr int kCopyThreads = 256;
 constexpr float kNegInf = -1e30f;      // the reference's NEG_INF
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -524,28 +534,97 @@ pool_attention_merge_kernel(const float* __restrict__ acc_part,
 }
 
 // ------------------------------------------------------- migrate pages
-__global__ void __launch_bounds__(kCopyThreads)
-migrate_pages_kernel(const unsigned char* src, unsigned char* dst,
-                     const int* __restrict__ src_idx,
-                     const int* __restrict__ dst_idx,
-                     const int* __restrict__ sel, int B, int Ms, int Md,
-                     long long page_bytes) {
-  const int b = blockIdx.x, l = blockIdx.y;
-  if (sel[b] == 0) return;
-  int si = src_idx[b], di = dst_idx[b];
-  si = si < 0 ? 0 : (si >= Ms ? Ms - 1 : si);   // clamp, as the TPU kernel
+constexpr int kCopyThreads = 128;
+constexpr int kCopyUnroll = 8;       // 16-byte loads in flight a thread
+constexpr long long kCopyChunk = 16LL * kCopyThreads * kCopyUnroll;  // 16 KiB
+constexpr int kCopyBlocksPerSM = 2;
+
+struct PagePools {
+  const unsigned char* src[2];
+  unsigned char* dst[2];
+};
+
+// Compacts the selected sequences of [w0, w0 + blockDim.x) into rows[]:
+// (b * Ms + source slot, b * Md + destination slot), slots clamped into
+// the pools as the TPU kernel clamps them, in sequence order. Returns
+// their count. Every thread of the block calls it.
+__device__ __forceinline__ int compact_selected(
+    const long long* __restrict__ src_idx,
+    const long long* __restrict__ dst_idx,
+    const unsigned char* __restrict__ sel, int B, int Ms, int Md, int w0,
+    int2* rows, int* warp_cnt) {
+  const int b = w0 + (int)threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned char on = 0;
+  long long si = 0, di = 0;
+  if (b < B) {                        // three independent loads
+    on = sel[b];
+    si = __ldg(src_idx + b);
+    di = __ldg(dst_idx + b);
+  }
+  si = si < 0 ? 0 : (si >= Ms ? Ms - 1 : si);
   di = di < 0 ? 0 : (di >= Md ? Md - 1 : di);
-  const unsigned char* s =
-      src + (((size_t)l * B + b) * Ms + si) * (size_t)page_bytes;
-  unsigned char* d = dst + (((size_t)l * B + b) * Md + di) * (size_t)page_bytes;
-  if ((page_bytes & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(s);
-    uint4* d4 = reinterpret_cast<uint4*>(d);
-    const long long n = page_bytes >> 4;
-    for (long long i = threadIdx.x; i < n; i += blockDim.x) d4[i] = s4[i];
-  } else {
-    for (long long i = threadIdx.x; i < page_bytes; i += blockDim.x)
-      d[i] = s[i];
+  const unsigned m = __ballot_sync(0xffffffffu, on != 0);
+  __syncthreads();                    // rows[] of the last window is read
+  if (lane == 0) warp_cnt[warp] = __popc(m);
+  __syncthreads();
+  int base = 0, total = 0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const int c = warp_cnt[w];
+    base += w < warp ? c : 0;
+    total += c;
+  }
+  if (on) rows[base + __popc(m & ((1u << lane) - 1u))] =
+      make_int2(b * Ms + (int)si, b * Md + (int)di);
+  __syncthreads();
+  return total;
+}
+
+__global__ void __launch_bounds__(kCopyThreads)
+migrate_pages_kernel(PagePools pools, int npools,
+                     const long long* __restrict__ src_idx,
+                     const long long* __restrict__ dst_idx,
+                     const unsigned char* __restrict__ sel, int L, int B,
+                     int Ms, int Md, long long page_bytes, int vec) {
+  __shared__ int2 rows[kCopyThreads];
+  __shared__ int warp_cnt[kCopyThreads / 32];
+  // 32-bit item arithmetic: the launcher keeps npools * L * B * nch in
+  // range (a 64-bit division is a long software sequence)
+  const unsigned nch = (unsigned)((page_bytes + kCopyChunk - 1) / kCopyChunk);
+  for (int w0 = 0; w0 < B; w0 += kCopyThreads) {
+    const unsigned nsel = (unsigned)compact_selected(
+        src_idx, dst_idx, sel, B, Ms, Md, w0, rows, warp_cnt);
+    const unsigned items = (unsigned)npools * L * nsel * nch;
+    for (unsigned it = blockIdx.x; it < items; it += gridDim.x) {
+      const unsigned c = it % nch, q = it / nch;
+      const unsigned j = q % nsel, lp = q / nsel;
+      const unsigned l = lp % (unsigned)L, p = lp / (unsigned)L;
+      const int2 r = rows[j];
+      const long long off = (long long)c * kCopyChunk;
+      const unsigned char* __restrict__ s =
+          pools.src[p] + ((long long)l * B * Ms + r.x) * page_bytes + off;
+      unsigned char* __restrict__ d =
+          pools.dst[p] + ((long long)l * B * Md + r.y) * page_bytes + off;
+      const long long n = min(kCopyChunk, page_bytes - off);
+      if (vec) {
+        const uint4* s4 = reinterpret_cast<const uint4*>(s);
+        uint4* d4 = reinterpret_cast<uint4*>(d);
+        const int n4 = (int)(n >> 4);
+        uint4 v[kCopyUnroll];
+#pragma unroll
+        for (int i = 0; i < kCopyUnroll; ++i) {
+          const int k = threadIdx.x + i * kCopyThreads;
+          if (k < n4) v[i] = __ldg(s4 + k);
+        }
+#pragma unroll
+        for (int i = 0; i < kCopyUnroll; ++i) {
+          const int k = threadIdx.x + i * kCopyThreads;
+          if (k < n4) d4[k] = v[i];
+        }
+      } else {
+        for (int k = threadIdx.x; k < n; k += kCopyThreads) d[k] = s[k];
+      }
+    }
   }
 }
 
@@ -679,16 +758,40 @@ int pool_attention_partial_launch(const void* q, int q_bf16,
   return (int)cudaGetLastError();
 }
 
-int migrate_pages_launch(const void* src, void* dst, const int* src_idx,
-                         const int* dst_idx, const int* sel, int L, int B,
-                         int Ms, int Md, long long page_bytes,
+// Copies the selected pages of one pool pair (npools 1) or of two that
+// share the indices (npools 2: K and V); src1/dst1 are unused with one.
+// Pools [L, B, Ms | Md, page_bytes] of one element type; src_idx/dst_idx
+// int64 [B] and sel bool [B], as the tiering step makes them (argmin and
+// argmax indices, selection masks), so no cast runs before the launch.
+int migrate_pages_launch(const void* src0, void* dst0, const void* src1,
+                         void* dst1, int npools, const long long* src_idx,
+                         const long long* dst_idx, const unsigned char* sel,
+                         int L, int B, int Ms, int Md, long long page_bytes,
                          cudaStream_t stream) {
-  if (L > 0 && B > 0 && page_bytes > 0) {
-    const dim3 grid((unsigned)B, (unsigned)L);
-    migrate_pages_kernel<<<grid, kCopyThreads, 0, stream>>>(
-        (const unsigned char*)src, (unsigned char*)dst, src_idx, dst_idx, sel,
-        B, Ms, Md, page_bytes);
-  }
+  if (L <= 0 || B <= 0 || page_bytes <= 0) return (int)cudaGetLastError();
+  const long long nch = (page_bytes + kCopyChunk - 1) / kCopyChunk;
+  const long long most = (long long)npools * L * B * nch;
+  if (npools < 1 || npools > 2 || Ms <= 0 || Md <= 0 ||
+      (long long)B * Ms > INT32_MAX || (long long)B * Md > INT32_MAX ||
+      most > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const PagePools pools = {
+      {(const unsigned char*)src0,
+       (const unsigned char*)(npools > 1 ? src1 : src0)},
+      {(unsigned char*)dst0, (unsigned char*)(npools > 1 ? dst1 : dst0)}};
+  uintptr_t addr = (uintptr_t)src0 | (uintptr_t)dst0;
+  if (npools > 1) addr |= (uintptr_t)src1 | (uintptr_t)dst1;
+  const int vec = (page_bytes & 15) == 0 && (addr & 15) == 0;
+  // a fixed grid, capped by the most work the arguments could hold
+  const long long grid = (long long)sms * kCopyBlocksPerSM;
+  const long long blocks = grid < most ? grid : most;
+  migrate_pages_kernel<<<(unsigned)blocks, kCopyThreads, 0, stream>>>(
+      pools, npools, src_idx, dst_idx, sel, L, B, Ms, Md, page_bytes, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,16 @@
 """Launchers of the page-move CUDA kernels.
 
 ``migrate_pages_cuda`` (``csrc/serving.cu``) replaces
-``repro/kernels/migrate/kernel.py`` ``migrate_pages_tpu``: one thread block
-per (layer, sequence) copies one whole [pt, K, D] page of a selected
-sequence with 16-byte vector loads and stores (byte copies when the page
-size is not a multiple of 16 bytes) and returns at once for an unselected
-one; the destination pool is updated in place, as the TPU kernel aliases
-it. Bound by device-memory bytes: two bytes moved per byte copied, no
-arithmetic.
+``repro/kernels/migrate/kernel.py`` ``migrate_pages_tpu``: for one pool
+pair, or for two pairs that share the indices (K and V in one launch), a
+fixed grid of two blocks per SM compacts the selected sequences in shared
+memory and walks the work items (pool, layer, selected sequence, 16 KiB
+chunk of the page) in a grid-stride loop; each thread issues its eight
+16-byte loads of a chunk before its first store (byte copies when the page
+size is not a multiple of 16 bytes or a pool is not 16-byte aligned). The
+destination pools are updated in place, as the TPU kernel aliases them.
+Bound by device-memory bytes: each selected page read once and written
+once, no arithmetic.
 
 ``commit_moves_cuda`` (``csrc/selection.cu``) replaces
 ``repro/kernels/migrate/kernel.py`` ``commit_moves_tpu``: one cluster of
@@ -60,25 +63,39 @@ def commit_moves_cuda(tier, ring_data, head, pages, take, tenants, hot_bits,
     return tier, ring_data, head_out
 
 
-def migrate_pages_cuda(src_pool, dst_pool, src_idx, dst_idx, sel):
-    """src/dst_pool [L, B, Mp, pt, K, D] of one dtype; src_idx/dst_idx/sel
-    int32 [B]. Updates ``dst_pool`` in place and returns it."""
-    check_cuda(src_pool, src_pool.dtype, 6, "src_pool")
-    check_cuda(dst_pool, src_pool.dtype, 6, "dst_pool")
-    for name, x in (("src_idx", src_idx), ("dst_idx", dst_idx), ("sel", sel)):
-        check_cuda(x, torch.int32, 1, name)
-    L, B, Ms = src_pool.shape[:3]
-    Md = dst_pool.shape[2]
-    if (dst_pool.shape[:2] != (L, B)
-            or dst_pool.shape[3:] != src_pool.shape[3:]
+def migrate_pages_cuda(pairs, src_idx, dst_idx, sel):
+    """pairs: one or two (src_pool, dst_pool) pairs, every pool
+    [L, B, M, pt, K, D] of one dtype (M may differ between source and
+    destination); src_idx/dst_idx int64 [B] and sel bool [B], shared by
+    the pairs. Updates each ``dst_pool`` in place and returns them, in
+    order."""
+    if not 1 <= len(pairs) <= 2:
+        raise ValueError(f"migrate_pages: 1 or 2 pool pairs, got {len(pairs)}")
+    src0, dst0 = pairs[0]
+    for k, (src, dst) in enumerate(pairs):
+        check_cuda(src, src0.dtype, 6, f"src_pool[{k}]")
+        check_cuda(dst, src0.dtype, 6, f"dst_pool[{k}]")
+        if src.shape != src0.shape or dst.shape != dst0.shape:
+            raise ValueError(f"migrate_pages: pair {k} has shapes "
+                             f"{tuple(src.shape)} -> {tuple(dst.shape)}, "
+                             f"pair 0 {tuple(src0.shape)} -> "
+                             f"{tuple(dst0.shape)}")
+    check_cuda(src_idx, torch.int64, 1, "src_idx")
+    check_cuda(dst_idx, torch.int64, 1, "dst_idx")
+    check_cuda(sel, torch.bool, 1, "sel")
+    L, B, Ms = src0.shape[:3]
+    Md = dst0.shape[2]
+    if (dst0.shape[:2] != (L, B) or dst0.shape[3:] != src0.shape[3:]
             or not src_idx.shape == dst_idx.shape == sel.shape == (B,)):
         raise ValueError(f"migrate_pages: bad shapes src "
-                         f"{tuple(src_pool.shape)} dst "
-                         f"{tuple(dst_pool.shape)} idx {tuple(src_idx.shape)}")
-    page_bytes = math.prod(src_pool.shape[3:]) * src_pool.element_size()
-    with torch.cuda.device(dst_pool.device):
+                         f"{tuple(src0.shape)} dst {tuple(dst0.shape)} idx "
+                         f"{tuple(src_idx.shape)}")
+    page_bytes = math.prod(src0.shape[3:]) * src0.element_size()
+    src1, dst1 = pairs[-1]
+    with torch.cuda.device(dst0.device):
         load_library("serving").call(
-            "migrate_pages_launch", src_pool.data_ptr(), dst_pool.data_ptr(),
-            src_idx.data_ptr(), dst_idx.data_ptr(), sel.data_ptr(), L, B, Ms,
-            Md, ctypes.c_longlong(page_bytes), stream_of(dst_pool))
-    return dst_pool
+            "migrate_pages_launch", src0.data_ptr(), dst0.data_ptr(),
+            src1.data_ptr(), dst1.data_ptr(), len(pairs), src_idx.data_ptr(),
+            dst_idx.data_ptr(), sel.data_ptr(), L, B, Ms, Md,
+            ctypes.c_longlong(page_bytes), stream_of(dst0))
+    return tuple(dst for _, dst in pairs)

@@ -21,6 +21,14 @@ def migrate_pages_ref(src_pool, dst_pool, src_idx, dst_idx, sel):
     return dst_pool
 
 
+def migrate_pages_kv_ref(src_k, dst_k, src_v, dst_v, src_idx, dst_idx,
+                         sel):
+    """``migrate_pages_ref`` of the K pools, then of the V pools, with the
+    same indices. Returns (dst_k, dst_v)."""
+    return (migrate_pages_ref(src_k, dst_k, src_idx, dst_idx, sel),
+            migrate_pages_ref(src_v, dst_v, src_idx, dst_idx, sel))
+
+
 def commit_moves_ref(tier, ring_data, head, pages, take, tenants, hot_bits,
                      t: int, *, direction: int, to_tier: int):
     """tier [L] int32; ring_data [C, 5] int32; head 0-d int32; pages/tenants/

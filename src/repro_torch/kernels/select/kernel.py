@@ -12,8 +12,12 @@ synchronisation, no fallback.
   (the keys at or above it) are compacted and bitonic-sorted in shared
   memory, up to 2,048 at a time by rank. A handful of passes over the row,
   whatever the quota.
-* ``seg_reduce_cuda`` replaces ``seg_reduce_tpu``: one block per row, a
-  chunked warp-shuffle scan with a running carry.
+* ``seg_reduce_cuda`` replaces ``seg_reduce_tpu``: one block of 1,024
+  threads per row, one scan. Each thread owns a run of 4-lane units (one
+  at S=4,096), issues its 16-byte loads of x and 4-byte loads of valid
+  before its first add; one block exclusive scan of the run totals (one
+  barrier) gives each run its first prefix, written back as 16-byte
+  stores where the prefix row is aligned like x.
 * ``seg_sums_cuda`` replaces ``seg_sums_tpu``: one block of 1,024 threads
   per row, 16-byte loads of x beside 4-byte loads of the matching valid
   bytes, up to four of each in flight per thread before the first add,

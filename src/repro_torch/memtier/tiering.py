@@ -7,10 +7,11 @@ as the OS-level simulator (``core/policy.py`` — Eq.1, Eq.2, thrash
 controller), rounds them to per-sequence migrations (one page per selected
 sequence per step ≈ a migration bandwidth limit), and moves the pages
 between pools for all layers at once through the page-migration kernel
-(``kernels/migrate``), in place: the demotion copies run before the
-promotion copies, and promotion reads the slow pool after demotion, as the
-reference's functional updates do. The controller runs on the host step
-counter, so no device value is read back.
+(``kernels/migrate``), in place, K and V in one launch: the demotion
+copies run before the promotion copies (a promotion may land in the fast
+slot a demotion just freed), and promotion reads the slow pool after
+demotion, as the reference's functional updates do. The controller runs
+on the host step counter, so no device value is read back.
 """
 from __future__ import annotations
 
@@ -52,8 +53,8 @@ def equilibria_kv_step(cache: TieredKVCache, fast_mass: torch.Tensor,
     pages through the kernel wrapper, "ref" through its plain version."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    migrate = KMIG.migrate_pages if impl == "cuda" else \
-        KMIG_REF.migrate_pages_ref
+    migrate_kv = KMIG.migrate_pages_kv if impl == "cuda" else \
+        KMIG_REF.migrate_pages_kv_ref
     dev = cache.fast_page.device
     B, Mf = cache.fast_page.shape
     M = cache.page_tier.shape[1]
@@ -126,8 +127,8 @@ def equilibria_kv_step(cache: TieredKVCache, fast_mass: torch.Tensor,
     ring = OT.ring_record(cache.ring, demote_sel, gpage_d, cache.tenant,
                           _rows(fast_hot, src_f), OT.DIR_DEMOTE, t)
 
-    migrate(cache.fast_k, cache.slow_k, src_f, dst_s, demote_sel)
-    migrate(cache.fast_v, cache.slow_v, src_f, dst_s, demote_sel)
+    migrate_kv(cache.fast_k, cache.slow_k, cache.fast_v, cache.slow_v, src_f,
+               dst_s, demote_sel)
     slow_page = _set_rows(cache.slow_page, dst_s, torch.where(
         demote_sel, apage_d, _rows(cache.slow_page, dst_s)))
     slow_hot = _set_rows(slow_hot, dst_s, torch.where(
@@ -157,8 +158,8 @@ def equilibria_kv_step(cache: TieredKVCache, fast_mass: torch.Tensor,
 
     apage_p = _rows(slow_page, src_s)
     lpage_p = torch.clamp(apage_p, min=0) % M
-    migrate(cache.slow_k, cache.fast_k, src_s, dst_f, promote_sel)
-    migrate(cache.slow_v, cache.fast_v, src_s, dst_f, promote_sel)
+    migrate_kv(cache.slow_k, cache.fast_k, cache.slow_v, cache.fast_v, src_s,
+               dst_f, promote_sel)
     fast_page = _set_rows(fast_page, dst_f, torch.where(
         promote_sel, apage_p, _rows(fast_page, dst_f)))
     fast_hot = _set_rows(fast_hot, dst_f, torch.where(

@@ -222,13 +222,14 @@ def test_seg_topk_edge_cases_match_plain_on_card(name, cuda):
     torch.cuda.synchronize()
 
 
-def _at_offset(a: np.ndarray, device, offset: int) -> torch.Tensor:
-    """``a`` on ``device`` as a contiguous view ``offset`` elements into a
-    larger buffer (its data pointer is then not 16-byte aligned)."""
-    flat = torch.zeros(a.size + offset, dtype=torch.as_tensor(a[:0]).dtype,
-                       device=device)
-    flat[offset:] = torch.as_tensor(a.reshape(-1), device=device)
-    return flat[offset:].view(a.shape)
+def _at_offset(a, device, offset: int) -> torch.Tensor:
+    """``a`` (an array or a tensor) on ``device`` as a contiguous view
+    ``offset`` elements into a larger buffer (its data pointer is then not
+    16-byte aligned)."""
+    t = torch.as_tensor(a, device=device)
+    flat = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+    flat[offset:] = t.reshape(-1)
+    return flat[offset:].view(t.shape)
 
 
 @pytest.mark.gpu
@@ -242,6 +243,27 @@ def test_seg_sums_matches_plain_on_card(shape, values, offset, cuda):
     xt = _at_offset(x, cuda, offset)
     vt = torch.as_tensor(valid, device=cuda)
     assert torch.equal(TSEL.seg_sums(xt, vt), TSEL_REF.seg_sums_ref(xt, vt))
+    torch.cuda.synchronize()
+
+
+# (x offset, valid offset) in elements: aligned alike, both one element in
+# (in phase, three lanes before the first 16-byte unit), and each alone
+# (out of phase: the lane-by-lane path)
+REDUCE_OFFSETS = [(0, 0), (1, 1), (1, 0), (0, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SUMS_CARD_SHAPES)
+@pytest.mark.parametrize("values", ["mask", "full"])
+@pytest.mark.parametrize("offsets", REDUCE_OFFSETS)
+def test_seg_reduce_matches_plain_on_card(shape, values, offsets, cuda):
+    """K2 (sums and exclusive prefix) bitwise against its plain version at
+    K3's card shapes, with x and valid as views at odd offsets."""
+    x, valid = sums_card_case(shape, values)
+    xt = _at_offset(x, cuda, offsets[0])
+    vt = _at_offset(valid, cuda, offsets[1])
+    for g, w in zip(TSEL.seg_reduce(xt, vt), TSEL_REF.seg_reduce_ref(xt, vt)):
+        assert torch.equal(g, w)
     torch.cuda.synchronize()
 
 
@@ -310,6 +332,31 @@ def migrate_case(shape, seed=0):
 # (l, b, msrc, mdst, pt, kh, d): the reference's tests/test_kernels.py shapes
 MIGRATE_SHAPES = [(2, 4, 6, 5, 4, 2, 16), (1, 8, 4, 4, 8, 1, 32),
                   (3, 2, 8, 8, 2, 4, 8)]
+# K6 at shapes the reference's never reach: pages whose size is not a
+# multiple of 16 bytes (15 and 42 elements), a page of one 16 KiB chunk
+# and a part (4,800 f32), more sequences than one block compacts at once
+# (300), and S1's and S3's pages (16 tokens of 8 x 64 and of 32 x 112:
+# one and seven 16 KiB chunks in bf16) at a cut depth and batch
+MIGRATE_ODD_SHAPES = [(2, 5, 4, 3, 3, 1, 5), (3, 4, 3, 3, 2, 3, 7),
+                      (2, 4, 3, 3, 16, 3, 100), (1, 300, 3, 4, 2, 2, 8)]
+MIGRATE_CARD_SHAPES = [(2, 16, 8, 6, 16, 8, 64), (2, 8, 6, 5, 16, 32, 112)]
+
+
+def migrate_index_cases(si, di, sel, msrc, mdst):
+    """(src_idx, dst_idx, sel) triples for one pool pair: the seeded
+    indices, source slot == destination slot, nothing selected, and
+    indices out of the pools on both sides (negative and past the end;
+    the kernels clamp them)."""
+    same = np.minimum(si, min(msrc, mdst) - 1)
+    oob_s = si.copy()
+    oob_d = di.copy()
+    oob_s[0::3] = -3
+    oob_s[1::3] = msrc + 2
+    oob_d[0::2] = mdst + 5
+    oob_d[1::2] = -1
+    return {"seeded": (si, di, sel), "same_slot": (same, same, sel),
+            "none": (si, di, np.zeros_like(sel)),
+            "out_of_range": (oob_s, oob_d, np.ones_like(sel))}
 
 
 # K5's card shapes beyond the reference's: S1's (Llama 3.2 1B: 64
@@ -345,24 +392,34 @@ def test_pool_attention_matches_plain_on_card(shape, dtype, window, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", MIGRATE_SHAPES)
+@pytest.mark.parametrize("shape", MIGRATE_SHAPES + MIGRATE_ODD_SHAPES
+                         + MIGRATE_CARD_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_migrate_pages_matches_plain_on_card(shape, dtype, cuda):
-    """K6 bitwise against its plain version, including an all-unselected
-    ``sel`` and source slot == destination slot."""
+@pytest.mark.parametrize("offset", [0, 1])
+def test_migrate_pages_matches_plain_on_card(shape, dtype, offset, cuda):
+    """K6 bitwise against its plain version, one pool pair and a K+V pair
+    in one launch, in place: an all-unselected ``sel``, source slot ==
+    destination slot, indices out of range, page sizes not a multiple of
+    16 bytes, S1's and S3's pages, and pools at unaligned addresses."""
     from repro_torch.kernels.migrate import ops as TMIG
     from repro_torch.kernels.migrate import ref as TMIG_REF
     src, dst, si, di, sel = migrate_case(shape)
-    same = np.minimum(si, min(src.shape[2], dst.shape[2]) - 1)
-    for s_i, d_i, se in ((si, di, sel), (same, same, sel),
-                         (si, di, np.zeros_like(sel))):
+    v_src, v_dst = (a[::-1].copy() for a in (src, dst))
+    pools = [_at_offset(torch.as_tensor(a).to(dtype), cuda, offset)
+             for a in (src, dst, v_src, v_dst)]
+    for s_i, d_i, se in migrate_index_cases(si, di, sel, shape[2],
+                                            shape[3]).values():
         a = [torch.as_tensor(x, device=cuda) for x in (s_i, d_i, se)]
-        s_t = torch.as_tensor(src, device=cuda).to(dtype)
-        want = TMIG_REF.migrate_pages_ref(
-            s_t, torch.as_tensor(dst, device=cuda).to(dtype), *a)
-        got = TMIG.migrate_pages(
-            s_t, torch.as_tensor(dst, device=cuda).to(dtype), *a)
-        assert torch.equal(got, want)
+        want = TMIG_REF.migrate_pages_ref(pools[0], pools[1].clone(), *a)
+        got_dst = pools[1].clone()
+        got = TMIG.migrate_pages(pools[0], got_dst, *a)
+        assert got is got_dst and torch.equal(got, want)
+        want_kv = TMIG_REF.migrate_pages_kv_ref(
+            pools[0], pools[1].clone(), pools[2], pools[3].clone(), *a)
+        got_kv = TMIG.migrate_pages_kv(pools[0], pools[1].clone(), pools[2],
+                                       pools[3].clone(), *a)
+        for g, w in zip(got_kv, want_kv):
+            assert torch.equal(g, w)
     torch.cuda.synchronize()
 
 

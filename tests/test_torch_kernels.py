@@ -33,11 +33,12 @@ from repro_torch.kernels.tiered_attention import kernel as TTA_K
 from repro_torch.kernels.tiered_attention import ops as TTA
 from repro_torch.kernels.tiered_attention import ref as TTA_REF
 from repro_torch.kernels.select import ref as TSEL_REF
-from test_torch_gpu import (ATTN_SHAPES, MIGRATE_SHAPES, MOVES_CARD_CASES,
-                            SUMS_CARD_SHAPES, TOPK_EDGE_CASES,
-                            attention_case, migrate_case, moves_card_case,
-                            moves_case, sums_card_case, topk_case,
-                            topk_edge_case)
+from test_torch_gpu import (ATTN_SHAPES, MIGRATE_CARD_SHAPES,
+                            MIGRATE_ODD_SHAPES, MIGRATE_SHAPES,
+                            MOVES_CARD_CASES, SUMS_CARD_SHAPES,
+                            TOPK_EDGE_CASES, attention_case, migrate_case,
+                            migrate_index_cases, moves_card_case, moves_case,
+                            sums_card_case, topk_case, topk_edge_case)
 
 JAX_IMPLS = ("ref", "pallas_interpret")
 
@@ -184,6 +185,86 @@ def test_seg_sums_card_shapes_match_reference(shape, values, impl):
     x, valid = sums_card_case(shape, values)
     _eq(TSEL.seg_sums(torch.as_tensor(x), torch.as_tensor(valid)),
         j_seg_sums(jnp.asarray(x), jnp.asarray(valid), impl=impl), "sums")
+
+
+@pytest.mark.parametrize("impl", JAX_IMPLS)
+@pytest.mark.parametrize("values", ["mask", "full"])
+@pytest.mark.parametrize("shape", SUMS_CARD_SHAPES)
+def test_seg_reduce_card_shapes_match_reference(shape, values, impl):
+    """K2's plain version (sums and exclusive prefix) against the reference
+    at the card tests' shapes: C1's width, unaligned rows, S=1, T=1, a long
+    row, T=200; 0/1 values and full-range values whose sums wrap."""
+    x, valid = sums_card_case(shape, values)
+    js, jp = j_seg_reduce(jnp.asarray(x), jnp.asarray(valid), impl=impl)
+    ts, tp = TSEL.seg_reduce(torch.as_tensor(x), torch.as_tensor(valid))
+    _eq(ts, js, "sums")
+    _eq(tp, jp, "prefix")
+
+
+# K2's partition (csrc/selection.cu seg_reduce_kernel), modelled in numpy:
+# thread r of 1,024 owns a run of 4-lane units; the lanes before x's first
+# 16-byte boundary go to thread 0 ahead of its run, the ragged tail to the
+# last thread after its run; rows whose x and valid are out of phase go
+# lane by lane in runs. px / pv: the row's x phase in elements and valid
+# phase in bytes, modulo 4.
+REDUCE_THREADS = 1024
+
+
+def seg_reduce_runs(S, px, pv, n=REDUCE_THREADS):
+    """Each thread's lanes, in the order the thread adds them."""
+    if px != pv:
+        run = -(-S // n)
+        return [np.arange(min(r * run, S), min(r * run + run, S))
+                for r in range(n)]
+    head = min((4 - px) & 3, S)
+    units = (S - head) >> 2
+    run = -(-units // n)
+    tail = head + 4 * units
+    out = []
+    for r in range(n):
+        u0 = min(r * run, units)
+        u1 = min(u0 + run, units)
+        lanes = [np.arange(head) if r == 0 else np.arange(0),
+                 head + np.arange(4 * u0, 4 * u1),
+                 np.arange(tail, S) if r == n - 1 else np.arange(0)]
+        out.append(np.concatenate(lanes).astype(np.int64))
+    return out
+
+
+def seg_reduce_model(x, valid, x_off=0, v_off=0):
+    """(sums, prefix) as the kernel computes them: per-thread run totals in
+    uint32, one exclusive scan over the threads, then each run's lanes."""
+    T, S = x.shape
+    sums = np.zeros(T, np.int32)
+    prefix = np.zeros((T, S), np.int32)
+    xm = np.where(valid, x, 0).astype(np.int64).astype(np.uint32)
+    for t in range(T):
+        runs = seg_reduce_runs(S, (x_off + t * S) % 4, (v_off + t * S) % 4)
+        order = np.concatenate(runs)
+        np.testing.assert_array_equal(order, np.arange(S))  # each lane once
+        tot = np.array([xm[t, r].sum(dtype=np.uint32) for r in runs],
+                       np.uint32)
+        base = np.concatenate([[0], np.cumsum(tot, dtype=np.uint32)[:-1]]
+                              ).astype(np.uint32)
+        for r, lanes in enumerate(runs):
+            inc = np.cumsum(xm[t, lanes], dtype=np.uint32)
+            prefix[t, lanes] = (base[r] + inc - xm[t, lanes]).view(np.int32)
+        sums[t] = np.uint32(tot.sum(dtype=np.uint32)).view(np.int32)
+    return sums, prefix
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 1), (3, 3), (1, 0), (0, 2)])
+@pytest.mark.parametrize("shape", [(3, 4096), (5, 4097), (4, 4093), (3, 1),
+                                   (1, 262144), (3, 3000), (2, 7)])
+def test_seg_reduce_partition_model_matches_reference(shape, offsets):
+    """The kernel's runs cover every lane once, in order, for every phase
+    of x and valid, and their uint32 totals, scan and prefixes equal the
+    reference's on full-range values whose sums wrap."""
+    x, valid = sums_card_case(shape, "full")
+    js, jp = j_seg_reduce(jnp.asarray(x), jnp.asarray(valid), impl="ref")
+    ms, mp = seg_reduce_model(x, valid, *offsets)
+    np.testing.assert_array_equal(ms, np.asarray(js))
+    np.testing.assert_array_equal(mp, np.asarray(jp))
 
 
 # --------------------------------------------------------- commit_moves ----
@@ -550,3 +631,111 @@ def test_migrate_pages_matches_reference(shape, dtype, impl):
         assert got is dst_t                  # updated in place
         np.testing.assert_array_equal(got.to(torch.float32).numpy(),
                                       np.asarray(want, np.float32))
+
+
+def _pair_case(shape):
+    src, dst, si, di, sel = migrate_case(shape)
+    return (src, dst, src[::-1].copy(), dst[::-1].copy(),
+            migrate_index_cases(si, di, sel, shape[2], shape[3]))
+
+
+# The reference's plain version and its kernel disagree on indices out of
+# the pools: the jnp gather wraps negative indices and its scatter drops a
+# destination past the end, while the Pallas kernel clamps both
+# (``jnp.maximum(idx, 0)`` and the block index), as the port's kernels do.
+# The serving path never hands either an index out of range; those cases
+# are held against the kernel (interpret mode) only.
+def _jax_impls(case):
+    return ("pallas_interpret",) if case == "out_of_range" else JAX_IMPLS
+
+
+@pytest.mark.parametrize("case", ["seeded", "same_slot", "none",
+                                  "out_of_range"])
+@pytest.mark.parametrize("shape", MIGRATE_SHAPES + MIGRATE_ODD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_migrate_pages_kv_matches_reference(shape, dtype, case):
+    """The K+V pair wrapper's plain version against two reference
+    migrate_pages calls, bitwise and in place, on pages not a multiple of
+    16 bytes, more sequences than one block compacts, source slot ==
+    destination slot, nothing selected and indices out of range."""
+    src_k, dst_k, src_v, dst_v, idx = _pair_case(shape)
+    s_i, d_i, se = idx[case]
+    tdt = getattr(torch, dtype)
+    t_dst = [torch.as_tensor(a).to(tdt) for a in (dst_k, dst_v)]
+    got = TMIG.migrate_pages_kv(torch.as_tensor(src_k).to(tdt), t_dst[0],
+                                torch.as_tensor(src_v).to(tdt), t_dst[1],
+                                *(torch.as_tensor(a) for a in (s_i, d_i, se)))
+    assert got[0] is t_dst[0] and got[1] is t_dst[1]     # in place
+    for impl in _jax_impls(case):
+        for g, src, dst in zip(got, (src_k, src_v), (dst_k, dst_v)):
+            want = j_migrate_pages(jnp.asarray(src, dtype),
+                                   jnp.asarray(dst, dtype), jnp.asarray(s_i),
+                                   jnp.asarray(d_i), jnp.asarray(se),
+                                   impl=impl)
+            np.testing.assert_array_equal(g.to(torch.float32).numpy(),
+                                          np.asarray(want, np.float32))
+
+
+# K6's work items (csrc/serving.cu migrate_pages_kernel), modelled in numpy:
+# a grid of 2 blocks per SM (132 SMs), capped by the most work; each block
+# compacts the selected sequences of windows of 128 in order and walks the
+# items (pool, layer, selected sequence, 16 KiB chunk) in a grid-stride loop.
+COPY_CHUNK, COPY_THREADS, COPY_GRID = 16384, 128, 2 * 132
+
+
+def migrate_items_model(pairs, si, di, sel):
+    """Copies each item's bytes from source to destination (numpy arrays,
+    updated in place) and returns the items in the order blocks take
+    them; asserts no item is taken twice."""
+    L, B, Ms = pairs[0][0].shape[:3]
+    Md = pairs[0][1].shape[2]
+    page = pairs[0][0][0, 0, 0].nbytes
+    nch = -(-page // COPY_CHUNK)
+    grid = min(COPY_GRID, len(pairs) * L * B * nch)
+    views = [(s.reshape(L, B * Ms, page // s.itemsize).view(np.uint8),
+              d.reshape(L, B * Md, page // d.itemsize).view(np.uint8))
+             for s, d in pairs]
+    seen = set()
+    for w0 in range(0, B, COPY_THREADS):
+        b = np.arange(w0, min(w0 + COPY_THREADS, B))
+        b = b[sel[b] != 0]
+        rows = list(zip(b * Ms + np.clip(si[b], 0, Ms - 1),
+                        b * Md + np.clip(di[b], 0, Md - 1)))
+        items = len(pairs) * L * len(rows) * nch
+        for blk in range(grid):
+            for it in range(blk, items, grid):
+                c, t = it % nch, it // nch
+                j, t = t % len(rows), t // len(rows)
+                lay, p = t % L, t // L
+                key = (p, lay, int(b[j]), c)
+                assert key not in seen
+                seen.add(key)
+                lo, hi = c * COPY_CHUNK, min(page, (c + 1) * COPY_CHUNK)
+                s, d = views[p]
+                d[lay, rows[j][1], lo:hi] = s[lay, rows[j][0], lo:hi]
+    return seen
+
+
+@pytest.mark.parametrize("case", ["seeded", "same_slot", "none",
+                                  "out_of_range"])
+@pytest.mark.parametrize("shape", MIGRATE_SHAPES + MIGRATE_ODD_SHAPES
+                         + MIGRATE_CARD_SHAPES)
+def test_migrate_items_model_matches_reference(shape, case):
+    """The kernel's items cover every selected page of both pools once
+    (float32 pages of one chunk and a part, of 14 chunks at S3's widths;
+    300 sequences in three windows) and reproduce two reference
+    migrate_pages calls. The model copies bytes, so float32 pools stand
+    for bf16 ones."""
+    src_k, dst_k, src_v, dst_v, idx = _pair_case(shape)
+    s_i, d_i, se = idx[case]
+    got = [dst_k.copy(), dst_v.copy()]
+    seen = migrate_items_model([(src_k, got[0]), (src_v, got[1])], s_i, d_i,
+                               se)
+    nch = -(-src_k[0, 0, 0].nbytes // COPY_CHUNK)
+    assert len(seen) == 2 * shape[0] * int((se != 0).sum()) * nch
+    for impl in _jax_impls(case):
+        for g, src, dst in zip(got, (src_k, src_v), (dst_k, dst_v)):
+            want = j_migrate_pages(jnp.asarray(src), jnp.asarray(dst),
+                                   jnp.asarray(s_i), jnp.asarray(d_i),
+                                   jnp.asarray(se), impl=impl)
+            np.testing.assert_array_equal(g, np.asarray(want))
