@@ -65,6 +65,21 @@ one line each, each with its duration:
      earlier designs' times; K8 also at S=32,768
  18. where one Zamba2-7B prefill's device time goes (torch.profiler), and
      K8's device launches per op call
+ 19. dynamic ownership (churn): the reference's ``churn_small`` and
+     ``churn16_sketch`` goldens through ``simulate_churn(impl="cuda")``; K1
+     must launch
+ 20. H1, a churned host of C1's size (T=64 slots: 24 stable, 24 Poisson, 16
+     serverless; L=261,824 pages), equilibria, 40 ticks: "cuda", "ref"
+     and "batched" in turns from the same all-free pool, integer outputs
+     and state bitwise every tick, conservation every tick; tick ms for
+     each impl, K1 launches per tick, one profiled tick
+ 21. H1 for 20 ticks with the sampled, sketch (outside full coverage: the
+     threefry probe draw on the card) and neomem providers, "cuda" vs
+     "ref"; stacked64 with its owner vector permuted (non-contiguous),
+     "cuda" == "ref" == "batched"
+ 22. K1 at the dynamic path's rowspace width (T=64, S=L=261,824) at a
+     moving tick's own quotas: time, bound, launch floor, its plain
+     version, ``torch.topk`` and ``torch.sort`` on the same rows
 
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -172,6 +187,10 @@ PREFILL_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
 TIMED_B, TIMED_S = 1, 32768              # the reference's prefill_32k, B cut
 HYBRID_SIDE_STEPS = 16                   # tpp and static, hybrid serving
 HYBRID_FWD_BATCH, HYBRID_FWD_STEPS = 4, 64
+# dynamic ownership (slices B and C): H1 is a churned host of C1's size
+H1_TICKS, H1_HOT_TICKS = 40, 20
+PERMUTED_TICKS = 60                      # stacked64, owner vector permuted
+CHURN_IMPLS = ("cuda", "ref", "batched")
 
 
 _LAST = [time.perf_counter()]
@@ -1120,6 +1139,282 @@ def with_dtype(model, dtype: str):
     return m
 
 
+# ---------------------------------------------------------- phase 19 ----
+def churn_golden_run(name: str, impl: str, device="cuda"):
+    """The reference's churn golden scenarios (tests/test_golden_trace.py
+    ``_churn_small``, ``_churn16_sketch``) through the port's
+    ``simulate_churn``."""
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.core import simulator as SIM
+    from repro_torch.core import workloads as W
+    if name == "churn_small":
+        slots = [W.ChurnSlot(W.web_like(40), [(0, 80)]),
+                 W.ChurnSlot(W.microbenchmark(32, ramp=3),
+                             [(4, 30), (40, 70)]),
+                 *W.serverless_bursts(2, 80, footprint=24, seed=3)]
+        cfg = TieringConfig(n_tenants=4, n_fast_pages=64, n_slow_pages=120,
+                            lower_protection=(16, 8, 0, 0),
+                            upper_bound=(0, 24, 0, 0))
+        return SIM.simulate_churn(cfg, slots, 80, k_max=32, impl=impl,
+                                  device=device)
+    cfg, slots = SIM.CHURN_PRESETS["churn16"]()
+    return SIM.simulate_churn(cfg.with_(n_tenants=len(slots)), slots, 100,
+                              k_max=64, hotness="sketch", impl=impl,
+                              device=device)
+
+
+# ---------------------------------------------------------- phase 20 ----
+def h1_roster(ticks: int):
+    """H1's 64 slots: 24 stable (web/cache alternating, 3,840-4,352 pages,
+    arriving over the first 8 ticks), 24 Poisson-churned and 16 serverless
+    slots of 2,048 pages, from the port's generators."""
+    from repro_torch.core import workloads as W
+    stable = [W.ChurnSlot((W.web_like, W.cache_like)[i % 2](
+        3840 + 256 * (i % 3)), [(i % 8, ticks)]) for i in range(24)]
+    return (stable + W.poisson_churn(24, ticks, base_footprint=2048, seed=0)
+            + W.serverless_bursts(16, ticks, footprint=2048, seed=1))
+
+
+def churn_lockstep(torch, cfg, sched, impls, ticks: int, hotness=None,
+                   k_max: int = K_MAX, keep_at=None):
+    """The dynamic-ownership tick of each impl in turns, tick by tick, from
+    the same all-free pool. After every tick each impl's outputs and state
+    are held against the first's (ints bitwise, floats rtol 1e-5), and
+    conservation is checked: fast + slow + free == L, departed slots own
+    nothing. Returns ({impl: [tick ms]}, {impl: [TickOutput]}, float state
+    leaves that were not bitwise, and (tick, state, inputs) of the first
+    impl's tick ``keep_at``, to profile it again)."""
+    from repro_torch.core.churn import make_churn_tick
+    from repro_torch.core.state import init_state
+    L = cfg.n_fast_pages + cfg.n_slow_pages
+    tick = {i: make_churn_tick(cfg, L, k_max=k_max, hotness=hotness, impl=i,
+                               device="cuda") for i in impls}
+    state = {i: init_state(cfg, L, device="cuda", hotness=hotness)
+             for i in impls}
+    rates = torch.as_tensor(sched.rates[:ticks], device="cuda")
+    want = torch.as_tensor(sched.want[:ticks], device="cuda")
+    ms = {i: [] for i in impls}
+    outs = {i: [] for i in impls}
+    inexact, kept = set(), None
+    for t in range(ticks):
+        inp = (rates[t], want[t])
+        if t == keep_at:
+            kept = (tick[impls[0]], state[impls[0]], inp)
+        for i in impls:
+            torch.cuda.synchronize()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            state[i], out = tick[i](state[i], inp)
+            e.record()
+            torch.cuda.synchronize()
+            ms[i].append(s.elapsed_time(e))
+            outs[i].append(out)
+        a = impls[0]
+        for i in impls[1:]:
+            compare_runs(torch, state[a], outs[a][-1], state[i], outs[i][-1],
+                         f"tick {t} {a} vs {i}")
+            for k, v in state_leaves(state[a]).items():
+                if torch.is_tensor(v) and v.is_floating_point() and \
+                        not torch.equal(v, state_leaves(state[i])[k]):
+                    inexact.add(k)
+        o = outs[a][-1]
+        owned = o.fast_usage + o.slow_usage
+        require(int(owned.sum() + o.pool_free) == L,
+                f"tick {t}: fast + slow + free != L")
+        require(not bool(owned[want[t] == 0].any()),
+                f"tick {t}: a departed slot owns pages")
+    return ms, outs, sorted(inexact), kept
+
+
+def ms_summary(v) -> str:
+    v = sorted(v)
+    return f"median {v[len(v) // 2]:.3f} ({v[0]:.3f}-{v[-1]:.3f})"
+
+
+# ------------------------------------------------------ phases 19-22 ----
+def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
+    """Phases 19-22: dynamic ownership and the hotness providers on the
+    card; appends K1's dynamic-width entry to ``rows``."""
+    from repro_torch.core import simulator as SIM
+    from repro_torch.core.churn import churn_events, make_churn_tick
+    from repro_torch.core.engine import run_engine
+    from repro_torch.core.state import init_state
+    from repro_torch.core.workloads import build_churn_schedule, build_trace
+    from repro_torch.kernels.migrate import ops as KMIG
+    from repro_torch.kernels.select import ops as KSEL
+    from repro_torch.kernels.select import ref as RSEL
+    wrappers = {"seg_topk": KSEL.seg_topk, "seg_reduce": KSEL.seg_reduce,
+                "seg_sums": KSEL.seg_sums, "commit_moves": KMIG.commit_moves}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    # ---- 19. dynamic ownership: the churn goldens ---------------------------
+    # under the sketch every selection is a running count over its buffers
+    # and the dynamic strategy has no move kernel: no kernel of the tick
+    # runs there, and the golden holds the rest of the cuda path
+    gold = []
+    for name in ("churn_small", "churn16_sketch"):
+        reset_counts()
+        r = churn_golden_run(name, "cuda")
+        counts = read_counts()
+        if name == "churn_small":
+            require(counts["seg_topk"] > 0, f"{name}: K1 never launched")
+        want = json.loads((GOLDEN.parent / f"{name}.json").read_text())
+        got = collect(r)
+        require(sorted(want) == sorted(got), f"{name}: key set drifted")
+        for key in sorted(want):
+            diff(got[key], want[key], f"{name}.{key}")
+        gold.append(f"{name} ({len(r.migrations)} ring events, launches "
+                    f"{counts})")
+    phase("19-churn-golden", "impl=cuda reproduces " + ", ".join(gold))
+
+    # ---- 20. H1: a churned host of C1's size, three impls ---------------
+    h1_slots = h1_roster(H1_TICKS)
+    h1_cfg = SIM.churn_roster_config(h1_slots)
+    h1_sched = build_churn_schedule(h1_slots, H1_TICKS)
+    L1 = h1_cfg.n_fast_pages + h1_cfg.n_slow_pages
+    arrivals, departures = churn_events(h1_sched.want)
+    reset_counts()
+    h1_ms, h1_outs, h1_inexact, kept = churn_lockstep(
+        torch, h1_cfg, h1_sched, CHURN_IMPLS, H1_TICKS, keep_at=H1_TICKS // 2)
+    h1_launches = read_counts()
+    require(h1_launches["seg_topk"] > 0, "H1: K1 never launched")
+    o = h1_outs["cuda"]
+    h1_moves = (int(sum(int(x.promotions.sum()) for x in o)),
+                int(sum(int(x.demotions.sum()) for x in o)))
+    require(h1_moves[0] > 0 and h1_moves[1] > 0, "H1: no migrations")
+    phase("20-churn-host", f"H1 T={h1_cfg.n_tenants} L={L1} (fast "
+          f"{h1_cfg.n_fast_pages}, S={h1_sched.rates.shape[2]}) equilibria "
+          f"{H1_TICKS} ticks, {arrivals} arrivals {departures} departures, "
+          f"peak demand {int(h1_sched.want.sum(1).max())}: cuda == ref == "
+          f"batched (ints bitwise every tick, floats rtol 1e-5; float state "
+          f"not bitwise: {h1_inexact or 'none'}), conservation every tick; "
+          f"promotions {h1_moves[0]} demotions {h1_moves[1]}; launches "
+          f"{h1_launches} ({h1_launches['seg_topk'] / H1_TICKS:g} K1 a "
+          "tick); tick ms (CUDA events) " + "; ".join(
+              f"{i} {ms_summary(v)}" for i, v in h1_ms.items()))
+    h1_tick_ms = sorted(h1_ms["cuda"])[H1_TICKS // 2]
+    h1_prof = profile_fn(torch, lambda: kept[0](kept[1], kept[2]))
+    del kept
+    if h1_prof is None:
+        phase("20-churn-profile", "device time not measured: the profiler "
+                                  "saw no device event")
+    else:
+        n_dev, busy_ms, top, pwall = h1_prof
+        k1 = [(t, c) for nm, t, c in top if "seg_topk_kernel" in nm]
+        phase("20-churn-profile", f"impl=cuda tick {H1_TICKS // 2}: {n_dev} "
+              f"device events, busy {busy_ms:.4f} ms of {h1_tick_ms:.4f} ms "
+              f"(median tick; idle share {1 - busy_ms / h1_tick_ms:.3f}; "
+              f"profiled wall {pwall:.3f} ms); K1 "
+              f"{sum(t for t, _ in k1):.4f} ms x{sum(c for _, c in k1)}; "
+              "top by device ms: " + "; ".join(
+                  f"{nm[:60]} {t:.4f} ms x{c}" for nm, t, c in top[:10]))
+
+    # ---- 21. hotness providers on H1; non-contiguous stacked64 -------------
+    hot_res = []
+    for hotness in ("sampled", "sketch", "neomem"):
+        hms, houts, hinexact, _ = churn_lockstep(
+            torch, h1_cfg, h1_sched, ("cuda", "ref"), H1_HOT_TICKS,
+            hotness=hotness)
+        moves = sum(int(x.promotions.sum() + x.demotions.sum())
+                    for x in houts["cuda"])
+        require(moves > 0, f"H1 {hotness}: no migrations")
+        hot_res.append(f"{hotness}: {moves} moves, float state not bitwise "
+                       f"{hinexact or 'none'}, tick ms " + ", ".join(
+                           f"{i} {ms_summary(v)}" for i, v in hms.items()))
+    phase("21-hotness-host", f"H1 {H1_HOT_TICKS} ticks, cuda == ref (ints "
+          "bitwise every tick; sketch probe 4096 over 64 slots = 64 lanes a "
+          f"slot of S={h1_sched.rates.shape[2]}: threefry draws): "
+          + " | ".join(hot_res))
+    p_cfg, p_tenants = SIM.PRESETS["stacked64"]()
+    p_owner, p_acc, p_alive = build_trace(p_tenants, PERMUTED_TICKS)
+    perm = np.random.default_rng(64).permutation(p_owner.shape[0])
+    p_runs = {impl: run_engine(p_cfg, p_owner[perm], p_acc[:, perm],
+                               p_alive[:, perm], mode="equilibria",
+                               k_max=128, impl=impl, device="cuda")
+              for impl in CHURN_IMPLS}
+    for impl in CHURN_IMPLS[1:]:
+        compare_runs(torch, *p_runs["cuda"], *p_runs[impl],
+                     f"stacked64 permuted cuda vs {impl}")
+    p_out = p_runs["cuda"][1]
+    phase("21-permuted", f"stacked64 owner permuted (L={p_owner.shape[0]}) "
+          f"{PERMUTED_TICKS} ticks: cuda == ref == batched; promotions "
+          f"{int(p_out.promotions.sum())} demotions "
+          f"{int(p_out.demotions.sum())}")
+    del p_runs, p_out
+
+    # ---- 22. K1 at the dynamic rowspace width ------------------------------
+    # the seg_topk calls of one moving tick of H1's cuda path (tick 10:
+    # arrivals, promotions and demotions), recorded on the way in
+    calls = []
+    orig_topk = KSEL.seg_topk
+
+    def recording_topk(score, valid, quotas, k):
+        calls.append((score.clone(), valid.clone(), quotas.clone(), k))
+        return orig_topk(score, valid, quotas, k)
+
+    recording_topk.launches = orig_topk.launches
+    KSEL.seg_topk = recording_topk
+    try:
+        tick = make_churn_tick(h1_cfg, L1, k_max=K_MAX, impl="cuda",
+                               device="cuda")
+        state = init_state(h1_cfg, L1, device="cuda")
+        for t in range(11):
+            calls.clear()
+            state, _ = tick(state, (
+                torch.as_tensor(h1_sched.rates[t], device="cuda"),
+                torch.as_tensor(h1_sched.want[t], device="cuda")))
+    finally:
+        KSEL.seg_topk = orig_topk
+        orig_topk.launches = recording_topk.launches
+    del state, tick
+    require(len(calls) > 0, "H1 tick 10 called no seg_topk")
+    score, valid, quotas, k = max(calls, key=lambda c: int(
+        c[2].clamp(min=0).sum()))
+    T1, S1 = score.shape
+    got = orig_topk(score, valid, quotas, k)
+    plain = RSEL.seg_topk_ref(score, valid, quotas, min(k, S1))
+    for g, w in zip(got, plain):
+        require(torch.equal(g, w), "K1 != plain at the dynamic width")
+    masked = torch.where(valid, score, float("-inf"))
+    k1_ms = device_ms(lambda: orig_topk(score, valid, quotas, k))
+    k1_plain = device_ms(lambda: RSEL.seg_topk_ref(score, valid, quotas,
+                                                   min(k, S1)), n=10)
+    k1_topk = device_ms(lambda: torch.topk(masked, k, dim=1))
+    k1_sort = device_ms(lambda: torch.sort(masked, dim=1, descending=True,
+                                           stable=True), n=10)
+    nbytes = T1 * S1 * 5 + T1 * 4 + T1 * k * 5 + T1 * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = T1 * S1 / F32_OPS_PER_S * 1e3
+    rows.append({
+        "name": "seg_topk_dynamic", "kernel": "seg_topk", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES["seg_topk"],
+        "launches": h1_launches["seg_topk"], "max_abs_err": 0.0,
+        "ms": k1_ms, "plain_ms": k1_plain,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": k1_topk, "sort_ms": k1_sort,
+        "width": f"T={T1} S={S1} (dynamic rowspace, S = L)", "k": k,
+        "quota_max": int(quotas.max()), "bytes": nbytes,
+        "launch_floor_ms": floor_ms,
+        "launches_per_tick": h1_launches["seg_topk"] / H1_TICKS,
+    })
+    phase("22-kernel", f"seg_topk [T={T1} S={S1}, k={k}, quotas max "
+          f"{int(quotas.max())} sum {int(quotas.clamp(min=0).sum())}, "
+          f"{int(valid.sum())} valid lanes; H1 tick 10's largest call of "
+          f"{len(calls)}]: {k1_ms:.4f} ms (bitwise = plain; plain "
+          f"{k1_plain:.4f}, torch.topk {k1_topk:.4f}, torch.sort "
+          f"{k1_sort:.4f}, bound {max(t_bytes, t_ops):.5f} at 3.35 TB/s, "
+          f"launch floor {floor_ms:.4f})")
+    del calls, score, valid, quotas, masked, got, plain
+
+
 # ---------------------------------------------------------- phase 18 ----
 KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
                   ("K8 ssd_scan", DEVICE_KERNELS["ssd_scan"]),
@@ -2004,6 +2299,10 @@ def main() -> int:
                       by_cls.items(), key=lambda kv: -kv[1][0]))
               + "; top: " + "; ".join(f"{nm[:50]} {t:.1f} ms x{cnt}"
                                       for nm, t, cnt in top[:8]))
+    del zmodel
+    torch.cuda.empty_cache()
+
+    churn_phases(torch, np, rows, floor_ms)
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

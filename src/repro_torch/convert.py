@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.hotness import NeomemState, SketchState
 from repro_torch.core.state import Counters, ThrashTable, TierState
 from repro_torch.device import resolve_device
 from repro_torch.memtier.kvcache import TieredKVCache
@@ -35,11 +36,23 @@ def _sub(tree, cls, device):
     return cls(*(_t(getattr(tree, f), device) for f in cls._fields))
 
 
+def _hotness_from_numpy(tree, device):
+    """The hotness provider's state subtree (None, SketchState or
+    NeomemState), told apart by its field names."""
+    if tree is None:
+        return None
+    for cls in (SketchState, NeomemState):
+        if set(cls._fields) <= set(getattr(tree, "_fields", ())):
+            return _sub(tree, cls, device)
+    raise TypeError(f"unknown hotness state {type(tree).__name__}")
+
+
 def state_from_numpy(tree, device="cuda") -> TierState:
     """The port's TierState from a reference TierState with numpy leaves.
-    Optional subtrees (detectors, attribution, hotness state) must be None."""
+    The detector and attribution subtrees must be None; the hotness
+    provider's state (sketch, neomem) is carried over."""
     device = resolve_device(device)
-    for f in ("det", "attrib", "hotness"):
+    for f in ("det", "attrib"):
         if getattr(tree, f, None) is not None:
             raise NotImplementedError(f"state field {f!r} is not ported yet")
     top = {f: _t(getattr(tree, f), device)
@@ -51,7 +64,9 @@ def state_from_numpy(tree, device="cuda") -> TierState:
         table=_sub(tree.table, ThrashTable, device),
         stats=_sub(tree.stats, TierStats, device),
         ring=_sub(tree.ring, MigrationRing, device),
-        t=int(np.asarray(tree.t)), **top)
+        t=int(np.asarray(tree.t)),
+        hotness=_hotness_from_numpy(getattr(tree, "hotness", None), device),
+        **top)
 
 
 def state_to_numpy(state: TierState) -> dict:

@@ -51,7 +51,9 @@ def make_tick(cfg: TieringConfig, owner: np.ndarray, mode: str = "equilibria",
               k_max: int = 256, impl: Optional[str] = None, device="cuda",
               detector=None, attrib=None, hotness=None):
     """Build the tick ``(state, (accesses [L], alive [L])) -> (state',
-    TickOutput)``. owner: [L] int (static tenant of each page, contiguous)."""
+    TickOutput)``. owner: [L] int (static tenant of each page, any
+    permutation). ``hotness``: a hotness-provider spec (core/hotness.py);
+    stateful providers pair with ``init_state(..., hotness=...)``."""
     dev = resolve_device(device)
     impl = resolve_impl(impl, dev)
     provider = static_ownership(cfg, owner, k_max=k_max, impl=impl,
@@ -76,7 +78,8 @@ def run_engine(cfg: TieringConfig, owner: np.ndarray, accesses: np.ndarray,
     dev = resolve_device(device)
     tick = make_tick(cfg, owner, mode, k_max, impl=impl, device=dev,
                      detector=detector, attrib=attrib, hotness=hotness)
-    state = init_state(cfg, owner.shape[0], owner=owner, device=dev)
+    state = init_state(cfg, owner.shape[0], owner=owner, device=dev,
+                       hotness=hotness)
     acc = torch.as_tensor(np.asarray(accesses, np.float32), device=dev)
     alv = torch.as_tensor(np.asarray(alive, bool), device=dev)
     outs = []

@@ -7,13 +7,13 @@ steady-state detector (§IV-F).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import TieringConfig
 from repro_torch.core.state import TenantPolicy, ThrashTable, TierState
-from repro_torch.numerics import fused_mul_add
+from repro_torch.numerics import f32, fused_mul_add
 
 
 def eq1_demotion_scan(fast_usage: torch.Tensor, n_lru: torch.Tensor,
@@ -74,6 +74,31 @@ def eq2_promotion_scan(p_base: torch.Tensor, fast_usage: torch.Tensor,
                          cfg.promo_floor, 1.0)
     p = torch.where(throttled, p_base * factor, p_base)
     return p, throttled
+
+
+def repartition_policy(base: TenantPolicy, active: torch.Tensor, capacity,
+                       weights: Optional[torch.Tensor] = None
+                       ) -> TenantPolicy:
+    """Recompute the effective per-slot policy on a membership change (the
+    dynamic-ownership tick, every tick).
+
+    Departed slots lose both knobs. When the *active* slots' protections
+    oversubscribe ``capacity`` (fast tier minus watermark), they are scaled
+    down to fit: proportionally by default, or biased by ``weights`` ([T]
+    f32 fair-share weights: heavier slots keep more of their configured
+    ask). Upper bounds pass through for active slots."""
+    prot = torch.where(active, base.lower_protection, 0).to(torch.float32)
+    w = (torch.ones_like(prot) if weights is None
+         else weights.to(torch.float32))
+    w = torch.where(active, w, 0.0)
+    ask = w * prot
+    total_ask = torch.clamp(ask.sum(), min=1.0)
+    cap = f32(capacity)
+    over = prot.sum() > cap
+    scaled = torch.floor(cap * ask / total_ask)
+    prot_eff = torch.where(over, torch.minimum(scaled, prot), prot)
+    bound_eff = torch.where(active, base.upper_bound, 0)
+    return TenantPolicy(prot_eff.to(torch.int32), bound_eff.to(torch.int32))
 
 
 # ------------------------------------------------------- thrash tracking ----

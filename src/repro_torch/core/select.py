@@ -1,20 +1,22 @@
 """Tenant-batched selection & reduction primitives (torch port of
-``repro/core/select.py``, contiguous layouts).
+``repro/core/select.py``).
 
 The tick repeatedly needs "take the `quota[t]` best pages of every tenant t"
 (demotion picks coldest-first, promotion hottest-first), "rank each
 tenant's new pages in index order" (allocation gating), and per-tenant sums.
-For a contiguous ownership layout (what ``core/workloads.build_trace``
-produces: tenant t owns pages [bounds[t], bounds[t+1])) selection is a
-gather into padded [T, S] rows plus one batched masked top-k, and per-tenant
-sums are row reductions.
+
+* **contiguous layout** (what ``core/workloads.build_trace`` produces:
+  tenant t owns pages [bounds[t], bounds[t+1])): selection is a gather into
+  padded [T, S] rows plus one batched masked top-k, and per-tenant sums are
+  row reductions.
+* **arbitrary owner vectors** (a permuted static owner, or ownership as
+  state under churn, with the free-pool sentinel ``T``): ranks come from
+  one lexicographic sort (``segment_ranks``/``select_top_quota``) and sums
+  from scatter-adds (``by_tenant_scatter``/``by_tenant_pooled``).
 
 Ties go (score desc, index asc), the ``jax.lax.top_k`` rule; ``torch.topk``
-makes no such promise, so top-k is a stable descending sort. For an
-arbitrary owner permutation, ``segment_ranks``/``select_top_quota`` rank
-with one lexicographic sort (the serving path's per-tenant sequence picks
-use them); the tick's static strategies still take contiguous owners only
-and raise ``NotImplementedError`` otherwise.
+makes no such promise, so top-k is a stable descending sort. JAX's
+``mode="drop"`` scatters become scatters into a scratch slot past the end.
 """
 from __future__ import annotations
 
@@ -159,7 +161,7 @@ def select_global(score: torch.Tensor, mask: torch.Tensor, quota,
 
 
 # ------------------------------------------------------- generic (sorted) ----
-def segment_ranks(seg: torch.Tensor, key: torch.Tensor,
+def segment_ranks(seg: torch.Tensor, key: Optional[torch.Tensor],
                   n_seg: int) -> torch.Tensor:
     """Within-segment rank of every element, ordered by (key asc, index asc).
 
@@ -168,11 +170,15 @@ def segment_ranks(seg: torch.Tensor, key: torch.Tensor,
     The reference sorts (seg, key) with ``lax.sort``, which orders -0.0 and
     +0.0 as equal and keeps index order on ties; two stable sorts (key,
     then segment) give the same order, and ``torch.sort`` also treats the
-    two zeros as equal."""
+    two zeros as equal. ``key=None`` is the reference's all-zero key:
+    index order, one stable sort."""
     L = seg.shape[0]
     seg = seg.to(torch.int64)
-    by_key = torch.sort(key, stable=True).indices
-    order = by_key[torch.sort(seg[by_key], stable=True).indices]
+    if key is None:
+        order = torch.sort(seg, stable=True).indices
+    else:
+        by_key = torch.sort(key, stable=True).indices
+        order = by_key[torch.sort(seg[by_key], stable=True).indices]
     counts = torch.zeros((n_seg + 1,), dtype=torch.int64,
                          device=seg.device).index_add_(
         0, seg, torch.ones_like(seg))
@@ -196,6 +202,58 @@ def select_top_quota(score: torch.Tensor, owner: torch.Tensor,
     q = torch.clamp(quotas.to(torch.int32), max=min(k_cap, L))
     q_ext = torch.cat([q, q.new_zeros(1)])
     return active & (ranks < q_ext[seg])
+
+
+def _scatter_sum(x: torch.Tensor, owner: torch.Tensor,
+                 n_bins: int) -> torch.Tensor:
+    """[n_bins] sums of ``x`` by ``owner``. Integers add exactly in any
+    order; floats accumulate in float64 and round once, so the atomics of a
+    card's ``index_add_`` leave them (nearly always) bitwise and always
+    within float32 rounding of the reference's in-order float32 sum. The
+    float sums feed only the perf model, never a decision."""
+    acc = torch.float64 if x.is_floating_point() else x.dtype
+    out = torch.zeros((n_bins,), dtype=acc, device=x.device).index_add_(
+        0, owner.to(torch.int64), x.to(acc))
+    return out.to(x.dtype)
+
+
+def by_tenant_scatter(x: torch.Tensor, owner: torch.Tensor,
+                      n_tenants: int) -> torch.Tensor:
+    """Per-tenant sum for arbitrary owner vectors (scatter-add)."""
+    return _scatter_sum(x, owner, n_tenants)
+
+
+def by_tenant_pooled(x: torch.Tensor, owner: torch.Tensor,
+                     n_tenants: int) -> torch.Tensor:
+    """Per-tenant sum tolerant of the free-pool sentinel ``owner ==
+    n_tenants``: sentinel lanes land in a scratch bucket."""
+    return _scatter_sum(x, owner, n_tenants + 1)[:n_tenants]
+
+
+def pool_grant(free_mask: torch.Tensor, need: torch.Tensor) -> torch.Tensor:
+    """Partition the free pool among tenants requesting pages (churn grant).
+
+    free_mask: [L] bool pages in the free pool; need: [T] int32 pages each
+    tenant wants granted this tick. Free pages are ranked in index order and
+    tenant t receives the rank interval ``[cumsum(need)[t-1],
+    cumsum(need)[t])``. When the pool is over-subscribed the intervals run
+    off its end: lower slot ids win, trailing tenants get partial or empty
+    grants. Returns [L] int32: the granted tenant per page, or ``T`` (the
+    FREE sentinel) where no grant happens."""
+    T = need.shape[0]
+    rank = masked_rank(free_mask)
+    cum = torch.cumsum(need.to(torch.int32), 0, dtype=torch.int32)
+    tenant = torch.searchsorted(cum, rank, right=True, out_int32=True)
+    granted = free_mask & (rank < cum[-1]) & (tenant < T)
+    return torch.where(granted, tenant, T)
+
+
+def allocation_ranks(new: torch.Tensor, owner: torch.Tensor,
+                     n_tenants: int) -> torch.Tensor:
+    """Index-order rank of each new page among its tenant's new pages,
+    arbitrary owner vector. Values outside ``new`` are unspecified."""
+    seg = torch.where(new, owner.to(torch.int64), n_tenants)
+    return segment_ranks(seg, None, n_tenants)
 
 
 # ------------------------------------------------------------------------
@@ -229,25 +287,27 @@ class Strategy(NamedTuple):
 STRATEGY_IMPLS = ("batched", "ref", "cuda")
 
 
-def _contiguous_layout(owner: np.ndarray, n_tenants: int,
-                       device) -> ContiguousLayout:
-    layout = plan_layout(owner, n_tenants, device)
-    if layout is None:
-        raise NotImplementedError(
-            "non-contiguous static owner vectors need the non-contiguous "
-            "branch of static_strategy (select_top_quota over segment_ranks "
-            "and its reductions), which the port does not have yet (ROADMAP "
-            "B1/A11); build owners with build_trace")
-    return layout
+def _kernel_ops(impl: str):
+    """(seg_topk, seg_reduce, seg_sums) for a kernel-backed strategy:
+    "cuda" calls the kernel wrappers (``kernels/select/ops.py``), "ref" the
+    kernels' plain torch versions on whatever device the tensors live."""
+    if impl == "cuda":
+        return KSEL.seg_topk, KSEL.seg_reduce, KSEL.seg_sums
+    if impl == "ref":
+        return (KSEL_REF.seg_topk_ref, KSEL_REF.seg_reduce_ref,
+                KSEL_REF.seg_sums_ref)
+    raise ValueError(f"kernel strategy impl must be 'cuda' or 'ref', "
+                     f"got {impl!r}")
 
 
 def static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
                     impl: str = "batched", device="cuda") -> Strategy:
-    """Strategy for a constant contiguous owner vector.
+    """Strategy for a constant owner vector.
 
     impl: "batched" is the plain mirror of the reference's jnp default
-    (padded-row batched top-k, row reductions); "cuda" and "ref" route the
-    selection core through the kernel-backed strategy
+    (padded-row batched top-k and row reductions for a contiguous layout;
+    one composite sort and scatter-adds for any other permutation); "cuda"
+    and "ref" route the selection core through the kernel-backed strategy
     (``kernel_static_strategy``) on the hand-written kernels or on their
     plain torch versions."""
     if impl not in STRATEGY_IMPLS:
@@ -255,51 +315,98 @@ def static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
     device = resolve_device(device)
     if impl != "batched":
         return kernel_static_strategy(owner, n_tenants, k_max, impl, device)
-    layout = _contiguous_layout(owner, n_tenants, device)
+    layout = plan_layout(owner, n_tenants, device)
+    if layout is not None:
+        def by_tenant(x, _owner):
+            return by_tenant_contiguous(x, layout)
+
+        def select(score, _owner, active, quotas):
+            return select_top_quota_rows(score, active, quotas, layout,
+                                         k_max)
+
+        def alloc_ranks(new, _owner):
+            return allocation_ranks_contiguous(new, layout)
+        return Strategy(by_tenant, select, alloc_ranks)
+
+    # arbitrary owner permutation: composite-sort ranks + scatter-adds
+    T = n_tenants
+    owner_t = torch.as_tensor(np.asarray(owner, np.int32), device=device)
 
     def by_tenant(x, _owner):
-        return by_tenant_contiguous(x, layout)
+        return by_tenant_scatter(x, owner_t, T)
 
     def select(score, _owner, active, quotas):
-        return select_top_quota_rows(score, active, quotas, layout, k_max)
+        return Selection(
+            select_top_quota(score, owner_t, active, quotas, T, k_max),
+            None, None, None)
 
     def alloc_ranks(new, _owner):
-        return allocation_ranks_contiguous(new, layout)
-
+        return allocation_ranks(new, owner_t, T)
     return Strategy(by_tenant, select, alloc_ranks)
+
+
+def static_rows(owner: np.ndarray, n_tenants: int) -> np.ndarray:
+    """[T, S] page-id rows (index order within tenant, -1 pads) for an
+    arbitrary constant owner permutation."""
+    owner = np.asarray(owner)
+    L = owner.shape[0]
+    counts = np.bincount(owner, minlength=n_tenants)[:n_tenants]
+    S = max(int(counts.max()) if counts.size else 0, 1)
+    rows = np.full((n_tenants, S), -1, np.int32)
+    order = np.argsort(owner, kind="stable")
+    seg = owner[order]
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    rows[seg, np.arange(L) - starts[seg]] = order
+    return rows
+
+
+def _rows_select(seg_topk, score, active, quotas, rows64, valid_rows,
+                 page_rows_pad, k: int, L: int, compact: bool) -> Selection:
+    """Shared body: gather scores into [T, S] rows, run the segmented
+    top-k, scatter winners back to an [L] mask. ``compact=False`` returns
+    the mask only, the shape of the composite-sort path's Selection, so the
+    [L]-lane accounting downstream (and the ring's event order) is the
+    same as there."""
+    elig = valid_rows & active[rows64]
+    cols, take, counts = seg_topk(score[rows64].contiguous(), elig,
+                                  quotas.to(torch.int32), k)
+    pages = torch.gather(page_rows_pad, 1, cols.to(torch.int64))
+    mask = _scatter_mask(torch.where(take, pages, L), L)
+    if not compact:
+        return Selection(mask, None, None, None)
+    return Selection(mask=mask, pages=pages, take=take, counts=counts)
 
 
 def kernel_static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
                            impl: str = "cuda", device="cuda") -> Strategy:
-    """Kernel-backed strategy for a constant contiguous owner vector (the
-    reference's ``pallas_static_strategy``): segmented top-k selection,
-    fused rank+count reduction, per-row integer sums and the
-    ``commit_moves`` page-move kernel over the compact [T, k] stream.
+    """Kernel-backed strategy for a constant owner vector (the reference's
+    ``pallas_static_strategy``).
 
-    impl="cuda" calls the kernel wrappers (``kernels/*/ops.py``);
-    impl="ref" calls the kernels' plain torch versions (``kernels/*/ref.py``)
-    on whatever device the tensors live. Float per-tenant sums stay on the
-    reference's cumsum association in both."""
-    if impl == "cuda":
-        seg_topk, seg_reduce, seg_sums = (KSEL.seg_topk, KSEL.seg_reduce,
-                                          KSEL.seg_sums)
-    elif impl == "ref":
-        seg_topk, seg_reduce, seg_sums = (KSEL_REF.seg_topk_ref,
-                                          KSEL_REF.seg_reduce_ref,
-                                          KSEL_REF.seg_sums_ref)
-    else:
-        raise ValueError(f"kernel strategy impl must be 'cuda' or 'ref', "
-                         f"got {impl!r}")
+    A contiguous layout gets segmented top-k selection, the fused rank+count
+    reduction, per-row integer sums and the ``commit_moves`` page-move
+    kernel over the compact [T, k] stream. Any other permutation runs the
+    same kernels over a precomputed [T, S] rowspace but returns mask-only
+    selections and no move, as the reference does. Float per-tenant sums
+    stay on the reference's association (cumsum, or scatter) in both."""
+    seg_topk, seg_reduce, seg_sums = _kernel_ops(impl)
     device = resolve_device(device)
     T = n_tenants
-    layout = _contiguous_layout(owner, T, device)
-    L = layout.n_pages
-    page_rows, valid_rows = layout.row_page, layout.row_valid
+    owner_np = np.asarray(owner)
+    L = owner_np.shape[0]
+    owner64 = torch.as_tensor(owner_np, dtype=torch.int64, device=device)
+    layout = plan_layout(owner_np, T, device)
+    contiguous = layout is not None
+    if contiguous:
+        page_rows, valid_rows = layout.row_page, layout.row_valid
+        col64 = torch.arange(L, dtype=torch.int64,
+                             device=device) - layout.page_start
+    else:
+        rows_np = static_rows(owner_np, T)
+        page_rows = torch.as_tensor(np.maximum(rows_np, 0), device=device)
+        valid_rows = torch.as_tensor(rows_np >= 0, device=device)
+        flat_rows = torch.where(valid_rows, page_rows, L).reshape(-1).to(
+            torch.int64)
     rows64 = page_rows.to(torch.int64)
-    owner64 = torch.as_tensor(np.asarray(owner), dtype=torch.int64,
-                              device=device)
-    col64 = torch.arange(L, dtype=torch.int64,
-                         device=device) - layout.page_start
     S = page_rows.shape[1]
     k = max(min(k_max, S), 1)
     page_rows_pad = torch.cat(
@@ -307,25 +414,30 @@ def kernel_static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
          torch.full((T, 1), L, dtype=torch.int32, device=device)], dim=1)
 
     def select(score, _owner, active, quotas):
-        elig = valid_rows & active[rows64]
-        cols, take, counts = seg_topk(score[rows64].contiguous(), elig,
-                                      quotas.to(torch.int32), k)
-        pages = torch.gather(page_rows_pad, 1, cols.to(torch.int64))
-        mask = _scatter_mask(torch.where(take, pages, L), L)
-        return Selection(mask=mask, pages=pages, take=take, counts=counts)
+        return _rows_select(seg_topk, score, active, quotas, rows64,
+                            valid_rows, page_rows_pad, k, L,
+                            compact=contiguous)
 
     def by_tenant(x, _owner):
         if x.is_floating_point():
-            # the reference's f32 association: keep the cumsum reduction
-            return by_tenant_contiguous(x, layout)
+            # the reference's f32 association: keep the jnp reduction order
+            return (by_tenant_contiguous(x, layout) if contiguous
+                    else by_tenant_scatter(x, owner64, T))
         return seg_sums(x.to(torch.int32)[rows64], valid_rows)
 
     def alloc_stats(new, _owner):
         sums, pre = seg_reduce(new.to(torch.int32)[rows64], valid_rows)
-        return pre[owner64, col64], sums
+        if contiguous:
+            return pre[owner64, col64], sums
+        ranks = torch.zeros((L + 1,), dtype=torch.int32, device=new.device)
+        ranks[flat_rows] = pre.reshape(-1)          # pads land on slot L
+        return ranks[:L], sums
 
     def alloc_ranks(new, _owner):
         return alloc_stats(new, _owner)[0]
+
+    if not contiguous:
+        return Strategy(by_tenant, select, alloc_ranks, alloc_stats)
 
     def move(tier, ring_data, head, sel: Selection, hotv, direction, to_tier,
              t):
@@ -342,3 +454,68 @@ def kernel_static_strategy(owner: np.ndarray, n_tenants: int, k_max: int,
             direction=direction, to_tier=to_tier)
 
     return Strategy(by_tenant, select, alloc_ranks, alloc_stats, move)
+
+
+def dynamic_strategy(n_tenants: int, k_max: int, impl: str = "batched",
+                     device="cuda") -> Strategy:
+    """Strategy for ownership-as-state: the owner vector is a run-time
+    tensor with the free-pool sentinel ``T``, so selection goes through the
+    composite sort and sums through the sentinel-tolerant scatters. "cuda"
+    and "ref" swap the selection step for the segmented top-k over a
+    rowspace built each call (``kernel_dynamic_strategy``)."""
+    if impl not in STRATEGY_IMPLS:
+        raise ValueError(f"impl {impl!r} not in {STRATEGY_IMPLS}")
+    device = resolve_device(device)
+    if impl != "batched":
+        return kernel_dynamic_strategy(n_tenants, k_max, impl, device)
+    T = n_tenants
+
+    def by_tenant(x, owner):
+        return by_tenant_pooled(x, owner, T)
+
+    def select(score, owner, active, quotas):
+        return Selection(
+            select_top_quota(score, owner, active, quotas, T, k_max),
+            None, None, None)
+
+    def alloc_ranks(new, owner):
+        return allocation_ranks(new, owner, T)
+
+    return Strategy(by_tenant, select, alloc_ranks)
+
+
+def kernel_dynamic_strategy(n_tenants: int, k_max: int, impl: str = "cuda",
+                            device="cuda") -> Strategy:
+    """Kernel-backed strategy for ownership-as-state (the reference's
+    ``pallas_dynamic_strategy`` at its default width). Each selection
+    rebuilds the [T, L] rowspace from the run-time owner vector (one
+    index-order segment sort, then a scatter into rows), and the segmented
+    top-k replaces the composite-key sort; reductions stay on the
+    sentinel-tolerant scatters, selections are mask-only."""
+    seg_topk = _kernel_ops(impl)[0]
+    resolve_device(device)
+    T = n_tenants
+
+    def by_tenant(x, owner):
+        return by_tenant_pooled(x, owner, T)
+
+    def select(score, owner, active, quotas):
+        L = score.shape[0]
+        seg = torch.where(owner < T, owner.to(torch.int64), T)
+        col = segment_ranks(seg, None, T).to(torch.int64)
+        rows = torch.full((T + 1, L), L, dtype=torch.int32,
+                          device=owner.device)    # row T: the free pool
+        rows[seg, col] = torch.arange(L, dtype=torch.int32,
+                                      device=owner.device)
+        page_rows = rows[:T]
+        page_rows_pad = torch.cat(
+            [page_rows, page_rows.new_full((T, 1), L)], dim=1)
+        return _rows_select(seg_topk, score, active, quotas,
+                            torch.clamp(page_rows, max=L - 1).to(torch.int64),
+                            page_rows < L, page_rows_pad, min(k_max, L), L,
+                            compact=False)
+
+    def alloc_ranks(new, owner):
+        return allocation_ranks(new, owner, T)
+
+    return Strategy(by_tenant, select, alloc_ranks)

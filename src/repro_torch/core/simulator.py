@@ -1,5 +1,6 @@
 """Trace-driven two-tier simulator: workloads -> engine -> summary metrics
-(torch port of ``repro/core/simulator.py``, static rosters).
+(torch port of ``repro/core/simulator.py``): static rosters through
+``simulate``, churned rosters through ``simulate_churn``.
 
 The perf model constants come from the paper (§V-A, Fig. 2: 252ns CXL vs
 ~100ns local, ~0.1 bandwidth ratio).
@@ -12,9 +13,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import TieringConfig
+from repro_torch.core.churn import churn_events, run_churn_engine
 from repro_torch.core.engine import run_engine
-from repro_torch.core.workloads import (TenantWorkload, build_trace,
-                                        stacked_heterogeneous, suggest_policy)
+from repro_torch.core.workloads import (ChurnSlot, TenantWorkload,
+                                        build_churn_schedule, build_trace,
+                                        churn_stacked, stacked_heterogeneous,
+                                        suggest_churn_policy, suggest_policy)
 from repro_torch.obs.pathology import Pathology, detect_all
 from repro_torch.obs.stats import stats_summary
 from repro_torch.obs.trace import decode_ring
@@ -150,6 +154,23 @@ def simulate(cfg: TieringConfig, tenants: List[TenantWorkload], ticks: int,
                         tenant_activity(owner, alive, cfg.n_tenants))
 
 
+def simulate_churn(cfg: TieringConfig, slots: List[ChurnSlot], ticks: int,
+                   mode: str = "equilibria", k_max: int = 256,
+                   n_pages: Optional[int] = None, hotness=None,
+                   impl: Optional[str] = None, device="cuda") -> SimResult:
+    """Run a dynamic-roster scenario through the churn engine
+    (core/churn.py): the slots' lifecycle episodes become arrival,
+    departure and resize events; ownership and the free pool are engine
+    state. ``SimResult.active`` carries the per-tick roster, ``pool_free``
+    the free-pool depth."""
+    schedule = build_churn_schedule(slots, ticks)
+    cfg = cfg.with_(n_tenants=len(slots))
+    final, outs = run_churn_engine(cfg, schedule, mode=mode, k_max=k_max,
+                                   n_pages=n_pages, hotness=hotness,
+                                   impl=impl, device=device)
+    return build_result(mode, cfg, final, outs, schedule.want > 0)
+
+
 def compare_modes(cfg: TieringConfig, tenants: List[TenantWorkload],
                   ticks: int, modes=("equilibria", "tpp"),
                   impl: Optional[str] = None,
@@ -173,21 +194,61 @@ def _stacked(n_tenants: int) -> Tuple[TieringConfig, List[TenantWorkload]]:
     return cfg, tenants
 
 
+def churn_roster_config(slots: List[ChurnSlot],
+                        fast_frac: float = 0.45) -> TieringConfig:
+    """A host config from a churn roster: fast tier sized to ``fast_frac``
+    of the summed slot capacity (rounded to 64 pages), per-slot policy from
+    workload shape — the engine re-partitions it on every membership
+    change."""
+    prot, bound = suggest_churn_policy(slots)
+    total = sum(s.capacity() for s in slots)
+    fast = max((int(total * fast_frac) // 64) * 64, 64)
+    return TieringConfig(n_tenants=len(slots), n_fast_pages=fast,
+                         n_slow_pages=total, lower_protection=prot,
+                         upper_bound=bound)
+
+
+def _churn_stacked(n_stable: int, n_poisson: int, n_serverless: int,
+                   ticks: int = 240
+                   ) -> Tuple[TieringConfig, List[ChurnSlot]]:
+    """Churned stacked host: a stable base plus Poisson and serverless slot
+    churn (>= 50 lifecycle events at the churn16 scale)."""
+    slots = churn_stacked(n_stable, n_poisson, n_serverless, ticks=ticks)
+    return churn_roster_config(slots), slots
+
+
 PRESETS: Dict[str, Callable[[], Tuple[TieringConfig, List[TenantWorkload]]]] = {
     "stacked16": lambda: _stacked(16),
     "stacked64": lambda: _stacked(64),
 }
+
+# presets generate lifecycle episodes out to a 960-tick horizon; running
+# shorter simply truncates the schedule (build_churn_schedule clips)
+CHURN_PRESETS: Dict[str, Callable[[], Tuple[TieringConfig, List[ChurnSlot]]]] = {
+    "churn16": lambda: _churn_stacked(6, 6, 4, ticks=960),
+}
+
+
+def preset_churn_events(name: str, ticks: int = 240) -> Tuple[int, int]:
+    """(arrivals, departures) a churn preset schedules over ``ticks``."""
+    _, slots = CHURN_PRESETS[name]()
+    return churn_events(build_churn_schedule(slots, ticks).want)
 
 
 def simulate_preset(name: str, ticks: int = 300, mode: str = "equilibria",
                     k_max: int = 128, hotness=None,
                     impl: Optional[str] = None, device="cuda",
                     **cfg_overrides) -> SimResult:
-    """Run a named static scenario preset (``PRESETS``). The churn presets
-    arrive with dynamic ownership."""
+    """Run a named scenario preset (``PRESETS`` or ``CHURN_PRESETS``)."""
+    if name in CHURN_PRESETS:
+        cfg, slots = CHURN_PRESETS[name]()
+        if cfg_overrides:
+            cfg = cfg.with_(**cfg_overrides)
+        return simulate_churn(cfg, slots, ticks, mode=mode, k_max=k_max,
+                              hotness=hotness, impl=impl, device=device)
     if name not in PRESETS:
-        raise NotImplementedError(
-            f"preset {name!r}: the port has {sorted(PRESETS)}")
+        raise ValueError(f"unknown preset {name!r}: expected one of "
+                         f"{sorted(PRESETS) + sorted(CHURN_PRESETS)}")
     cfg, tenants = PRESETS[name]()
     if cfg_overrides:
         cfg = cfg.with_(**cfg_overrides)

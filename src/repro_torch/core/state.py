@@ -67,10 +67,12 @@ class TierState(NamedTuple):
     stats: TierStats
     ring: MigrationRing
     t: int                           # host-side tick counter
-    # streaming detectors, attribution ledger and stateful hotness providers
-    # arrive in later slices; always None here
+    # streaming detectors and the attribution ledger arrive in a later
+    # slice; always None here
     det: Optional[Any] = None
     attrib: Optional[Any] = None
+    # hotness-provider state (core/hotness.py): None for the stateless
+    # providers (exact/sampled), a SketchState/NeomemState otherwise
     hotness: Optional[Any] = None
 
 
@@ -80,16 +82,23 @@ def zero_counters(n_tenants: int, device="cuda") -> Counters:
                                   device=device) for _ in range(7)))
 
 
-def init_state(cfg: TieringConfig, n_pages: int, owner, device="cuda"
-               ) -> TierState:
-    """``owner``: [n_pages] int tenant ids."""
+def init_state(cfg: TieringConfig, n_pages: int, owner=None, device="cuda",
+               hotness=None) -> TierState:
+    """``owner``: [n_pages] int tenant ids, or None for an all-free pool
+    (owner = T, the dynamic-ownership tick's starting point). ``hotness``: a
+    hotness-provider spec (core/hotness.py) whose state the TierState
+    carries; it must match the spec given to the tick builder."""
+    from repro_torch.core.hotness import init_hotness  # state <-> hotness
     device = resolve_device(device)
     T = cfg.n_tenants
+    owner_t = (torch.full((n_pages,), T, dtype=torch.int32, device=device)
+               if owner is None else
+               torch.as_tensor(np.asarray(owner, np.int32), device=device))
     return TierState(
         tier=torch.full((n_pages,), TIER_NONE, dtype=torch.int8, device=device),
         hot=torch.zeros((n_pages,), dtype=torch.float32, device=device),
         last_access=torch.zeros((n_pages,), dtype=torch.int32, device=device),
-        owner=torch.as_tensor(np.asarray(owner, np.int32), device=device),
+        owner=owner_t,
         counters=zero_counters(T, device),
         promo_scale=torch.ones((T,), dtype=torch.float32, device=device),
         thrash_prev=torch.zeros((T,), dtype=torch.int32, device=device),
@@ -105,6 +114,7 @@ def init_state(cfg: TieringConfig, n_pages: int, owner, device="cuda"
         stats=init_stats(T, (n_pages,), cfg.obs_resid_buckets, device),
         ring=init_ring(cfg.obs_ring_capacity, device),
         t=0,
+        hotness=init_hotness(hotness, cfg, n_pages, device),
     )
 
 

@@ -1,19 +1,24 @@
-"""The unified tick core (torch port of ``repro/core/tick.py``, static
-ownership).
+"""The unified tick core (torch port of ``repro/core/tick.py``).
 
 ONE regulated promotion/demotion pipeline (hotness -> Eq.1 demotion scan ->
 Eq.2 promotion scan -> upper-bound sync demotion -> thrash mitigation ->
-§IV-C telemetry), parameterized by an **ownership provider**. This slice
-ports the static provider: the owner vector is a constant, per-tick inputs
-are ``(accesses [L] f32, alive [L] bool)`` and the lifecycle step frees
-pages whose tenant trace died.
+§IV-C telemetry), parameterized by an **ownership provider**:
 
-The tick is a plain function on tensors; ``core/engine.py`` drives it with a
-Python loop. The tick counter ``state.t`` is a host int, so the periodic
-controller is a plain ``if``. The reference skips two blocks with a
-data-dependent ``lax.cond`` (the death-exit scatter and the allocation
-block); both are value no-ops on their false branch, so they run
-unconditionally here and the tick never waits on the device.
+  static ownership  — the owner vector is a constant; per-tick inputs are
+                      ``(accesses [L] f32, alive [L] bool)``; the lifecycle
+                      step frees pages whose tenant trace died.
+  dynamic ownership — the owner vector is state (FREE sentinel = T);
+                      per-tick inputs are ``(rates [T, S] f32, want [T]
+                      int32)``; the lifecycle step reclaims and grants
+                      pages, resets reused slots and re-partitions policy.
+
+The tick is a plain function on tensors; ``core/engine.py`` and
+``core/churn.py`` drive it with a Python loop. The tick counter ``state.t``
+is a host int, so the periodic controller is a plain ``if``. The reference
+skips some blocks with a data-dependent ``lax.cond`` (the lifecycle exit
+scatters and the allocation block); each is a value no-op on its false
+branch, so they run unconditionally here and the tick never waits on the
+device.
 """
 from __future__ import annotations
 
@@ -73,6 +78,7 @@ class Prepared(NamedTuple):
     thrash_prev: torch.Tensor
     usage_prev: torch.Tensor
     freed_since: torch.Tensor
+    hot_masked: bool = False     # ``hot`` is where(reclaimed, 0, state.hot)
 
 
 class OwnershipProvider(NamedTuple):
@@ -128,13 +134,127 @@ def static_ownership(cfg: TieringConfig, owner: np.ndarray, k_max: int,
             dtype=torch.int32))
 
 
+def dynamic_ownership(cfg: TieringConfig, n_pages: int, k_max: int,
+                      impl: str = "batched", device="cuda"
+                      ) -> OwnershipProvider:
+    """Tenant lifecycle as tick inputs: ``TierState.owner`` is mutated every
+    tick by a ``(rates [T, S], want [T])`` schedule — reclaim
+    (departure/shrink, coldest-first demote-and-free), rank-interval pool
+    grants, slot-reuse controller resets and per-tick policy re-partition.
+    A static trace is this provider's degenerate case (constant ``want``,
+    empty pool after the first grant)."""
+    device = resolve_device(device)
+    T = cfg.n_tenants
+    L = n_pages
+    FREE = T
+    n_fast = cfg.n_fast_pages
+    wmark = max(int(np.ceil(n_fast * cfg.watermark_free)), 1)
+    strategy = SEL.dynamic_strategy(T, k_max, impl=impl, device=device)
+    base_pol = make_policy(cfg, device)
+    weights = None
+    if cfg.tenant_weights:
+        w = np.ones(T, np.float32)
+        for i, v in enumerate(cfg.tenant_weights[:T]):
+            w[i] = v
+        weights = torch.as_tensor(w, device=device)
+    page_ids = torch.arange(L, dtype=torch.int32, device=device)
+
+    def prepare(state: TierState, inputs) -> Prepared:
+        rates, want = inputs
+        S = rates.shape[1]
+        t = state.t
+        owner = state.owner
+        tier = state.tier.to(torch.int32)
+        hot = state.hot
+        want = want.to(torch.int32)
+        active = want > 0
+
+        # ---- reclaim (departure & shrink), coldest-first ----------------
+        owned = owner < FREE
+        cnt = strategy.by_tenant(owned.to(torch.int32), owner)
+        delta = want - cnt
+        arrived = (cnt == 0) & (delta > 0)
+        release_q = torch.minimum(torch.clamp(-delta, min=0), cnt)
+        cold0 = HOT.cold_score(t, state.last_access, hot)
+        # k_cap = L: a departing tenant frees its whole footprint this tick
+        reclaimed = SEL.select_top_quota(cold0, owner, owned, release_q, T, L)
+        owner_c = torch.clamp(owner, max=T - 1)
+        # reclaimed fast pages end their residency (an empty mask is a
+        # value no-op, so this runs every tick)
+        stats = OS.record_fast_exits(state.stats,
+                                     reclaimed & (tier == TIER_FAST),
+                                     owner_c, t)
+        freed_t = strategy.by_tenant(reclaimed.to(torch.int32), owner)
+        owner = torch.where(reclaimed, FREE, owner)
+        tier = torch.where(reclaimed, TIER_NONE, tier)
+        hot = torch.where(reclaimed, 0.0, hot)
+        # a reclaimed page's thrash-table entry is stale: it would count a
+        # false thrash hit against the page's next owner
+        tp = state.table.page
+        stale = (tp >= 0) & reclaimed[torch.clamp(tp, min=0).to(torch.int64)]
+        table = ThrashTable(page=torch.where(stale, -1, tp),
+                            tick=torch.where(stale, 0, state.table.tick))
+
+        # ---- grant from the free pool -----------------------------------
+        grant_owner = SEL.pool_grant(owner == FREE, torch.clamp(delta, min=0))
+        owner = torch.where(grant_owner < FREE, grant_owner, owner)
+        owner_c = torch.clamp(owner, max=T - 1)
+        owned = owner < FREE
+
+        # ---- slot reuse: fresh arrivals get clean controller state ------
+        promo_scale0 = torch.where(arrived, 1.0, state.promo_scale)
+        steady0 = torch.where(arrived, False, state.steady)
+        mitigated0 = torch.where(arrived, False, state.mitigated_prev)
+        thrash_prev0 = torch.where(arrived, state.counters.thrash_events,
+                                   state.thrash_prev)
+        usage_prev0 = torch.where(arrived, 0, state.usage_prev)
+        freed_since0 = torch.where(arrived, 0, state.freed_since + freed_t)
+
+        # ---- per-page accesses from the tenant-local schedule -----------
+        seg = torch.where(owned, owner, T)
+        prank = SEL.segment_ranks(seg, None, T)
+        accesses = torch.where(
+            owned, rates[owner_c.to(torch.int64),
+                         torch.clamp(prank, max=S - 1).to(torch.int64)], 0.0)
+
+        # ---- policy re-partition on membership --------------------------
+        pol = P.repartition_policy(base_pol, active, n_fast - wmark, weights)
+
+        def rows() -> HOT.RowSpace:
+            # tenant rowspace from the live owner vector, built only when a
+            # hotness provider asks (pads and pages past S land in scratch)
+            col = torch.where(owned & (prank < S), prank, S)
+            page = torch.full((T + 1, S + 1), -1, dtype=torch.int32,
+                              device=owner.device)
+            page[seg.to(torch.int64), col.to(torch.int64)] = page_ids
+            page = page[:T, :S]
+            return HOT.RowSpace(page=page, valid=page >= 0)
+
+        return Prepared(
+            owner=owner, owner_c=owner_c, alive=owned, active=active,
+            accesses=accesses, tier=tier, hot=hot, table=table, stats=stats,
+            ring=state.ring, pol=pol, freed_t=freed_t, rows=rows,
+            promo_scale=promo_scale0, steady=steady0,
+            mitigated_prev=mitigated0, thrash_prev=thrash_prev0,
+            usage_prev=usage_prev0, freed_since=freed_since0,
+            hot_masked=True)
+
+    return OwnershipProvider(
+        n_pages=L, strategy=strategy, prepare=prepare,
+        pool_free=lambda owner_, tier_: (owner_ == FREE).sum(
+            dtype=torch.int32))
+
+
 def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
                    mode: str = "equilibria", k_max: int = 256,
                    detector=None, attrib=None, hotness=None):
     """Build the tick ``(state, inputs) -> (state', TickOutput)`` over an
     ownership provider. ``detector`` and ``attrib`` (streaming detectors,
-    attribution ledger) arrive in a later slice and must be None;
-    ``hotness`` must be None/"exact"."""
+    attribution ledger) arrive in a later slice and must be None.
+    ``hotness``: a provider name ("exact"/"sampled"/"sketch"/"neomem"), a
+    spec NamedTuple or a prebuilt ``HotnessProvider``; None is the exact
+    dense EWMA. Stateful providers pair with ``init_state(...,
+    hotness=spec)``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if detector is not None or attrib is not None:
@@ -246,7 +366,7 @@ def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
             hstate=state.hotness, prev_hot=prep.hot, accesses=accesses,
             alive=alive, new=new, tier=tier, last_access=last_access,
             owner=owner, owner_c=owner_c, t=t, rows=prep.rows,
-            strategy=strategy))
+            strategy=strategy, prev_masked=prep.hot_masked))
         hot = hview.hot
 
         # ---- 4. contention ------------------------------------------------

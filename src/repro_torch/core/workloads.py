@@ -1,5 +1,5 @@
 """Synthetic tenant workloads (numpy trace generators) — the port's own copy
-of the reference's static generators.
+of the reference's generators: the static traces and the churn rosters.
 
 Each generator produces deterministic access traces — the paper's §V-B
 microbenchmarks are deterministic sequential-pass workloads, and Meta's
@@ -12,7 +12,7 @@ production workloads are modeled by their published characteristics:
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -183,6 +183,152 @@ def stacked_heterogeneous(n_tenants: int = 16,
         arrival = 6 * (i % 5)
         out.append(make(footprint, arrival=arrival))
     return out
+
+
+# --------------------------------------------- churn (dynamic ownership) ----
+@dataclass
+class ChurnSlot:
+    """One tenant slot of a dynamic roster: a workload shape plus the
+    lifecycle episodes during which a tenant occupies the slot. Episodes are
+    half-open ``[arrival, departure)`` tick ranges, sorted and disjoint;
+    each episode is a fresh tenant (the churn engine resets per-slot
+    controller state on arrival)."""
+    workload: TenantWorkload
+    episodes: List[Tuple[int, int]] = field(default_factory=list)
+
+    def capacity(self) -> int:
+        return self.workload.footprint
+
+
+def as_churn_slots(tenants: List[TenantWorkload],
+                   ticks: int) -> List[ChurnSlot]:
+    """Express a static tenant mix as single-episode churn slots — the
+    degenerate schedule the unified tick core treats identically to a
+    prebuilt static trace (owner fixed after the first grant, free pool
+    empty)."""
+    return [ChurnSlot(w, [(w.arrival,
+                           ticks if w.departure is None else w.departure)])
+            for w in tenants]
+
+
+def build_churn_schedule(slots: List["ChurnSlot"], ticks: int):
+    """Compile a slot roster into the churn engine's per-tick schedule:
+    (want [ticks, T] int32 target footprints, rates [ticks, T, S] f32
+    tenant-local access rates) — see ``core.churn.ChurnSchedule``. The same
+    pattern generators as ``build_trace`` drive the rates, but over the
+    tenant-local address space (rank among the tenant's pages) instead of a
+    fixed physical range, because physical placement is dynamic."""
+    from repro_torch.core.churn import ChurnSchedule
+    T = len(slots)
+    S = max((s.workload.footprint for s in slots), default=1)
+    want = np.zeros((ticks, T), np.int32)
+    rates = np.zeros((ticks, T, S), np.float32)
+    for i, slot in enumerate(slots):
+        w = slot.workload
+        for a, d in slot.episodes:
+            for t in range(max(a, 0), min(d, ticks)):
+                age = t - a
+                f = min(_footprint_at(w, age), S)
+                want[t, i] = f
+                rates[t, i, :f] = _rates_at(w, age, f)[:f]
+    return ChurnSchedule(want=want, rates=rates)
+
+
+def _episodes(rng, ticks: int, mean_life: float, mean_gap: float,
+              min_life: int, first: int) -> List[Tuple[int, int]]:
+    eps = []
+    t = first
+    while t < ticks:
+        life = max(int(rng.exponential(mean_life)), min_life)
+        eps.append((t, t + life))
+        t = t + life + 1 + int(rng.exponential(mean_gap))
+    return eps
+
+
+def poisson_churn(n_slots: int = 8, ticks: int = 240,
+                  arrival_rate: float = 0.05, mean_life: float = 45.0,
+                  base_footprint: int = 48, seed: int = 0
+                  ) -> List[ChurnSlot]:
+    """Poisson arrivals with exponential lifetimes: the datacenter's rolling
+    container roster. Patterns cycle through the heterogeneous menu."""
+    rng = np.random.default_rng(seed)
+    kinds = (cache_like, web_like, ci_like, stream_like, spark_like)
+    slots = []
+    for i in range(n_slots):
+        w = kinds[i % len(kinds)](base_footprint + 8 * ((i * 3) % 5))
+        w.ramp = min(w.ramp, 6)            # churned tenants ramp fast
+        eps = _episodes(rng, ticks, mean_life, 1.0 / arrival_rate,
+                        min_life=8, first=int(rng.exponential(1.0 / arrival_rate)))
+        slots.append(ChurnSlot(w, eps))
+    return slots
+
+
+def serverless_bursts(n_slots: int = 4, ticks: int = 240,
+                      mean_life: float = 6.0, mean_gap: float = 8.0,
+                      footprint: int = 64, seed: int = 1) -> List[ChurnSlot]:
+    """Short-lived memory-hungry functions (the serverless-CXL churn regime,
+    arXiv:2309.01736): uniform-hot footprints that live a handful of ticks,
+    arrive again almost immediately, and never reach steady state."""
+    rng = np.random.default_rng(seed)
+    slots = []
+    for i in range(n_slots):
+        w = TenantWorkload(footprint=footprint, pattern="uniform",
+                           hot_rate=4.0, cold_rate=0.0, ramp=1)
+        eps = _episodes(rng, ticks, mean_life, mean_gap, min_life=2,
+                        first=int(rng.integers(0, 6)))
+        slots.append(ChurnSlot(w, eps))
+    return slots
+
+
+def diurnal_roster(n_slots: int = 8, ticks: int = 240, period: int = 80,
+                   min_active: int = 2, base_footprint: int = 48,
+                   seed: int = 2) -> List[ChurnSlot]:
+    """Diurnal roster swing: the number of resident tenants follows a
+    sinusoid between ``min_active`` and ``n_slots`` (stacking density peaks
+    once per ``period``); slot i is occupied while the roster exceeds i."""
+    rng = np.random.default_rng(seed)
+    tt = np.arange(ticks)
+    roster = min_active + np.round(
+        (n_slots - min_active) * 0.5 * (1 - np.cos(2 * np.pi * tt / period))
+    ).astype(int)
+    kinds = (cache_like, web_like, spark_like)
+    slots = []
+    for i in range(n_slots):
+        occ = roster > i
+        edges = np.flatnonzero(np.diff(np.concatenate([[0], occ.view(np.int8),
+                                                       [0]])))
+        eps = [(int(edges[j]), int(edges[j + 1]))
+               for j in range(0, len(edges), 2)]
+        w = kinds[int(rng.integers(len(kinds)))](base_footprint
+                                                 + 8 * (i % 3))
+        w.ramp = min(w.ramp, 6)
+        slots.append(ChurnSlot(w, eps))
+    return slots
+
+
+def churn_stacked(n_stable: int = 6, n_poisson: int = 6,
+                  n_serverless: int = 4, ticks: int = 240,
+                  seed: int = 0) -> List[ChurnSlot]:
+    """The ``churn16`` roster: a stable base of long-lived tenants, a
+    Poisson-churned middle, and a serverless burst tail — the stacked-host
+    mix the paper targets, with the lifecycle dynamics it cannot express
+    statically. Deterministic in its arguments."""
+    stable_kinds = (web_like, cache_like)
+    slots = [ChurnSlot(stable_kinds[i % 2](64 + 8 * (i % 3)),
+                       [(3 * i, ticks)])
+             for i in range(n_stable)]
+    slots += poisson_churn(n_poisson, ticks, base_footprint=48, seed=seed)
+    slots += serverless_bursts(n_serverless, ticks, footprint=56,
+                               seed=seed + 1)
+    return slots
+
+
+def suggest_churn_policy(slots: List[ChurnSlot]
+                         ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Per-slot (lower_protection, upper_bound) from the slot's workload
+    shape (same derivation as ``suggest_policy``); the churn engine's
+    in-graph re-partitioning takes care of membership changes."""
+    return suggest_policy([s.workload for s in slots])
 
 
 def suggest_policy(tenants: List[TenantWorkload]

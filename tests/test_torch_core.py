@@ -406,27 +406,6 @@ def test_select_global_and_masked_rank_match_reference(seed):
     eq(TSEL.masked_rank(T_(mask)), JSEL.masked_rank(jnp.asarray(mask)))
 
 
-def test_non_contiguous_owner_is_not_ported_yet():
-    owner = np.array([0, 1, 0, 1], np.int32)
-    with pytest.raises(NotImplementedError):
-        TSEL.static_strategy(owner, 2, 4, impl="batched", device="cpu")
-    with pytest.raises(NotImplementedError):
-        TSEL.static_strategy(owner, 2, 4, impl="ref", device="cpu")
-
-
-@pytest.mark.parametrize("impl", ["batched", "ref"])
-def test_non_contiguous_owner_error_names_what_is_missing(impl):
-    """The error names the missing non-contiguous branch of static_strategy,
-    not segment_ranks and select_top_quota, which the port has."""
-    assert callable(TSEL.segment_ranks) and callable(TSEL.select_top_quota)
-    owner = np.array([0, 1, 0, 1], np.int32)
-    with pytest.raises(NotImplementedError,
-                       match=r"non-contiguous branch of static_strategy .*"
-                             r"ROADMAP B1/A11") as e:
-        TSEL.static_strategy(owner, 2, 4, impl=impl, device="cpu")
-    assert "need segment_ranks" not in str(e.value)
-
-
 # ------------------------------------------------------ one tick at a time ----
 def _small():
     kw = dict(n_tenants=3, n_fast_pages=256, n_slow_pages=256,

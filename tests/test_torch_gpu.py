@@ -595,3 +595,92 @@ def test_ssd_scan_matches_plain_on_card(shape, bc_dtype, decay, cuda):
     torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=1e-4)
     torch.testing.assert_close(h, h_ref, atol=1e-5, rtol=1e-4)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------- dynamic ownership (churn) ----
+# K1 over the dynamic path's run-time rowspace: T rows of S = L lanes, past
+# the 24,576 lanes the kernel stages in shared memory; free-pool sentinels
+# (owner == T), integer scores (ties) and quotas around 0 and k
+DYNAMIC_ROWSPACES = ((4, 30000, 64), (9, 40000, 256), (3, 70001, 300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,L,k_max", DYNAMIC_ROWSPACES)
+def test_kernel_dynamic_strategy_matches_ref_on_card(T, L, k_max, cuda):
+    from repro_torch.core import select as SEL
+    rng = np.random.default_rng(L)
+    owner = torch.as_tensor(rng.integers(0, T + 1, L).astype(np.int32),
+                            device=cuda)
+    score = rng.standard_normal(L).astype(np.float32)
+    score[::3] = rng.integers(-5, 5, score[::3].shape)
+    score = torch.as_tensor(score, device=cuda)
+    active = torch.as_tensor(rng.random(L) < 0.7, device=cuda) & (owner < T)
+    quotas = torch.as_tensor(rng.integers(-1, k_max + 40, T).astype(np.int32),
+                             device=cuda)
+    quotas[0] = 0
+    a = SEL.kernel_dynamic_strategy(T, k_max, impl="cuda", device=cuda)
+    b = SEL.kernel_dynamic_strategy(T, k_max, impl="ref", device=cuda)
+    before = TSEL.seg_topk.launches
+    got = a.select(score, owner, active, quotas).mask
+    assert TSEL.seg_topk.launches == before + 1
+    want = b.select(score, owner, active, quotas).mask
+    assert torch.equal(got, want)
+    assert int(got.sum()) > 0
+    torch.cuda.synchronize()
+
+
+def _chip_smoke():
+    """``chip_smoke.py``'s copy of the golden fixtures' collect and diff
+    (this file imports nothing of the reference)."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["churn_small", "churn16_sketch"])
+def test_churn_golden_with_cuda_impl(name, cuda):
+    """The churn goldens through ``simulate_churn(impl="cuda")``: ints
+    exact, floats within atol 1e-4. K1 launches on churn_small's dynamic
+    path; under the sketch every selection runs over its buffers."""
+    import json
+    smoke = _chip_smoke()
+    before = TSEL.seg_topk.launches
+    r = smoke.churn_golden_run(name, impl="cuda", device=cuda)
+    assert (TSEL.seg_topk.launches > before) == (name == "churn_small")
+    want = json.loads((smoke.GOLDEN.parent / f"{name}.json").read_text())
+    got = smoke.collect(r)
+    assert sorted(want) == sorted(got)
+    for key in sorted(want):
+        smoke.diff(got[key], want[key], key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["equilibria", "tpp", "memtis", "static"])
+def test_non_contiguous_static_owner_cuda_equals_ref_on_card(mode, cuda):
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.core import workloads as W
+    from repro_torch.core.engine import run_engine
+    tenants = [W.microbenchmark(40), W.web_like(48, arrival=6),
+               W.ci_like(36, phase_len=12), W.stream_like(30)]
+    owner, acc, alive = W.build_trace(tenants, 40)
+    perm = np.random.default_rng(0).permutation(owner.shape[0])
+    cfg = TieringConfig(n_tenants=4, n_fast_pages=64, n_slow_pages=154,
+                        lower_protection=(16, 16, 0, 0),
+                        upper_bound=(0, 28, 0, 20))
+    runs = [run_engine(cfg, owner[perm], acc[:, perm], alive[:, perm],
+                       mode=mode, k_max=16, impl=impl, device=cuda)
+            for impl in ("cuda", "ref")]
+    (sa, oa), (sb, ob) = runs
+    for f in oa._fields:
+        x, y = getattr(oa, f), getattr(ob, f)
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-4)
+        else:
+            assert torch.equal(x, y), f
+    assert torch.equal(sa.tier, sb.tier) and torch.equal(sa.ring.data,
+                                                         sb.ring.data)

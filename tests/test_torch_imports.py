@@ -90,6 +90,22 @@ def test_engine_entry_points_without_device_raise(no_card):
         engine.run_engine(cfg, owner, acc, alive)
 
 
+def test_churn_entry_points_without_device_raise(no_card):
+    from repro_torch.core import churn
+    from repro_torch.core.workloads import ChurnSlot
+    cfg, tenants = _tiny()
+    sched = churn.ChurnSchedule(np.full((2, 1), 8, np.int32),
+                                np.ones((2, 1, 8), np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulator.simulate_churn(cfg, [ChurnSlot(tenants[0], [(0, 3)])], 3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulator.simulate_preset("churn16", ticks=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        churn.run_churn_engine(cfg, sched)
+    with pytest.raises(RuntimeError, match="cuda"):
+        churn.make_churn_tick(cfg, 48)
+
+
 def test_cuda_impl_on_cpu_raises():
     cfg, tenants = _tiny()
     with pytest.raises(ValueError, match="impl='cuda'"):
@@ -131,7 +147,8 @@ def _constructors(**dev):
     valid arguments and ``dev`` (empty: no ``device`` argument)."""
     from repro_torch import convert
     from repro_torch.configs import get_smoke_config
-    from repro_torch.core import hotness, select, state, tick
+    from repro_torch.core import (churn, cms, hotness, select, state, tick,
+                                  workloads)
     from repro_torch.launch import serve as launch_serve
     from repro_torch.memtier import kvcache
     from repro_torch.models import ssm
@@ -170,6 +187,24 @@ def _constructors(**dev):
         "static_rowspace": lambda: hotness.static_rowspace(owner, 2, **dev),
         "static_ownership": lambda: tick.static_ownership(cfg, owner, 4,
                                                           **dev),
+        "dynamic_strategy": lambda: select.dynamic_strategy(2, 4, **dev),
+        "kernel_dynamic_strategy": lambda: select.kernel_dynamic_strategy(
+            2, 4, impl="ref", **dev),
+        "dynamic_ownership": lambda: tick.dynamic_ownership(cfg, 24, 4,
+                                                            **dev),
+        "make_churn_tick": lambda: churn.make_churn_tick(cfg, 24, **dev),
+        "run_churn_engine": lambda: churn.run_churn_engine(
+            cfg, churn.ChurnSchedule(np.full((2, 2), 4, np.int32),
+                                     np.ones((2, 2, 4), np.float32)), **dev),
+        "simulate_churn": lambda: simulator.simulate_churn(
+            cfg, [workloads.ChurnSlot(workloads.microbenchmark(6), [(0, 3)]),
+                  workloads.ChurnSlot(workloads.web_like(8), [(1, 4)])],
+            4, **dev),
+        "init_state[free pool, sketch]": lambda: state.init_state(
+            cfg, 24, hotness="sketch", **dev),
+        "init_hotness": lambda: hotness.init_hotness("neomem", cfg, 24,
+                                                     **dev),
+        "cms_params": lambda: cms.cms_params(**dev),
         "state_from_numpy": lambda: convert.state_from_numpy(
             state.init_state(cfg, 8, owner, device="cpu"), **dev),
         "init_cache": lambda: kvcache.init_cache(mcfg, cfg, 2, 8, **dev),
