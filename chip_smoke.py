@@ -8,7 +8,9 @@ Builds the hand-written CUDA kernels from the sources in this checkout (one
 torch version on the card, drives the port's main paths — the static
 tiering tick through ``simulate`` / ``run_engine``; tiered paged-KV serving
 of Llama 3.2 1B and of Zamba2-7B through ``build_serve_step``; the prefill
-of both through ``make_prefill_step`` — and checks what comes out. Phases,
+of both through ``make_prefill_step``; the churn tick; the fleet through
+``run_fleet`` / ``run_mixed_fleet`` / ``fleet_rollout`` — and checks what
+comes out. Phases,
 one line each, each with its duration:
 
   1. device: nvidia-smi name and power limit, torch/CUDA versions, the build
@@ -80,6 +82,25 @@ one line each, each with its duration:
  22. K1 at the dynamic path's rowspace width (T=64, S=L=261,824) at a
      moving tick's own quotas: time, bound, launch floor, its plain
      version, ``torch.topk`` and ``torch.sort`` on the same rows
+
+ 23. the fleet (slice D), static: ``run_fleet`` over 4 hosts of C1's size
+     (T=64, L=262,144, ``heterogeneous_mixes``), 20 ticks, detect=True,
+     "cuda" vs "ref" (every state leaf and FleetResult array bitwise,
+     offline pathologies included), host-ticks/s of each, timed in turns;
+     K1-K4 must launch
+ 24. the mixed fleet: ``run_mixed_fleet`` over 8 hosts of H1's size (4
+     static rosters of 64 stable slots, 4 churned H1-style rosters),
+     40 ticks, "cuda" vs "ref" bitwise, conservation on every host at
+     every tick; host-ticks/s; one profiled fleet tick; K1 must launch
+ 25. ``fleet_rollout`` over phase 24's 8 archetypes with the streaming
+     detectors and the attribution ledger, chunk 16 over 40 ticks, warm:
+     "cuda" vs "ref" in every leaf, equal to phase 24 outside the seams,
+     the ledger conserving on every host; stall percentiles, host-ticks/s
+ 26. the seams' cost on an H1 tick (with and without detector + attrib,
+     alternating); the reference's ``fleet_obs --smoke`` property on the
+     port (noisy fleet flags tenant 0 on every host, clean fleet silent);
+     the rollout's Chrome trace and Prometheus exposition through the
+     validators; ``counterfactual_run`` on ``churn_small``, "cuda" vs "ref"
 
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -1164,15 +1185,17 @@ def churn_golden_run(name: str, impl: str, device="cuda"):
 
 
 # ---------------------------------------------------------- phase 20 ----
-def h1_roster(ticks: int):
+def h1_roster(ticks: int, seeds=(0, 1)):
     """H1's 64 slots: 24 stable (web/cache alternating, 3,840-4,352 pages,
     arriving over the first 8 ticks), 24 Poisson-churned and 16 serverless
-    slots of 2,048 pages, from the port's generators."""
+    slots of 2,048 pages, from the port's generators; the churned slots
+    are drawn from ``seeds`` (H1 itself is (0, 1))."""
     from repro_torch.core import workloads as W
     stable = [W.ChurnSlot((W.web_like, W.cache_like)[i % 2](
         3840 + 256 * (i % 3)), [(i % 8, ticks)]) for i in range(24)]
-    return (stable + W.poisson_churn(24, ticks, base_footprint=2048, seed=0)
-            + W.serverless_bursts(16, ticks, footprint=2048, seed=1))
+    return (stable
+            + W.poisson_churn(24, ticks, base_footprint=2048, seed=seeds[0])
+            + W.serverless_bursts(16, ticks, footprint=2048, seed=seeds[1]))
 
 
 def churn_lockstep(torch, cfg, sched, impls, ticks: int, hotness=None,
@@ -1413,6 +1436,361 @@ def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
           f"{k1_sort:.4f}, bound {max(t_bytes, t_ops):.5f} at 3.35 TB/s, "
           f"launch floor {floor_ms:.4f})")
     del calls, score, valid, quotas, masked, got, plain
+
+
+# ------------------------------------------------------ phases 23-26 ----
+FLEET_STATIC_HOSTS, FLEET_TICKS = 4, 20           # phase 23, C1's hosts
+MIXED_HOSTS, MIXED_TICKS = 8, 40                  # phases 24-25, H1's hosts
+ROLL_CHUNK = 16                                   # two chunks + remainder
+SEAM_TICKS = 12                                   # phase 26, each variant
+OBS_HOSTS, OBS_TICKS = 4, 120                     # fleet_obs --smoke
+
+
+def require_same_tree(torch, a, b, what: str, skip=()) -> None:
+    """Every leaf of two (host-stacked) states bitwise, floats included."""
+    la, lb = ({k: v for k, v in state_leaves(x).items()
+               if k.split(".")[0] not in skip} for x in (a, b))
+    require(sorted(la) == sorted(lb), f"{what}: leaf sets differ")
+    for k, x in la.items():
+        y = lb[k]
+        if torch.is_tensor(x):
+            require(x.dtype == y.dtype and torch.equal(x, y),
+                    f"{what}: {k} differs")
+        else:
+            require(x == y, f"{what}: {k} {x} != {y}")
+
+
+def require_same_fleet(np, a, b, what: str) -> None:
+    """Two FleetResults: every per-tick array, roster, offline pathology
+    and decoded stat bitwise."""
+    for f in ("fast_usage", "slow_usage", "promotions", "demotions",
+              "throughput", "latency", "thrash_events", "attempted",
+              "active"):
+        require(np.array_equal(getattr(a, f), getattr(b, f)),
+                f"{what}: FleetResult.{f} differs")
+    require([[(p.kind, p.tenant, p.severity) for p in ps]
+             for ps in a.pathologies] ==
+            [[(p.kind, p.tenant, p.severity) for p in ps]
+             for ps in b.pathologies], f"{what}: pathologies differ")
+    for sa, sb in zip(a.stats, b.stats):
+        for k, v in sa.items():
+            require(np.array_equal(np.asarray(v), np.asarray(sb[k])),
+                    f"{what}: stats {k} differ")
+
+
+def fleet_phases(torch, np, wrappers: dict) -> dict:
+    """Phases 23-26: the fleet (static, mixed, the chunked rollout with the
+    streaming detectors and the attribution ledger), the seams' cost, the
+    noisy-neighbour property, the exporters and the counterfactual
+    harness, all with impl="cuda" against impl="ref". Returns each fleet
+    path's kernel launches ({path: {kernel: count}})."""
+    from repro_torch.core import simulator as SIM
+    from repro_torch.core.churn import make_churn_tick
+    from repro_torch.core.state import host_slice, init_state
+    from repro_torch.core.workloads import build_churn_schedule
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.obs import attribution as AT
+    from repro_torch.obs import export as EX
+    from repro_torch.obs import fleet as FL
+    from repro_torch.obs import streaming as DS
+    from repro_torch.obs.counterfactual import counterfactual_run
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    launches = {}
+    # ---- 23. static fleet at C1's width ------------------------------------
+    cfg0 = bench_config(TieringConfig, T0, L0)
+    mixes = FL.heterogeneous_mixes((L0 // T0,) * T0, FLEET_STATIC_HOSTS,
+                                   seed=0)
+    runs, walls = {}, {"cuda": [], "ref": []}
+    for impl in ("cuda", "ref", "ref", "cuda"):       # timed in turns
+        reset_counts()
+        run, wall = timed(lambda: FL.run_fleet(
+            cfg0, mixes, FLEET_TICKS, k_max=K_MAX, detect=True, impl=impl,
+            device="cuda"))
+        runs.setdefault(impl, run)
+        walls[impl].append(wall)
+        if impl == "cuda":
+            launches["fleet_static"] = read_counts()
+    for k in ("seg_topk", "seg_reduce", "seg_sums", "commit_moves"):
+        require(launches["fleet_static"][k] > 0,
+                f"fleet static: {k} never launched")
+    a, b = runs["cuda"], runs["ref"]
+    require_same_tree(torch, a._final_state, b._final_state,
+                      "fleet static cuda vs ref")
+    require_same_fleet(np, a, b, "fleet static cuda vs ref")
+    moves = int(a.promotions.sum() + a.demotions.sum())
+    require(moves > 0, "fleet static: no migrations")
+    ht = FLEET_STATIC_HOSTS * FLEET_TICKS
+    phase("23-fleet-static", f"run_fleet {FLEET_STATIC_HOSTS} hosts x "
+          f"T={T0} L={L0} {FLEET_TICKS} ticks, detect=True: cuda == ref "
+          f"(every state leaf, every FleetResult array, offline "
+          f"pathologies {a.pathology_counts()}); {moves} moves; launches "
+          f"{launches['fleet_static']}; host-ticks/s (call wall, trace "
+          "build and detection included; cuda, ref, ref, cuda) " + ", ".join(
+              f"{i} " + " / ".join(f"{ht / w:.1f} ({w:.2f} s)" for w in ws)
+              for i, ws in walls.items()))
+    del runs, a, b
+
+    # ---- 24. mixed fleet at H1's width -------------------------------------
+    t0 = time.perf_counter()
+    churned = [h1_roster(MIXED_TICKS, (2 * h, 2 * h + 1))
+               for h in range(MIXED_HOSTS // 2)]
+    cfg1 = SIM.churn_roster_config(churned[0])
+    L1 = cfg1.n_fast_pages + cfg1.n_slow_pages
+    static = FL.heterogeneous_mixes((L1 // T0 - 1,) * T0, MIXED_HOSTS // 2,
+                                    seed=1)
+    hosts = FL.mixed_fleet_hosts(static, churned, MIXED_TICKS)
+    want, rates = FL.stack_schedules([build_churn_schedule(h, MIXED_TICKS)
+                                      for h in hosts])
+    build_s = time.perf_counter() - t0
+    # conservation on every host at every tick, read off each tick's output
+    seen = []
+    orig = FL.make_churn_tick
+
+    def recording_tick(*args, **kw):
+        tick = orig(*args, **kw)
+
+        def rec(state, inputs):
+            state2, out = tick(state, inputs)
+            seen.append(out.fast_usage.sum() + out.slow_usage.sum()
+                        + out.pool_free)
+            return state2, out
+        return rec
+
+    mixed, mwalls = {}, {}
+    FL.make_churn_tick = recording_tick
+    try:
+        for impl in ("cuda", "ref"):
+            seen.clear()
+            reset_counts()
+            mixed[impl], mwalls[impl] = timed(lambda: FL.run_mixed_fleet(
+                cfg1, hosts, MIXED_TICKS, k_max=K_MAX, detect=True,
+                n_pages=L1, impl=impl, device="cuda"))
+            if impl == "cuda":
+                launches["fleet_mixed"] = read_counts()
+            owned = torch.stack(seen)
+            require(owned.numel() == MIXED_HOSTS * MIXED_TICKS and
+                    bool((owned == L1).all()),
+                    f"fleet mixed {impl}: fast + slow + free != L")
+    finally:
+        FL.make_churn_tick = orig
+    require(launches["fleet_mixed"]["seg_topk"] > 0,
+            "fleet mixed: K1 never launched")
+    a, b = mixed["cuda"], mixed["ref"]
+    require_same_tree(torch, a._final_state, b._final_state,
+                      "fleet mixed cuda vs ref")
+    require_same_fleet(np, a, b, "fleet mixed cuda vs ref")
+    require(bool((a.fast_usage + a.slow_usage)[want == 0].sum() == 0),
+            "fleet mixed: a departed slot owns pages")
+    ht = MIXED_HOSTS * MIXED_TICKS
+    phase("24-fleet-mixed", f"run_mixed_fleet {MIXED_HOSTS} hosts "
+          f"({MIXED_HOSTS // 2} static x {T0} stable slots, "
+          f"{MIXED_HOSTS // 2} churned H1-style rosters) L={L1} "
+          f"{MIXED_TICKS} ticks: cuda == ref (every state leaf, every "
+          "FleetResult array), conservation on every host every tick; "
+          f"moves {int(a.promotions.sum() + a.demotions.sum())}, offline "
+          f"pathologies {a.pathology_counts()}; launches "
+          f"{launches['fleet_mixed']} "
+          f"({launches['fleet_mixed']['seg_topk'] / ht:g} K1 a host-tick); "
+          f"schedules built in {build_s:.1f} s; host-ticks/s (call wall, "
+          "transfers and detection included) " + ", ".join(
+              f"{i} {ht / w:.1f} ({w:.2f} s)" for i, w in mwalls.items()))
+    tick = make_churn_tick(cfg1, L1, k_max=K_MAX, impl="cuda", device="cuda")
+    states = [host_slice(a._final_state, h) for h in range(MIXED_HOSTS)]
+    w_d = torch.as_tensor(want[:, -1], device="cuda")
+    r_d = torch.as_tensor(rates[:, -1], device="cuda")
+
+    def fleet_tick():
+        for h, st in enumerate(states):
+            tick(st, (r_d[h], w_d[h]))
+
+    fleet_tick()
+    prof = profile_fn(torch, fleet_tick)
+    if prof is None:
+        phase("24-fleet-profile", "device time not measured: the profiler "
+                                  "saw no device event")
+    else:
+        n_dev, busy_ms, top, pwall = prof
+        phase("24-fleet-profile", f"one fleet tick ({MIXED_HOSTS} hosts, "
+              f"impl=cuda): {n_dev} device events, busy {busy_ms:.3f} ms of "
+              f"{pwall:.3f} ms wall (idle share {1 - busy_ms / pwall:.3f}); "
+              "top by device ms: " + "; ".join(
+                  f"{nm[:50]} {t:.3f} ms x{c}" for nm, t, c in top[:6]))
+    del states, tick, w_d, r_d
+
+    # ---- 25. the chunked rollout with both seams ---------------------------
+    rolls = {}
+    for impl in ("cuda", "ref"):
+        reset_counts()
+        rolls[impl] = FL.fleet_rollout(
+            cfg1, want, rates, MIXED_TICKS, k_max=K_MAX, chunk=ROLL_CHUNK,
+            n_pages=L1, warmup=True, impl=impl, device="cuda")
+        if impl == "cuda":
+            launches["fleet_rollout"] = read_counts()
+    require(launches["fleet_rollout"]["seg_topk"] > 0,
+            "rollout: K1 never launched")
+    ra, rb = rolls["cuda"], rolls["ref"]
+    require(ra.final_state.det is not None and
+            ra.final_state.attrib is not None, "rollout: seams missing")
+    require_same_tree(torch, ra.final_state, rb.final_state,
+                      "rollout cuda vs ref")
+    for f in ("latency_mean", "throughput_mean", "migrations_per_tick"):
+        require(np.array_equal(getattr(ra, f), getattr(rb, f)),
+                f"rollout cuda vs ref: {f} differs")
+    # the seams change no decision: outside det/attrib the rollout ends
+    # where phase 24's fleet did
+    require_same_tree(torch, ra.final_state, a._final_state,
+                      "rollout vs mixed fleet", skip=("det", "attrib"))
+    require(ra.attribution_conserved(), "rollout: ledger does not conserve")
+    led = ra.ledger.total
+    for f in ("attempted_promotions", "promotions", "reclaims"):
+        fin = getattr(ra.final_state.counters, f).cpu().numpy()
+        require(np.array_equal(getattr(led["counters"], f),
+                               fin.astype(np.int64)),
+                f"rollout ledger: {f} != the int32 counters")
+    c = led["counters"]
+    require(np.array_equal(led["att"]["total"],
+                           c.attempted_promotions - c.promotions
+                           + c.reclaims), "rollout: ledger totals")
+    pct = ra.stall_percentiles((0.5, 0.95, 0.99))
+    rup = ra.attribution_rollup()
+    phase("25-rollout", f"fleet_rollout {MIXED_HOSTS} archetypes x period "
+          f"{MIXED_TICKS}, chunk={ROLL_CHUNK} over {MIXED_TICKS} ticks, "
+          "warmup, detect + attrib: cuda == ref (every leaf, det and attrib "
+          "included; means bitwise), == phase 24 outside det/attrib; ledger "
+          f"conserves on every host; stall units {rup['stall_units_total']} "
+          f"by cause {rup['component_totals']}; stall p50/p95/p99 "
+          f"{pct[0]:g}/{pct[1]:g}/{pct[2]:g}; pathologies "
+          f"{ra.pathology_counts()}; launches {launches['fleet_rollout']}; "
+          "host_ticks_per_s " + ", ".join(
+              f"{i} {r.host_ticks_per_s:.1f} ({r.elapsed_s:.2f} s)"
+              for i, r in rolls.items()))
+    del mixed, a, b, rb
+
+    # ---- 26. the seams' cost, the noisy-neighbour property, exporters,
+    # counterfactuals ------------------------------------------------------
+    h1_w, h1_r = want[MIXED_HOSTS // 2], rates[MIXED_HOSTS // 2]  # H1
+    det = DS.make_detector(SEAM_TICKS * 2, T0, cfg1.lower_protection)
+    att = AT.make_attribution(T0, cfg1.lat_fast)
+    ticks_ = {"plain": make_churn_tick(cfg1, L1, k_max=K_MAX, impl="cuda",
+                                       device="cuda"),
+              "seams": make_churn_tick(cfg1, L1, k_max=K_MAX, detector=det,
+                                       attrib=att, impl="cuda",
+                                       device="cuda")}
+    sts = {"plain": init_state(cfg1, L1, device="cuda"),
+           "seams": init_state(cfg1, L1, device="cuda", detector=det,
+                               attrib=att)}
+    ms = {k: [] for k in ticks_}
+    for t in range(SEAM_TICKS * 2):
+        inp = (torch.as_tensor(h1_r[t], device="cuda"),
+               torch.as_tensor(h1_w[t], device="cuda"))
+        for k in (("plain", "seams") if t % 2 == 0 else ("seams", "plain")):
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            sts[k], _ = ticks_[k](sts[k], inp)
+            e1.record()
+            torch.cuda.synchronize()
+            if t >= 2:                      # the first ticks warm up
+                ms[k].append(e0.elapsed_time(e1))
+    require_same_tree(torch, sts["plain"], sts["seams"], "seams vs plain",
+                      skip=("det", "attrib"))
+    seam_ms = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    # the device side, which the host's load does not move: one more tick
+    # of each under the profiler
+    inp = (torch.as_tensor(h1_r[-1], device="cuda"),
+           torch.as_tensor(h1_w[-1], device="cuda"))
+    dev = {k: profile_fn(torch, lambda k=k: ticks_[k](sts[k], inp))
+           for k in ticks_}
+    del sts, ticks_
+    seen_dev = ("device " + "; ".join(
+        f"{k} {p[0]} events, busy {p[1]:.3f} ms" for k, p in dev.items())
+        if all(dev.values()) else "device time not measured")
+    phase("26-obs-seams", f"H1 cuda tick with and without detector + "
+          f"attrib, alternating, {len(ms['plain'])} ticks each (CUDA "
+          "events): " + "; ".join(f"{k} {ms_summary(v)}"
+                                  for k, v in ms.items())
+          + f"; seams add {seam_ms['seams'] - seam_ms['plain']:.3f} ms a "
+          f"tick (median difference); {seen_dev}; decisions unchanged")
+
+    # the reference's fleet_obs --smoke property
+    T = 4
+    foot = [160, 160] + [120] * (T - 2)
+    n_fast = max(int(sum(foot) * 1.15), 256)
+    cfg_o = TieringConfig(n_tenants=T, n_fast_pages=n_fast,
+                          n_slow_pages=n_fast, lower_protection=(96,) * T,
+                          upper_bound=(0,) * T, migration_cost=0.005)
+    o_mixes = FL.heterogeneous_mixes(foot, OBS_HOSTS, seed=0)
+    clean = FL.run_fleet(cfg_o, o_mixes, OBS_TICKS, device="cuda")
+    noisy = FL.run_fleet(
+        cfg_o.with_(upper_bound=(24,) + (0,) * (T - 1)),
+        FL.inject_noisy_neighbor(o_mixes, tenant=0, fast_share=24,
+                                 arrival=max(OBS_TICKS // 4, 10)),
+        OBS_TICKS, device="cuda")
+    require(not clean.tenants_flagged(),
+            f"clean fleet flagged {clean.tenants_flagged()}")
+    for kind in ("chronic_thrashing", "protection_violation"):
+        flagged = {h for h, t in noisy.tenants_flagged(kind) if t == 0}
+        require(len(flagged) == OBS_HOSTS,
+                f"noisy fleet: {kind} flagged tenant 0 on {len(flagged)} of "
+                f"{OBS_HOSTS} hosts")
+    # the exporters over the rollout's telemetry
+    events = {h: ra.host_migrations(h)[0] for h in range(ra.n_hosts)}
+    n_trace = EX.validate_chrome_trace(json.dumps(EX.chrome_trace(
+        events, t_resident=cfg1.t_resident, horizon=MIXED_TICKS)))
+    n_prom = EX.validate_exposition(EX.rollout_exposition(ra))
+    phase("26-obs-fleet", f"fleet_obs --smoke property ({OBS_HOSTS} hosts, "
+          f"{OBS_TICKS} ticks, T={T}, thrasher from tick "
+          f"{max(OBS_TICKS // 4, 10)}): noisy fleet flags tenant 0 on every "
+          f"host ({noisy.pathology_counts()}), clean fleet silent; the "
+          f"rollout's Chrome trace ({n_trace} events) and Prometheus "
+          f"exposition ({n_prom} samples) pass the validators")
+    del clean, noisy, ra, rolls
+
+    # counterfactuals on the churn_small golden roster
+    from repro_torch.core import workloads as W
+    slots = [W.ChurnSlot(W.web_like(40), [(0, 80)]),
+             W.ChurnSlot(W.microbenchmark(32, ramp=3), [(4, 30), (40, 70)]),
+             *W.serverless_bursts(2, 80, footprint=24, seed=3)]
+    cfg_c = TieringConfig(n_tenants=4, n_fast_pages=64, n_slow_pages=120,
+                          lower_protection=(16, 8, 0, 0),
+                          upper_bound=(0, 24, 0, 0))
+    sched_c = build_churn_schedule(slots, 80)
+    cf = {}
+    for impl in ("cuda", "ref"):
+        reset_counts()
+        cf[impl] = counterfactual_run(cfg_c, sched_c, k_max=32, impl=impl,
+                                      device="cuda")
+        if impl == "cuda":
+            launches["counterfactual"] = read_counts()
+    require(launches["counterfactual"]["seg_topk"] > 0,
+            "counterfactual: K1 never launched")
+    require_same_tree(torch, cf["cuda"].stacked_state,
+                      cf["ref"].stacked_state, "counterfactual stacked")
+    require_same_tree(torch, cf["cuda"].isolated_states,
+                      cf["ref"].isolated_states, "counterfactual isolated")
+    require(np.array_equal(cf["cuda"].interference, cf["ref"].interference),
+            "counterfactual: interference differs")
+    summ = cf["cuda"].summary()
+    phase("26-counterfactual", "counterfactual_run on churn_small (stacked "
+          "+ 4 isolated runs): cuda == ref (every leaf of every run); "
+          f"interference {np.round(summ['interference'], 4).tolist()}, "
+          f"launches {launches['counterfactual']}")
+    return launches
 
 
 # ---------------------------------------------------------- phase 18 ----
@@ -2303,6 +2681,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     churn_phases(torch, np, rows, floor_ms)
+    fleet_launches = fleet_phases(torch, np, wrappers)
+    # the fleet paths' launches of the tick kernels, beside each row's own
+    for row in rows:
+        k = row.get("kernel", row["name"])
+        row["fleet_launches"] = {p: c[k] for p, c in fleet_launches.items()
+                                 if k in c}
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

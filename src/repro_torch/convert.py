@@ -24,7 +24,9 @@ from repro_torch.device import resolve_device
 from repro_torch.memtier.kvcache import TieredKVCache
 from repro_torch.models.ssm import MambaCache
 from repro_torch.models.transformer import make_model
+from repro_torch.obs.attribution import AttributionState
 from repro_torch.obs.stats import TierStats
+from repro_torch.obs.streaming import DetectorState
 from repro_torch.obs.trace import MigrationRing
 
 
@@ -48,13 +50,14 @@ def _hotness_from_numpy(tree, device):
 
 
 def state_from_numpy(tree, device="cuda") -> TierState:
-    """The port's TierState from a reference TierState with numpy leaves.
-    The detector and attribution subtrees must be None; the hotness
-    provider's state (sketch, neomem) is carried over."""
+    """The port's TierState from a reference TierState with numpy leaves,
+    the detector, attribution and hotness-provider subtrees included."""
     device = resolve_device(device)
-    for f in ("det", "attrib"):
-        if getattr(tree, f, None) is not None:
-            raise NotImplementedError(f"state field {f!r} is not ported yet")
+
+    def optional(f, cls):
+        v = getattr(tree, f, None)
+        return None if v is None else _sub(v, cls, device)
+
     top = {f: _t(getattr(tree, f), device)
            for f in ("tier", "hot", "last_access", "owner", "promo_scale",
                      "thrash_prev", "usage_prev", "freed_since", "steady",
@@ -65,6 +68,8 @@ def state_from_numpy(tree, device="cuda") -> TierState:
         stats=_sub(tree.stats, TierStats, device),
         ring=_sub(tree.ring, MigrationRing, device),
         t=int(np.asarray(tree.t)),
+        det=optional("det", DetectorState),
+        attrib=optional("attrib", AttributionState),
         hotness=_hotness_from_numpy(getattr(tree, "hotness", None), device),
         **top)
 

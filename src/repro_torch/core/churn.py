@@ -91,7 +91,8 @@ def run_churn_engine(cfg: TieringConfig, schedule: ChurnSchedule,
     tick = make_churn_tick(cfg, L, mode=mode, k_max=k_max, detector=detector,
                            attrib=attrib, hotness=hotness, impl=impl,
                            device=dev)
-    state = init_state(cfg, L, owner=None, device=dev, hotness=hotness)
+    state = init_state(cfg, L, owner=None, device=dev, hotness=hotness,
+                       detector=detector, attrib=attrib)
     rates = torch.as_tensor(np.asarray(schedule.rates, np.float32),
                             device=dev)
     want = torch.as_tensor(np.asarray(schedule.want, np.int32), device=dev)

@@ -79,7 +79,7 @@ def run_engine(cfg: TieringConfig, owner: np.ndarray, accesses: np.ndarray,
     tick = make_tick(cfg, owner, mode, k_max, impl=impl, device=dev,
                      detector=detector, attrib=attrib, hotness=hotness)
     state = init_state(cfg, owner.shape[0], owner=owner, device=dev,
-                       hotness=hotness)
+                       hotness=hotness, detector=detector, attrib=attrib)
     acc = torch.as_tensor(np.asarray(accesses, np.float32), device=dev)
     alv = torch.as_tensor(np.asarray(alive, bool), device=dev)
     outs = []

@@ -67,8 +67,9 @@ class TierState(NamedTuple):
     stats: TierStats
     ring: MigrationRing
     t: int                           # host-side tick counter
-    # streaming detectors and the attribution ledger arrive in a later
-    # slice; always None here
+    # streaming pathology detectors (obs/streaming.py DetectorState) and
+    # the slowdown-attribution ledger (obs/attribution.py
+    # AttributionState); None unless the tick was built with them
     det: Optional[Any] = None
     attrib: Optional[Any] = None
     # hotness-provider state (core/hotness.py): None for the stateless
@@ -83,12 +84,17 @@ def zero_counters(n_tenants: int, device="cuda") -> Counters:
 
 
 def init_state(cfg: TieringConfig, n_pages: int, owner=None, device="cuda",
-               hotness=None) -> TierState:
+               hotness=None, detector=None, attrib=None) -> TierState:
     """``owner``: [n_pages] int tenant ids, or None for an all-free pool
     (owner = T, the dynamic-ownership tick's starting point). ``hotness``: a
     hotness-provider spec (core/hotness.py) whose state the TierState
-    carries; it must match the spec given to the tick builder."""
+    carries; ``detector``: a ``DetectorSpec`` to carry the streaming
+    pathology detectors; ``attrib``: an ``AttributionSpec`` to carry the
+    slowdown-attribution ledger. Each must match the spec given to the tick
+    builder."""
     from repro_torch.core.hotness import init_hotness  # state <-> hotness
+    from repro_torch.obs.attribution import init_attribution
+    from repro_torch.obs.streaming import init_detector
     device = resolve_device(device)
     T = cfg.n_tenants
     owner_t = (torch.full((n_pages,), T, dtype=torch.int32, device=device)
@@ -114,8 +120,41 @@ def init_state(cfg: TieringConfig, n_pages: int, owner=None, device="cuda",
         stats=init_stats(T, (n_pages,), cfg.obs_resid_buckets, device),
         ring=init_ring(cfg.obs_ring_capacity, device),
         t=0,
+        det=None if detector is None else init_detector(detector, device),
+        attrib=None if attrib is None else init_attribution(attrib, device),
         hotness=init_hotness(hotness, cfg, n_pages, device),
     )
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of a tree of NamedTuples (``None``
+    subtrees stay None; the host tick counter ``t`` and other non-tensor
+    leaves are taken from ``tree``)."""
+    if tree is None:
+        return None
+    if torch.is_tensor(tree):
+        return fn(tree, *rest)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, getattr(tree, f),
+                                     *(getattr(r, f) for r in rest))
+                             for f in tree._fields))
+    return tree
+
+
+def stack_hosts(states: list):
+    """A fleet's per-host states (one tick function advances each host in
+    turn) stacked along a leading host axis: every tensor leaf ``x`` becomes
+    ``[H, *x.shape]``. The reference batches hosts with ``vmap`` over
+    ``stack_states``; here the stack is only for results."""
+    ts = {getattr(s, "t", None) for s in states}
+    if len(ts) > 1:
+        raise ValueError(f"hosts are at different ticks: {sorted(ts)}")
+    return tree_map(lambda *xs: torch.stack(xs), states[0], *states[1:])
+
+
+def host_slice(tree, host: int):
+    """One host's subtree of a host-stacked tree (``stack_hosts``)."""
+    return tree_map(lambda x: x[host], tree)
 
 
 def make_policy(cfg: TieringConfig, device="cuda") -> TenantPolicy:

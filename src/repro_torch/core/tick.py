@@ -36,7 +36,9 @@ from repro_torch.core.state import (TIER_FAST, TIER_NONE, TIER_SLOW,
                                     TierState, make_policy)
 from repro_torch.device import resolve_device
 from repro_torch.numerics import f32
+from repro_torch.obs import attribution as AT
 from repro_torch.obs import stats as OS
+from repro_torch.obs import streaming as DS
 from repro_torch.obs import trace as OT
 
 MODES = ("equilibria", "tpp", "memtis", "static")
@@ -249,16 +251,15 @@ def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
                    mode: str = "equilibria", k_max: int = 256,
                    detector=None, attrib=None, hotness=None):
     """Build the tick ``(state, inputs) -> (state', TickOutput)`` over an
-    ownership provider. ``detector`` and ``attrib`` (streaming detectors,
-    attribution ledger) arrive in a later slice and must be None.
-    ``hotness``: a provider name ("exact"/"sampled"/"sketch"/"neomem"), a
-    spec NamedTuple or a prebuilt ``HotnessProvider``; None is the exact
-    dense EWMA. Stateful providers pair with ``init_state(...,
-    hotness=spec)``."""
+    ownership provider. ``detector``: a ``DetectorSpec`` (obs/streaming.py)
+    whose detectors step 9b folds each tick; ``attrib``: an
+    ``AttributionSpec`` (obs/attribution.py) whose ledger step 9c folds;
+    both pair with ``init_state(..., detector=, attrib=)``. ``hotness``: a
+    provider name ("exact"/"sampled"/"sketch"/"neomem"), a spec NamedTuple
+    or a prebuilt ``HotnessProvider``; None is the exact dense EWMA.
+    Stateful providers pair with ``init_state(..., hotness=spec)``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if detector is not None or attrib is not None:
-        raise NotImplementedError("detector/attrib seams are not ported yet")
     T = cfg.n_tenants
     L = provider.n_pages
     n_fast = cfg.n_fast_pages
@@ -430,6 +431,7 @@ def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
         pcand = hview.promo_cand(tier, demoted)
         cand_t = pcand.cand_t
         throttled = torch.zeros((T,), dtype=torch.bool, device=dev)
+        q_base = q_eq2 = q_mit = None   # attribution quota cascade (9c)
         if mode == "equilibria":
             p_base = torch.full((T,), float(cfg.p_base), dtype=torch.float32,
                                 device=dev)
@@ -438,12 +440,29 @@ def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
                     p_base, fast_usage, pol, contended, cfg)
             else:
                 p_scan = p_base
+            p_eq2 = p_scan                            # pre-mitigation scan
             p_scan = p_scan * prep.promo_scale        # thrash mitigation
             p_quota = torch.clamp(p_scan.to(torch.int32), max=k_max)
+            if attrib is not None:
+                # telescoping quota cascade: each stage capped as p_quota is
+                # below (min with cand and k_max), so successive differences
+                # are the deferral components
+                c0 = torch.clamp(cand_t, max=k_max)
+                q_base = torch.clamp(c0, max=int(cfg.p_base))
+                q_eq2 = torch.minimum(
+                    torch.clamp(p_eq2.to(torch.int32), max=k_max), c0)
+                q_mit = torch.minimum(p_quota, c0)
         elif mode in ("tpp", "memtis"):
             p_quota = torch.full((T,), cfg.p_base, **i32)  # unregulated
+            if attrib is not None:
+                # no throttle / mitigation stages: the whole cascade is the
+                # unregulated scan budget
+                q_base = q_eq2 = q_mit = torch.minimum(
+                    p_quota, torch.clamp(cand_t, max=k_max))
         else:
             p_quota = torch.zeros((T,), **i32)
+            if attrib is not None:   # no promotion path at all
+                q_base = q_eq2 = q_mit = p_quota
 
         # never overfill: cap total promotions by free fast capacity.
         # Promotions may transiently exceed a tenant's upper bound; the
@@ -525,8 +544,8 @@ def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
             thrash_prev=prep.thrash_prev, usage_prev=prep.usage_prev,
             freed_since=prep.freed_since, steady=prep.steady,
             mitigated_prev=prep.mitigated_prev,
-            table=table, stats=stats, ring=ring, t=t + 1,
-            hotness=hview.hstate)
+            table=table, stats=stats, ring=ring, t=t + 1, det=state.det,
+            attrib=state.attrib, hotness=hview.hstate)
 
         # ---- 8. periodic controller (§IV-F) ---------------------------------
         if (t + 1) % cfg.controller_period == 0:
@@ -552,6 +571,29 @@ def make_tick_core(cfg: TieringConfig, provider: OwnershipProvider,
         lat = (migrations.double() * f32(cfg.migration_cost)
                + base_lat.double()).to(torch.float32)
         thru = torch.where(a_tot > 0, a_tot / lat, 0.0)
+
+        # ---- 9b. streaming pathology detectors (obs/streaming.py) ----------
+        # fed the per-tick values the offline detectors read from the
+        # TickOutput traces
+        if detector is not None:
+            new_state = new_state._replace(det=DS.update_detector(
+                detector, state.det,
+                DS.DetectorSignals(
+                    active=prep.active, thrash_new=thrash_new,
+                    fast_usage=fast_usage, slow_usage=slow_usage,
+                    attempted=cand_t, promotions=promo_t, demotions=demo_t,
+                    latency=lat), t))
+
+        # ---- 9c. slowdown attribution ledger (obs/attribution.py) ----------
+        # cand_t / promo_t / freed_t are the values step 7 adds into
+        # attempted/promotions/reclaims, so the ledger conserves exactly
+        if attrib is not None:
+            new_state = new_state._replace(attrib=AT.update_attribution(
+                attrib, state.attrib,
+                AT.AttribSignals(
+                    cand=cand_t, promoted=promo_t, quota_base=q_base,
+                    quota_eq2=q_eq2, quota_mit=q_mit, freed=prep.freed_t,
+                    a_fast=a_fast, a_slow=a_slow, latency=lat)))
 
         out = TickOutput(
             fast_usage=fast_usage, slow_usage=slow_usage,

@@ -1,7 +1,9 @@
 """Device resolution shared by every public constructor and entry point of
-the port: the card is the default, and there is no silent CPU fallback."""
+the port: the card is the default, and there is no silent CPU fallback;
+and the copy of a result back to the host."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -14,3 +16,9 @@ def resolve_device(device) -> torch.device:
             "device='cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the port on the CPU")
     return dev
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor's values as a numpy array on the host; arrays and array-like
+    values pass through ``np.asarray``."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -54,6 +54,19 @@ def init_serve_state(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     return state
 
 
+def serve_exposition(state: Dict[str, object],
+                     prefix: str = "equilibria_kv") -> str:
+    """Prometheus text exposition of a serve state's KV tiering counters
+    (``obs.export.kv_exposition`` over ``kvcache.kv_tier_counters``).
+    Raises ValueError for attention-free states (pure-SSM serving carries
+    no paged KV cache to meter)."""
+    from repro_torch.obs.export import kv_exposition
+    if "kv" not in state:
+        raise ValueError("serve state has no tiered KV cache "
+                         "(attention-free family)")
+    return kv_exposition(state["kv"], prefix=prefix)
+
+
 def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                      seq: int, mode: str = "equilibria",
                      impl: Optional[str] = None, device="cuda"):

@@ -684,3 +684,68 @@ def test_non_contiguous_static_owner_cuda_equals_ref_on_card(mode, cuda):
             assert torch.equal(x, y), f
     assert torch.equal(sa.tier, sb.tier) and torch.equal(sa.ring.data,
                                                          sb.ring.data)
+
+
+# ------------------------------------------------ the fleet (slice D) ----
+def _two_host_fleet():
+    """A static host and a churned one (a thrasher under an upper bound
+    from tick 10) over a squeezed 64-page fast tier, 30 ticks."""
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.core import workloads as W
+    from repro_torch.obs import fleet as F
+    static = W.as_churn_slots([W.web_like(40), W.cache_like(40),
+                               W.spark_like(32), W.web_like(32)], 30)
+    churned = [W.ChurnSlot(W.web_like(40), [(0, 30)]),
+               W.ChurnSlot(W.cache_like(40), [(0, 30)]),
+               W.ChurnSlot(W.spark_like(32), [(4, 22)]),
+               W.ChurnSlot(W.thrasher(32, fast_share=10), [(10, 30)])]
+    cfg = TieringConfig(n_tenants=4, n_fast_pages=64, n_slow_pages=128,
+                        lower_protection=(4, 4, 4, 4),
+                        upper_bound=(24, 0, 0, 10), p_base=16)
+    want, rates = F.stack_schedules([W.build_churn_schedule(s, 30)
+                                     for s in (static, churned)])
+    return cfg, want, rates
+
+
+def _same_leaves(a, b):
+    smoke = _chip_smoke()
+    la, lb = smoke.state_leaves(a), smoke.state_leaves(b)
+    assert sorted(la) == sorted(lb)
+    for k, x in la.items():
+        if torch.is_tensor(x):
+            assert x.dtype == lb[k].dtype and torch.equal(x, lb[k]), k
+        else:
+            assert x == lb[k], k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [30, 7])
+def test_fleet_rollout_cuda_equals_ref_with_seams_on_card(chunk, cuda):
+    """``fleet_rollout`` with the streaming detectors and the attribution
+    ledger: impl="cuda" == impl="ref" in every state leaf (det and attrib
+    included) and in the ledger; chunk=7 == chunk=30 the same way. K1
+    launches."""
+    from repro_torch.obs import fleet as F
+    cfg, want, rates = _two_host_fleet()
+    before = TSEL.seg_topk.launches
+    rolls = {impl: F.fleet_rollout(cfg, want, rates, 30, k_max=16,
+                                   chunk=chunk, impl=impl, device=cuda)
+             for impl in ("cuda", "ref")}
+    assert TSEL.seg_topk.launches > before
+    a, b = rolls["cuda"], rolls["ref"]
+    assert a.final_state.det is not None and a.final_state.attrib is not None
+    _same_leaves(a.final_state, b.final_state)
+    for f in a.ledger.total["counters"]._fields:
+        assert np.array_equal(getattr(a.ledger.total["counters"], f),
+                              getattr(b.ledger.total["counters"], f)), f
+    assert np.array_equal(a.migrations_per_tick, b.migrations_per_tick)
+    assert a.attribution_conserved() and b.attribution_conserved()
+    assert int(a.attribution_totals().sum()) > 0
+    if chunk != 30:
+        whole = F.fleet_rollout(cfg, want, rates, 30, k_max=16, chunk=30,
+                                impl="cuda", device=cuda)
+        _same_leaves(a.final_state, whole.final_state)
+        np.testing.assert_array_equal(a.attribution_totals(),
+                                      whole.attribution_totals())
+        np.testing.assert_allclose(a.latency_mean, whole.latency_mean,
+                                   rtol=1e-6)

@@ -153,7 +153,8 @@ def _constructors(**dev):
     from repro_torch.memtier import kvcache
     from repro_torch.models import ssm
     from repro_torch.models.transformer import DenseLM, HybridLM, make_model
-    from repro_torch.obs import stats, trace
+    from repro_torch.obs import (attribution, counterfactual, dashboard,
+                                 fleet, sketch, stats, streaming, trace)
     from repro_torch.serve import decode
     from repro_torch.train.step import make_prefill_step
     cfg = TieringConfig(n_tenants=2, n_fast_pages=8, n_slow_pages=16,
@@ -175,7 +176,37 @@ def _constructors(**dev):
 
     cli = ["--smoke", "--batch", "2", "--steps", "4"] + (
         ["--device", dev["device"]] if dev else [])
+    det = streaming.make_detector(4, 2)
+    att = attribution.make_attribution(2)
+    slots = [workloads.ChurnSlot(workloads.microbenchmark(6), [(0, 3)]),
+             workloads.ChurnSlot(workloads.web_like(8), [(1, 4)])]
+    sched = workloads.build_churn_schedule(slots, 4)
+    signals = {f: np.ones((4, 2), bool if f == "active" else np.int32)
+               for f in streaming.DetectorSignals._fields}
     return {
+        "init_detector": lambda: streaming.init_detector(det, **dev),
+        "run_detector": lambda: streaming.run_detector(det, **signals,
+                                                       **dev),
+        "init_attribution": lambda: attribution.init_attribution(att,
+                                                                 **dev),
+        "init_sketch": lambda: sketch.init_sketch((2,), **dev),
+        "init_state[seams]": lambda: state.init_state(
+            cfg, 8, owner, detector=det, attrib=att, **dev),
+        "run_fleet": lambda: fleet.run_fleet(
+            cfg, [[workloads.microbenchmark(4), workloads.web_like(4)]] * 2,
+            3, k_max=4, **dev),
+        "run_mixed_fleet": lambda: fleet.run_mixed_fleet(
+            cfg, [slots, slots], 4, k_max=4, **dev),
+        "fleet_rollout": lambda: fleet.fleet_rollout(
+            cfg, sched.want[None], sched.rates[None], 4, k_max=4, chunk=3,
+            **dev),
+        "counterfactual_run": lambda: counterfactual.counterfactual_run(
+            cfg, sched, k_max=4, **dev),
+        "demo_fleet": lambda: dashboard.demo_fleet(hosts=1, ticks=4,
+                                                   chunk=2, **dev),
+        "dashboard.main": lambda: dashboard.main(
+            ["--hosts", "1", "--ticks", "4"]
+            + (["--device", dev["device"]] if dev else [])),
         "zero_counters": lambda: state.zero_counters(2, **dev),
         "init_state": lambda: state.init_state(cfg, 8, owner, **dev),
         "make_policy": lambda: state.make_policy(cfg, **dev),
