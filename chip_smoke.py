@@ -9,7 +9,8 @@ torch version on the card, drives the port's main paths — the static
 tiering tick through ``simulate`` / ``run_engine``; tiered paged-KV serving
 of Llama 3.2 1B and of Zamba2-7B through ``build_serve_step``; the prefill
 of both through ``make_prefill_step``; the churn tick; the fleet through
-``run_fleet`` / ``run_mixed_fleet`` / ``fleet_rollout`` — and checks what
+``run_fleet`` / ``run_mixed_fleet`` / ``fleet_rollout``; serving and the
+prefill of the moe, ssm and remaining dense configs — and checks what
 comes out. Phases,
 one line each, each with its duration:
 
@@ -102,6 +103,33 @@ one line each, each with its duration:
      the rollout's Chrome trace and Prometheus exposition through the
      validators; ``counterfactual_run`` on ``churn_small``, "cuda" vs "ref"
 
+ 27. moe serving: granite-moe-3b-a800m at full width and depth (32 layers,
+     40 experts, top-8, f32 weights), 4 tenants, 64 sequences x 256 steps
+     under ``full_load``, cuda vs ref step by step: integers as in phase
+     9, logits and hotness in the steps whose expert routing agrees in
+     every layer; tpp and static 32 steps each; one profiled step; K5's
+     first call of every step and every K6 call that moves a page held
+     against the plain versions on the path; one step held layer by layer,
+     each layer fed the ref run's input, beside the free-running
+     divergence and a one-ulp witness (``moe_layer_check``); K5 and K6
+     timed on the run's cache, K6 also held bitwise on its pools
+ 28. moe prefill: granite, then Mixtral 8x22B at full width and depth 8
+     of 56 in bf16 weights (window 4,096): cuda vs ref at B=2, S=4,096 in
+     bf16 and f32 (held where the routing agrees in every layer), a timed
+     prefill at B=1, S=32,768, layer 0's K7 held on the path (at
+     S=32,768 on the last query rows); Mixtral serving 16 x 64 as phase 27
+ 29. the dense configs h2o-danube-3-4b (window 4,096, head dim 120),
+     codeqwen1.5-7b and qwen3-32b (bf16 weights at full depth 64,
+     qk-norm): the prefill as in phase 28 (qwen3 compared at B=1) and
+     32 x 64 serving, cuda vs ref held as in phase 9
+ 30. mamba2-130m: the prefill through K8 (24 op calls), 64 x 256 serving
+     (cuda == ref bitwise; no kernel on the decode path) and decode ==
+     forward in f32 over 4 x 64 steps
+ 31. K5 at each new (H, K, D) over random pools of 4,000-6,000 tokens
+     (past a 4,096 window), bf16 and f32; K6 bitwise at each new page
+     size; K7 at each new head shape, causal and window 4,096, S = 4,096
+     and 32,768: time, plain, the faster SDPA form, bound
+
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is present or the
@@ -111,7 +139,9 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -707,6 +737,73 @@ def deciding_margin(torch, fused_mul_add, rec, tenant, tcfg) -> float:
     return float(g.min()) if g.numel() else float("inf")
 
 
+@contextlib.contextmanager
+def patched(mod, name: str, make):
+    """While active, ``mod.name`` is ``make(original)``; restored after."""
+    orig = getattr(mod, name)
+    setattr(mod, name, make(orig))
+    try:
+        yield orig
+    finally:
+        setattr(mod, name, orig)
+
+
+@contextlib.contextmanager
+def moe_inputs(LAYERS, calls: list):
+    """While active, every ``moe_block`` (prefill) and ``moe_block_decode``
+    call appends (params, input, capacity) to ``calls``; it launches
+    nothing, so a timed step stays as it was."""
+    def recording(capacity):
+        def make(orig):
+            def f(p, x, cfg):
+                calls.append((p, x, capacity))
+                return orig(p, x, cfg)
+            return f
+        return make
+
+    with patched(LAYERS, "moe_block", recording(True)), \
+            patched(LAYERS, "moe_block_decode", recording(False)):
+        yield
+
+
+def moe_routes(torch, LAYERS, cfg, calls) -> list:
+    """The routing of each recorded moe call, as the layer decides it from
+    its own input: each token's top-k experts (sorted; the prefill's
+    membership mask) and, in the prefill, each expert's kept tokens
+    (sorted); with each token's deciding margin, the gap between its k-th
+    and (k+1)-th router probabilities."""
+    out = []
+    for p, x, capacity in calls:
+        m = cfg.moe
+        k = m.top_k
+        probs = LAYERS._router(p, x)
+        vals, idx = LAYERS.top_k(probs, k + 1)
+        margin = (vals[..., k - 1] - vals[..., k]).reshape(-1)
+        if not capacity:
+            out.append(([idx[..., :k].reshape(-1, k).sort(-1).values],
+                        margin))
+            continue
+        member = probs >= vals[..., k - 1:k]
+        s = x.shape[1]
+        c = min(max(math.ceil(s * k / m.num_experts * m.capacity_factor), 4),
+                s)
+        kept = LAYERS.top_k(torch.where(member, probs, 0.0).transpose(1, 2),
+                            c)[1].sort(-1).values
+        out.append(([member, kept], margin))
+    return out
+
+
+def route_diff(torch, a: list, b: list) -> list:
+    """Per moe layer, the routing decisions that differ between two runs'
+    ``moe_routes``: tokens whose experts differ, plus (prefill) experts
+    whose kept tokens differ."""
+    if not a:
+        return []
+    n = [sum((x != y).any(-1).sum() for x, y in zip(ra, rb))
+         for (ra, _), (rb, _) in zip(a, b)]
+    return torch.stack(n).tolist()
+
+
 def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
                   snapshot_at=None):
     """Decode ``steps`` teacher-forced tokens with impl "cuda", and from a
@@ -714,9 +811,11 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
     Integer KV metadata must be bitwise equal, unless the step's deciding
     margin is within ``tol["hot_atol"]`` (an excused near-tie flip); logits
     within ``tol["logit_rtol"]`` of max |logit|, hotness within
-    ``tol["hot_atol"]``; the hybrid's Mamba2 state is reported relative to
-    its max |value| (``mamba_rel``). Returns the run's numbers, the final
-    cuda state and the cuda logits per step."""
+    ``tol["hot_atol"]``, except in a moe model's steps whose expert routing
+    differs between the two runs (``route_flips``: step, first layer,
+    decisions); the hybrid's Mamba2 state is reported relative to its max
+    |value| (``mamba_rel``). Returns the run's numbers, the final cuda
+    state and the cuda logits per step."""
     SD, fused_mul_add = ctx["SD"], ctx["fused_mul_add"]
     cfg, tcfg, model, toks = ctx["cfg"], ctx["tcfg"], ctx["model"], \
         ctx["toks"]
@@ -726,21 +825,38 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
     state = SD.init_serve_state(cfg, tcfg, B, seq)
     rec = ctx["rec"]
     out = {"logit_rel": [], "hot_err": [], "float_err": 0.0, "flips": [],
-           "snapshot": None, "logits": []}
+           "route_flips": [], "snapshot": None, "logits": []}
     e0 = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
     e1 = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
-    with torch.no_grad():
+    calls: list = []
+    moe = cfg.family == "moe"
+    with torch.no_grad(), (moe_inputs(ctx["LAYERS"], calls) if moe
+                           else contextlib.nullcontext()):
         for i in range(steps):
             if snapshot_at == i:
                 out["snapshot"] = clone_state(torch, state)
+            ref_state = None          # one copy of the pools at a time
             ref_state = clone_state(torch, state)
             tok = toks[:, i:i + 1]
+            calls.clear()
             e0[i].record()
             lc, state = step_c(model, state, tok)
             e1[i].record()
+            calls_c = list(calls)
+            calls.clear()
             lr, ref_state = step_r(model, ref_state, tok)
             require(bool(torch.isfinite(lc).all()), f"{mode} step {i}: "
                     "non-finite logits")
+            routed = False
+            if moe:
+                diff = route_diff(torch, moe_routes(torch, ctx["LAYERS"], cfg,
+                                                    calls_c),
+                                  moe_routes(torch, ctx["LAYERS"], cfg,
+                                             calls))
+                first = next((n for n, d in enumerate(diff) if d), None)
+                if first is not None:
+                    routed = True
+                    out["route_flips"].append((i, first, sum(diff)))
             out["logits"].append(lc[:, 0])
             out["slow_hot_max"] = max(out.get("slow_hot_max", 0.0), float(
                 state["kv"].slow_hot.max()))
@@ -769,9 +885,9 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
                     else 0.0
                 if k in ("fast_hot", "slow_hot", "ring.hot"):
                     hot = max(hot, d)
-                else:
+                elif not routed:
                     out["float_err"] = max(out["float_err"], d)
-            out["hot_err"].append(hot)
+            out["hot_err"].append((i, hot))
     torch.cuda.synchronize()
     out["ms"] = [a.elapsed_time(b) for a, b in zip(e0, e1)]
     out["state"] = state
@@ -779,16 +895,30 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
 
 
 def check_compare(np, run, tol: dict, what: str) -> None:
-    """Print a ``serve_compare`` run's agreement (max and p99 over steps),
-    then raise unless it is within ``tol``."""
-    lr = np.asarray(run["logit_rel"])
-    he = np.asarray(run["hot_err"] or [0.0])
+    """Print a ``serve_compare`` run's agreement (max and p99 over steps)
+    and raise unless it is within ``tol``: the integers in every step (a
+    flip excused only within its deciding margin), logits and hotness in
+    every step whose expert routing agrees (all steps but a moe model's)."""
+    routed = {i for i, _, _ in run["route_flips"]}
+    lr_all = np.asarray(run["logit_rel"])
+    lr = np.asarray([v for i, v in enumerate(run["logit_rel"])
+                     if i not in routed] or [0.0])
+    he_all = np.asarray([h for _, h in run["hot_err"]] or [0.0])
+    he = np.asarray([h for i, h in run["hot_err"] if i not in routed]
+                    or [0.0])
     flips = [(i, float(f"{m:.3g}")) for i, m, _ in run["flips"]]
     worst = max((m for _, m in flips), default=0.0)
-    phase(what, f"cuda vs ref: ints bitwise in {len(lr) - len(flips)} of "
-          f"{len(lr)} steps, {len(flips)} near-tie flips excused (largest "
-          f"deciding margin {worst:.3g}; first {flips[:5]}); logits rel err "
-          f"max {lr.max():.3g} p99 "
+    msg = (f"cuda vs ref: ints bitwise in {len(lr_all) - len(flips)} of "
+           f"{len(lr_all)} steps, {len(flips)} near-tie flips excused "
+           f"(largest deciding margin {worst:.3g}; first {flips[:5]})")
+    if run["route_flips"]:
+        msg += (f"; expert routing differs in {len(routed)} steps (step, "
+                f"first layer, decisions: {run['route_flips'][:4]}): over "
+                f"all steps logits rel err max {lr_all.max():.3g} median "
+                f"{np.median(lr_all):.3g}, hotness err max "
+                f"{he_all.max():.3g}; held in the other "
+                f"{len(lr_all) - len(routed)}")
+    phase(what, msg + f"; logits rel err max {lr.max():.3g} p99 "
           f"{np.quantile(lr, 0.99):.3g} median {np.median(lr):.3g} <= "
           f"{tol['logit_rtol']}; hotness err max {he.max():.3g} p99 "
           f"{np.quantile(he, 0.99):.3g} median {np.median(he):.3g} <= "
@@ -917,11 +1047,12 @@ def k5_numbers(torch, F, TA, TA_REF, kv, pt: int, H: int) -> dict:
 def k6_numbers(torch, np, KMIG, RMIG, kv, seed: int, n_sel: int = 16
                ) -> dict:
     """K6 on a serving path's cache (all its layers), moving the pages of
-    ``n_sel`` sequences from the fast to the slow pools: one pool (the
-    single-pool op) with its plain and library (``index_copy_`` of the
-    gathered pages) times, and K+V in one launch (what the tiering step
-    calls). Bound: each page read once and written once, plus the
-    indices."""
+    ``n_sel`` sequences from the fast to the slow pools: first held bitwise
+    against the plain version on copies of the run's own destination pools
+    (one pool, then K+V), then one pool (the single-pool op) with its plain
+    and library (``index_copy_`` of the gathered pages) times, and K+V in
+    one launch (what the tiering step calls). Bound: each page read once
+    and written once, plus the indices."""
     L, B, Mf = kv.fast_k.shape[:3]
     Ms = kv.slow_k.shape[2]
     rng = np.random.default_rng(seed)
@@ -930,6 +1061,19 @@ def k6_numbers(torch, np, KMIG, RMIG, kv, seed: int, n_sel: int = 16
     # int64 indices and a bool mask, as the tiering step passes them
     si = torch.as_tensor(rng.integers(0, Mf, B), device="cuda")
     di = torch.as_tensor(rng.integers(0, Ms, B), device="cuda")
+    # the kernel writes the run's own pools (spent: only timed from here),
+    # the plain version copies of them
+    want = RMIG.migrate_pages_ref(kv.fast_k, kv.slow_k.clone(), si, di, sel)
+    require(torch.equal(KMIG.migrate_pages(kv.fast_k, kv.slow_k, si, di,
+                                           sel), want),
+            f"K6 on the run's pools {_shape(kv.slow_k)}: kernel != plain")
+    want = RMIG.migrate_pages_kv_ref(kv.fast_k, kv.slow_k.clone(), kv.fast_v,
+                                     kv.slow_v.clone(), si, di, sel)
+    got = KMIG.migrate_pages_kv(kv.fast_k, kv.slow_k, kv.fast_v, kv.slow_v,
+                                si, di, sel)
+    require(all(torch.equal(g, w) for g, w in zip(got, want)),
+            f"K6 K+V on the run's pools {_shape(kv.slow_k)}: kernel != plain")
+    del want, got
     page_elems = kv.fast_k[0, 0, 0].numel()
     sel_b = sel.nonzero()[:, 0]
     lay = torch.arange(L, device="cuda")[:, None]
@@ -1065,17 +1209,21 @@ def _shape(t) -> str:
 
 
 def k7_vs_plain(torch, FA_REF, out, q, k, v, *, causal=True, window=None,
-                impl="cuda", tail=None) -> list:
+                impl="cuda", tail=None, scaled=False) -> list:
     """K7's output on the path vs the plain version on the same views; with
     ``tail``, only the last ``tail`` query rows (right-aligned, they see the
-    same keys)."""
+    same keys). The bound is ``K7_TOL`` elementwise (atol and rtol), or with
+    ``scaled`` ``K7_TOL`` of the output's max |value| (phases 28-30)."""
     if tail is not None and tail < q.shape[2]:
         q, out = q[:, :, -tail:], out[:, :, -tail:]
     want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = K7_TOL[str(q.dtype)[6:]]
+    atol, rtol = (tol * float(want.abs().max()), 0.0) if scaled else (tol,
+                                                                      tol)
     return [reading(torch, f"K7 q {_shape(q)} k {_shape(k)} causal={causal}"
                            f" window={window} max |v| "
-                           f"{float(v.abs().max()):.3g}", out, want, tol, tol)]
+                           f"{float(v.abs().max()):.3g}", out, want, atol,
+                    rtol)]
 
 
 def k8_vs_plain(torch, SSD_REF, out, x, a, b, c, *, chunk, impl="cuda"
@@ -1088,23 +1236,26 @@ def k8_vs_plain(torch, SSD_REF, out, x, a, b, c, *, chunk, impl="cuda"
 
 
 @contextlib.contextmanager
-def on_path(mod, name: str, compare, found: list, label: str):
+def on_path(mod, name: str, compare, found: list, label: str,
+            every: int = 0):
     """While active, the first ``impl="cuda"`` call of ``mod.name`` on a card
-    tensor is held against its plain version by ``compare(out, *args,
-    **kwargs)``; its readings go to ``found``, tagged ``label``. The path's
-    own output stands for the kernel's, so the check launches nothing. The
-    op counts its launches on the module's global of its name, the hook
-    while it is active; the count is carried over both ways."""
+    tensor (with ``every``, also each ``every``-th such call after it) is
+    held against its plain version by ``compare(out, *args, **kwargs)``;
+    its readings go to ``found``, tagged ``label``. The path's own output
+    stands for the kernel's, so the check launches nothing. The op counts
+    its launches on the module's global of its name, the hook while it is
+    active; the count is carried over both ways."""
     orig = getattr(mod, name)
-    done = []
+    calls = [0]
 
     def hooked(*args, **kwargs):
         out = orig(*args, **kwargs)
-        if not done and kwargs.get("impl", "cuda") == "cuda" \
-                and args[0].is_cuda:
-            done.append(True)
-            found.extend(dict(r, label=label) for r in compare(out, *args,
-                                                               **kwargs))
+        if kwargs.get("impl", "cuda") == "cuda" and args[0].is_cuda:
+            n = calls[0]
+            calls[0] += 1
+            if n == 0 or (every and n % every == 0):
+                found.extend(dict(r, label=label)
+                             for r in compare(out, *args, **kwargs))
         return out
 
     hooked.launches = orig.launches
@@ -1116,20 +1267,55 @@ def on_path(mod, name: str, compare, found: list, label: str):
         orig.launches = hooked.launches
 
 
-def prefill_agree(torch, make_prefill_step, model, toks, tol: float) -> float:
+@contextlib.contextmanager
+def k6_on_path(torch, KMIG, RMIG, held: list, label: str):
+    """While active, every card call of ``migrate_pages_kv`` (the tiering
+    step's page moves) that moves a page is held bitwise against the plain
+    version on the path's own tensors: the plain copy runs first on copies
+    of the destination pools. Appends the pages moved by each held call to
+    ``held``."""
+    def make(orig):
+        def hooked(src_k, dst_k, src_v, dst_v, si, di, sel):
+            if not (dst_k.is_cuda and bool(sel.any())):
+                return orig(src_k, dst_k, src_v, dst_v, si, di, sel)
+            want = RMIG.migrate_pages_kv_ref(src_k, dst_k.clone(), src_v,
+                                             dst_v.clone(), si, di, sel)
+            got = orig(src_k, dst_k, src_v, dst_v, si, di, sel)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"{label}: K6 on the path (call {len(held)}, "
+                    f"{int(sel.sum())} pages, pools {_shape(dst_k)}): "
+                    "kernel != plain")
+            held.append(int(sel.sum()))
+            return got
+        return hooked
+
+    with patched(KMIG, "migrate_pages_kv", make):
+        yield
+
+
+def prefill_agree(torch, make_prefill_step, model, toks, tol: float,
+                  LAYERS) -> tuple:
     """Last-position logits of ``make_prefill_step`` with impl "cuda" and
     "ref" on the same model and tokens; raises unless finite and within
-    ``tol`` of max |logit|. Returns the relative error."""
+    ``tol`` of max |logit|, where a moe model's expert routing (top-k and
+    capacity) agrees in every layer. Returns (the relative error, the
+    routing decisions that differ per moe layer, [] without moe)."""
     cfg = model.cfg
-    got = make_prefill_step(cfg, impl="cuda")(model, {"tokens": toks})
-    want = make_prefill_step(cfg, impl="ref")(model, {"tokens": toks})
+    outs, calls = {}, {"cuda": [], "ref": []}
+    for impl in ("cuda", "ref"):
+        with moe_inputs(LAYERS, calls[impl]):
+            outs[impl] = make_prefill_step(cfg, impl=impl)(
+                model, {"tokens": toks})
+    got, want = outs["cuda"], outs["ref"]
     require(got.shape == (toks.shape[0], cfg.vocab_size), "prefill shape")
     require(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite")
     rel = float((got.float() - want.float()).abs().max()
                 / want.float().abs().max())
-    require(rel <= tol, f"{cfg.name} {cfg.dtype} prefill: cuda vs ref "
-                        f"{rel:.3g} > {tol}")
-    return rel
+    routed = route_diff(torch, *(moe_routes(torch, LAYERS, cfg, calls[i])
+                                 for i in ("cuda", "ref")))
+    require(rel <= tol or any(routed), f"{cfg.name} {cfg.dtype} prefill: "
+            f"cuda vs ref {rel:.3g} > {tol} with the expert routing equal")
+    return rel, routed
 
 
 def time_prefill(torch, step, model, toks):
@@ -1793,6 +1979,820 @@ def fleet_phases(torch, np, wrappers: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phases 27-31 ----
+# the decoder-only families (slice E1/F2a), every run at full width
+GRANITE, MIXTRAL, MAMBA2 = "granite_moe_3b_a800m", "mixtral_8x22b", \
+    "mamba2_130m"
+DENSE_ARCHS = ("h2o_danube_3_4b", "codeqwen15_7b", "qwen3_32b")
+# Mixtral 8x22B's 141B parameters fit no single card in any dtype: its
+# full width at 8 of its 56 layers, bf16 weights (20.4B parameters)
+MIXTRAL_DEPTH = 8
+MOE_SIDE_STEPS = 32                      # tpp and static, granite
+SSM_FWD_BATCH, SSM_FWD_STEPS = 4, 64     # mamba2 decode == forward (f32)
+NEW_WINDOW = 4096                        # Mixtral's and h2o-danube's window
+K5_SEQ = (4000, 6000)   # phase 31: random pools past the window's edge
+# plain K7 at S=32,768 holds [B, H, tail, S] float32 scores: the tail of
+# query rows it checks keeps that at 2**30 elements (4 GiB), as for
+# Llama's 32 heads at PATH_TAIL
+PATH_SCORES = 1 << 30
+# A moe model's cuda and ref runs route some tokens to other experts
+# (top-k and capacity near-ties that the kernels' float differences tip),
+# and under these random weights later layers carry such a jump to every
+# output (one granite step in bf16: 6.4e-3 of max |hidden| after layer 0,
+# 1.1 after 32). So its end-to-end logits and hotness are held in the
+# steps and prefills whose routing agrees in every layer, its integers in
+# every step; and one decode step is held layer by layer, each layer fed
+# the ref run's input (``moe_layer_check``): the router's input and the
+# output of the tokens whose experts agree within LAYER_RTOL of the ref
+# tensor's max |value|. A layer's own rounding in bf16 is one ulp, 2^-8
+# (3.9e-3) of a value; the bound leaves room for the attention's and the
+# experts' sums, and a wrong head group or expert moves whole values
+LAYER_RTOL = 5e-2
+# K5 on the path against its plain version, relative to each output's max
+# |value|: the path's scores reach about 10^3 under these random weights
+# (q and k elements near 7 at D=64), where float32 rounding in another
+# summation order moves a score by about 1e-4 and the softmax carries that
+# into every output (granite on an H100, PERF.md: 9.5e-4 absolute,
+# 5x phase 8's atol of 1e-4, on outputs of order 1)
+K5_PATH_RTOL = 1e-3
+SERVE_CLASSES = (("K5 tiered attention", DEVICE_KERNELS[
+    "pool_attention_partial"]), ("K6 migrate_pages", ("migrate_pages",)))
+
+
+def path_tail(cfg) -> int:
+    """Query rows of the S=32,768 path check of ``cfg``'s K7 call."""
+    return min(PATH_TAIL, PATH_SCORES // (cfg.num_heads * TIMED_S))
+
+
+def class_ms(top, classes=()) -> dict:
+    """Device ms and launches by kernel class: ``classes`` first, then
+    phase 18's."""
+    out: dict = {}
+    for nm, t, cnt in top:
+        cls = next((c for c, keys in classes if any(k in nm for k in keys)),
+                   None) or classify(nm)
+        ms0, c0 = out.get(cls, (0.0, 0))
+        out[cls] = (ms0 + t, c0 + cnt)
+    return out
+
+
+def format_classes(by_cls: dict) -> str:
+    return ", ".join(f"{k} {v[0]:.2f} x{v[1]}" for k, v in sorted(
+        by_cls.items(), key=lambda kv: -kv[1][0]))
+
+
+def n_parameters(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def k5_vs_plain(torch, TA_REF, out, q, pool_k, pool_v, slot_page, seq_len,
+                *, window=None, sm_scale=None) -> list:
+    """K5's (acc, m, l, mass) on the path vs the plain version on the same
+    tensors, each within ``K5_PATH_RTOL`` of its own max |value|: one
+    reading, the largest share of the bound over the four."""
+    want = TA_REF.pool_attention_partial_ref(q, pool_k, pool_v, slot_page,
+                                             seq_len, window=window,
+                                             sm_scale=sm_scale)
+    rs = [reading(torch, "", g, w, K5_PATH_RTOL * float(w.abs().max()), 0.0)
+          for g, w in zip(out, want)]
+    worst = max(rs, key=lambda r: r["share"])
+    return [dict(worst, what=f"K5 q {_shape(q)} pool {_shape(pool_k)} "
+                             f"window={window}")]
+
+
+def one_ulp(torch, x):
+    """``x`` with every element moved one unit in the last place (away
+    from zero)."""
+    bits = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    return (x.contiguous().view(bits) + 1).view(x.dtype)
+
+
+def moe_layer_check(torch, env: dict, model, tcfg, seq: int, snap, tok,
+                    tag: str) -> dict:
+    """One decode step of a moe model from the snapshot ``snap``, layer by
+    layer, four times: impl "ref"; "cuda" teacher-forced (every layer fed
+    the ref run's input to it); "cuda" free-running; and a witness, "ref"
+    with the embedding moved by one ulp. Held for every layer of the
+    teacher-forced run: the router's input within ``LAYER_RTOL`` of the ref
+    run's and the layer's output within ``LAYER_RTOL`` on every token whose
+    experts agree, each relative to the ref tensor's max |value|; tokens
+    whose experts differ are counted, with the ref run's deciding margin.
+    The free-running and witness runs' divergence after each layer is
+    printed: how far the model itself carries a last-bit difference."""
+    SD, TF, LAYERS = env["SD"], env["TF"], env["LAYERS"]
+    cfg = model.cfg
+    B = tok.shape[0]
+
+    def run(impl, feed=None, nudge=False):
+        ins, outs, calls = [], [], []
+
+        def make(orig):
+            def block(p, x, *args):
+                if feed is not None:
+                    x = feed[len(ins)]
+                elif nudge and not ins:
+                    x = one_ulp(torch, x)
+                ins.append(x)
+                outs.append(orig(p, x, *args))
+                return outs[-1]
+            return block
+
+        step = SD.build_serve_step(cfg, tcfg, B, seq, impl=impl)
+        with torch.no_grad(), patched(TF, "decoder_block_decode", make), \
+                moe_inputs(LAYERS, calls):
+            step(model, clone_state(torch, snap), tok)
+        return ins, outs, calls
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    r_in, r_out, r_calls = run("ref")
+    _, t_out, t_calls = run("cuda", feed=r_in)
+    free = [rel(a, b) for a, b in zip(run("cuda")[1], r_out)]
+    witness = [rel(a, b) for a, b in zip(run("ref", nudge=True)[1], r_out)]
+    layers = []
+    for (rr, mr), (rt, _), (_, xr, _), (_, xt, _), yr, yt in zip(
+            moe_routes(torch, LAYERS, cfg, r_calls),
+            moe_routes(torch, LAYERS, cfg, t_calls), r_calls, t_calls,
+            r_out, t_out):
+        agree = (rr[0] == rt[0]).all(-1)
+        d = (yt.float() - yr.float()).reshape(agree.shape[0], -1).abs()
+        flips = int((~agree).sum())
+        layers.append(dict(
+            route_in=rel(xt, xr),
+            out=float(d[agree].max() / yr.float().abs().max())
+            if bool(agree.any()) else 0.0,
+            flips=flips, margin=float(mr[~agree].max()) if flips else 0.0))
+    worst_in = max(x["route_in"] for x in layers)
+    worst_out = max(x["out"] for x in layers)
+    flips = sum(x["flips"] for x in layers)
+    margin = max(x["margin"] for x in layers)
+    phase(f"{tag}-layers", f"one step at position {seq // 2}, each layer "
+          f"fed the ref run's input: router input rel err max "
+          f"{worst_in:.3g}, layer output rel err max {worst_out:.3g} on the "
+          f"tokens whose experts agree (<= {LAYER_RTOL}); experts differ "
+          f"for {flips} of {B * len(layers)} token-layers (largest ref "
+          f"deciding margin {margin:.3g}); max |d hidden| / max |hidden| "
+          "after each layer, cuda vs ref free-running: "
+          + " ".join(f"{x:.1e}" for x in free) + "; witness, ref vs ref "
+          "with the embedding one ulp off: "
+          + " ".join(f"{x:.1e}" for x in witness))
+    bad = [(n, x) for n, x in enumerate(layers)
+           if max(x["route_in"], x["out"]) > LAYER_RTOL]
+    require(not bad, f"{tag}: layers fed the ref run's input disagree: "
+                     f"{bad[:3]}")
+    return dict(route_in=worst_in, out=worst_out, flips=flips,
+                margin=margin, free=free, witness=witness)
+
+
+def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
+               seed: int, tag: str, side_steps: int = 0,
+               profile: bool = False, need_moves: bool = False) -> dict:
+    """Phase 9's serving check at ``model``'s config: ``batch`` sequences x
+    ``steps`` teacher-forced steps under ``full_load``, equilibria, impl
+    "cuda" against "ref" step by step from a shared state (``check_compare``:
+    integers bitwise but for near-tie flips within the deciding margin,
+    logits and hotness wherever a moe model's expert routing agrees); K5's
+    first call of every step and every K6 call that moves a page held
+    against their plain versions on the path; a moe model's layers held one
+    by one (``moe_layer_check``); tpp and static for ``side_steps`` each;
+    with ``profile`` one profiled step; K5 and K6 timed on the run's own
+    cache. K5 and K6 must launch, and with ``need_moves`` pages must move
+    (and K6's path check must have held some). Returns the run's numbers."""
+    F, SD, TA, TA_REF = env["F"], env["SD"], env["TA"], env["TA_REF"]
+    KMIG, RMIG, swrap = env["KMIG"], env["RMIG"], env["swrap"]
+    cfg = model.cfg
+    tcfg = env["full_load"](cfg, batch, steps)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, steps)).astype(np.int32), device="cuda")
+    rec: dict = {}
+    kv_step = SD.equilibria_kv_step
+
+    def recording_kv_step(cache, mf, ms, *args, impl, **kw):
+        # the tiering step's inputs, for the deciding margin of a flip
+        rec[impl] = (cache.fast_hot, cache.slow_hot, cache.fast_page >= 0,
+                     cache.slow_page >= 0, mf, ms)
+        return kv_step(cache, mf, ms, *args, impl=impl, **kw)
+
+    SD.equilibria_kv_step = recording_kv_step
+    try:
+        ctx = dict(SD=SD, fused_mul_add=env["fused_mul_add"], cfg=cfg,
+                   tcfg=tcfg, model=model, toks=toks, steps=steps, rec=rec,
+                   LAYERS=env["LAYERS"])
+        torch.cuda.reset_peak_memory_stats()
+        for w in swrap.values():
+            w.launches = 0
+        path, moved = [], []
+        # K5 runs twice a KV layer (fast and slow pool): layer 0's fast
+        # call opens every step
+        with on_path(TA, "pool_attention_partial", functools.partial(
+                k5_vs_plain, torch, TA_REF), path, tag,
+                every=2 * cfg.num_layers), \
+                k6_on_path(torch, KMIG, RMIG, moved, tag):
+            run = serve_compare(torch, np, ctx, "equilibria", steps,
+                                TOL["bf16"], snapshot_at=steps // 2)
+        launches = {k: w.launches for k, w in swrap.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kv = run["state"]["kv"]
+        c = kv.counters
+        promos, demos = int(c.promotions.sum()), int(c.demotions.sum())
+        ms = sorted(run["ms"])
+        mean = sum(ms) / len(ms)
+        out = dict(step_ms=mean, median_ms=ms[len(ms) // 2],
+                   p90_ms=ms[int(len(ms) * 0.9)], tokens_per_s=batch / (
+                       mean / 1e3), peak_gib=peak, launches=launches,
+                   promotions=promos, demotions=demos)
+        phase(tag, f"{cfg.name} {cfg.num_layers} layers ("
+              f"{n_parameters(model):,} parameters, {cfg.param_dtype} "
+              f"weights), {batch} seqs x {steps} steps, {tcfg.n_tenants} "
+              f"tenants, equilibria, bf16: promotions {promos} (attempted "
+              f"{int(c.attempted_promotions.sum())}) demotions {demos} "
+              f"thrash {int(c.thrash_events.sum())}; launches {launches} "
+              f"({launches['pool_attention_partial'] / steps:g} and "
+              f"{launches['migrate_pages'] / steps:g} a step); step ms mean "
+              f"{mean:.3f} median {out['median_ms']:.3f} p90 "
+              f"{out['p90_ms']:.3f} (CUDA events, impl=cuda); decode "
+              f"{out['tokens_per_s']:.1f} tokens/s; peak memory {peak:.2f} "
+              f"GiB; fast budget "
+              f"{SD.fast_budget_pages(cfg, tcfg, batch, steps)} pages")
+        worst = max(path, key=lambda r: r["share"])
+        out["path_err"] = max(r["err"] for r in path)
+        phase(f"{tag}-path", f"K5 on the path, layer 0's fast pool at each "
+              f"of {len(path)} steps: max abs err {out['path_err']:.3g}, "
+              f"{worst['share']:.3g} of the bound ({K5_PATH_RTOL} of each "
+              f"output's max |value|); "
+              f"{worst['what']}")
+        require(len(path) == steps and worst["share"] <= 1.0,
+                f"{tag}: K5 on the path {worst}")
+        out["k6_path_calls"], out["k6_path_pages"] = len(moved), sum(moved)
+        phase(f"{tag}-path", f"K6 on the path: {len(moved)} of "
+              f"{launches['migrate_pages']} calls moved pages ("
+              f"{sum(moved)} sequences' pages over {cfg.num_layers} layers, "
+              "K and V), each bitwise equal to the plain version on the "
+              "path's own pools and indices")
+        check_compare(np, run, TOL["bf16"], f"{tag}-agree")
+        for name, n in launches.items():
+            require(n > 0, f"{tag}: the serving path never launched {name}")
+        if need_moves:
+            require(promos > 0 and demos > 0 and moved, f"{tag}: promotions "
+                    f"{promos}, demotions {demos}, K6 held on the path "
+                    f"{len(moved)} times")
+        out["k5"] = k5_numbers(torch, F, TA, TA_REF, kv, tcfg.page_tokens,
+                               cfg.num_heads)
+        out["k6"] = k6_numbers(torch, np, KMIG, RMIG, kv, seed)
+        k5, k6 = out["k5"], out["k6"]
+        phase(f"{tag}-kernels", f"on the run's cache: pool_attention_partial"
+              f" [H={cfg.num_heads} K={cfg.num_kv_heads} "
+              f"D={cfg.resolved_head_dim}, one layer, both pools (2 op "
+              f"calls), {k5['n_valid']} valid tokens]: {k5['ms']:.4f} ms "
+              f"(plain {k5['plain_ms']:.4f}, library {k5['library_ms']:.4f} "
+              f"(SDPA, {k5['library_form']}), bound {k5['bound_ms']:.5f}); "
+              f"migrate_pages [{k6['n_sel']} of {batch} sequences x "
+              f"{cfg.num_layers} layers, page "
+              f"{kv.fast_k[0, 0, 0].numel() * kv.fast_k.element_size()} "
+              f"bytes, one pool]: {k6['ms']:.4f} ms (plain "
+              f"{k6['plain_ms']:.4f}, library {k6['library_ms']:.4f}, bound "
+              f"{k6['bound_ms']:.5f}); K+V {k6['kv']['ms']:.4f} (bound "
+              f"{k6['kv']['bound_ms']:.5f})")
+        snap = run["snapshot"]
+        del run, kv
+        torch.cuda.empty_cache()
+        if profile:
+            step_c = SD.build_serve_step(cfg, tcfg, batch, steps,
+                                         impl="cuda")
+            wall, prof = profile_serve_step(
+                torch, step_c, model, snap,
+                toks[:, steps // 2:steps // 2 + 1])
+            if prof is None:
+                phase(f"{tag}-profile", "device time not measured: the "
+                                        "profiler saw no device event")
+            else:
+                n_dev, busy, top, _ = prof
+                out.update(device_events=n_dev, busy_ms=busy, wall_ms=wall,
+                           idle_share=1 - busy / wall)
+                phase(f"{tag}-profile", f"one decode step at position "
+                      f"{steps // 2}: {n_dev} device events, busy "
+                      f"{busy:.4f} ms of {wall:.4f} ms wall (idle share "
+                      f"{1 - busy / wall:.3f}); device ms by class: "
+                      + format_classes(class_ms(top, SERVE_CLASSES))
+                      + "; top: " + "; ".join(f"{nm[:50]} {t:.4f} ms x{n}"
+                                              for nm, t, n in top[:8]))
+        if cfg.family == "moe":
+            out["layers"] = moe_layer_check(
+                torch, env, model, tcfg, steps, snap,
+                toks[:, steps // 2:steps // 2 + 1], tag)
+        del snap
+        torch.cuda.empty_cache()
+        side = []
+        for mode in ("tpp", "static") if side_steps else ():
+            mv: list = []
+            with k6_on_path(torch, KMIG, RMIG, mv, f"{tag}-{mode}"):
+                r = serve_compare(torch, np, ctx, mode, side_steps,
+                                  TOL["bf16"])
+            c = r["state"]["kv"].counters
+            side.append(f"{mode}: promotions {int(c.promotions.sum())} "
+                        f"demotions {int(c.demotions.sum())} (K6 held on "
+                        f"the path in {len(mv)} calls), step ms mean "
+                        f"{sum(r['ms']) / len(r['ms']):.3f}")
+            check_compare(np, r, TOL["bf16"], f"{tag}-{mode}-agree")
+            del r
+        if side:
+            phase(f"{tag}-modes", f"{side_steps} steps each: "
+                  + " | ".join(side))
+    finally:
+        SD.equilibria_kv_step = kv_step
+    return out
+
+
+def ssm_serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
+                   seed: int, tag: str) -> dict:
+    """The ssm family's serving: no paged KV, no tiering step and no kernel
+    on the decode path. impl "cuda" and "ref" step by step from a shared
+    state must agree bitwise (logits and the Mamba2 state); then decode ==
+    full-sequence forward (K8) in float32. Returns the run's numbers."""
+    SD = env["SD"]
+    cfg = model.cfg
+    tcfg = env["full_load"](cfg, batch, steps)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, steps)).astype(np.int32), device="cuda")
+    step_c = SD.build_serve_step(cfg, tcfg, batch, steps, impl="cuda")
+    step_r = SD.build_serve_step(cfg, tcfg, batch, steps, impl="ref")
+    state = SD.init_serve_state(cfg, tcfg, batch, steps)
+    require(sorted(state) == ["mamba"], f"{tag}: state {sorted(state)}")
+    torch.cuda.reset_peak_memory_stats()
+    e0 = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    e1 = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
+    with torch.no_grad():
+        for i in range(steps):
+            ref_state = clone_state(torch, state)
+            tok = toks[:, i:i + 1]
+            e0[i].record()
+            lc, state = step_c(model, state, tok)
+            e1[i].record()
+            lr, ref_state = step_r(model, ref_state, tok)
+            require(bool(torch.isfinite(lc).all()), f"{tag} step {i}: "
+                    "non-finite logits")
+            require(torch.equal(lc, lr), f"{tag} step {i}: logits differ")
+            require_same_tree(torch, state["mamba"], ref_state["mamba"],
+                              f"{tag} step {i}")
+    torch.cuda.synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(e0, e1))
+    mean = sum(ms) / len(ms)
+    out = dict(step_ms=mean, median_ms=ms[len(ms) // 2],
+               p90_ms=ms[int(len(ms) * 0.9)],
+               tokens_per_s=batch / (mean / 1e3),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    phase(tag, f"{cfg.name} {cfg.num_layers} Mamba2 layers, {batch} seqs x "
+          f"{steps} steps, bf16: cuda == ref bitwise every step (logits and "
+          f"the Mamba2 state; no kernel on the decode path); step ms mean "
+          f"{mean:.3f} median {out['median_ms']:.3f} p90 {out['p90_ms']:.3f}"
+          f" (CUDA events); decode {out['tokens_per_s']:.1f} tokens/s; peak "
+          f"memory {out['peak_gib']:.2f} GiB")
+    # decode == forward in float32
+    m32 = with_dtype(model, "float32")
+    toks_fw = toks[:SSM_FWD_BATCH, :SSM_FWD_STEPS].contiguous()
+    step32 = SD.build_serve_step(m32.cfg, tcfg, SSM_FWD_BATCH, SSM_FWD_STEPS)
+    st = SD.init_serve_state(m32.cfg, tcfg, SSM_FWD_BATCH, SSM_FWD_STEPS)
+    outs = []
+    ssd = env["pwrap"]["ssd_scan"]
+    with torch.no_grad():
+        for i in range(SSM_FWD_STEPS):
+            lg, st = step32(m32, st, toks_fw[:, i:i + 1])
+            outs.append(lg[:, 0])
+        ssd.launches = 0
+        ref = env["ssm_lm_forward"](m32, toks_fw)
+    fw_launches = ssd.launches
+    rel = float((torch.stack(outs, 1) - ref).abs().max() / ref.abs().max())
+    require(rel <= FWD_RTOL, f"{tag}: decode != forward {rel:.3g}")
+    require(fw_launches == cfg.num_layers, f"{tag}: the forward launched K8 "
+                                           f"{fw_launches} times")
+    out["fwd_rel"] = rel
+    phase(f"{tag}-forward", f"f32 full width, {SSM_FWD_BATCH} seqs x "
+          f"{SSM_FWD_STEPS} steps: max |decode - forward| / max |logit| = "
+          f"{rel:.3g} <= {FWD_RTOL}; forward K8 launches {fw_launches}")
+    return out
+
+
+def k7_shape_numbers(torch, F, FA, FA_REF, H, K, D, S, window) -> dict:
+    """K7 at one head shape, causal with ``window``, B=1, bf16 inputs:
+    agreement with the plain version (on the last ``tail`` query rows at
+    long S), its time, the plain version's (S <= 4,096: its scores are
+    [H, S, S] float32), the faster SDPA form and the bound over the band's
+    pairs."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    q, k, v = (torch.randn((1, h, S, D), generator=g, device="cuda").to(
+        torch.bfloat16) for h in (H, K, K))
+    out = FA.flash_attention(q, k, v, window=window)
+    tail = min(S, PATH_SCORES // (H * S))
+    want = FA_REF.flash_attention_ref(q[:, :, -tail:], k, v, window=window)
+    err = float((out[:, :, -tail:].float() - want.float()).abs().max())
+    require(torch.allclose(out[:, :, -tail:].float(), want.float(),
+                           atol=K7_TOL["bfloat16"], rtol=K7_TOL["bfloat16"]),
+            f"K7 H={H} K={K} D={D} S={S} window={window}: max err {err}")
+    del want
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    nbytes = 2 * (2 * H * S * D + 2 * K * S * D)
+    nops = 4 * H * D * pairs
+    n = 10 if S <= 4096 else 3
+    if window is None:
+        lib = (device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), n=n), "causal GQA")
+    else:
+        lib = sdpa_band(torch, F, q, k, v, window, n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / BF16_OPS_PER_S * 1e3
+    return dict(H=H, K=K, D=D, S=S, window=window, err=err, tail=tail,
+                ms=device_ms(lambda: FA.flash_attention(q, k, v,
+                                                        window=window), n=n),
+                plain_ms=device_ms(lambda: FA_REF.flash_attention_ref(
+                    q, k, v, window=window), n=3) if S <= 4096 else None,
+                library_ms=lib[0], library_form=lib[1],
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                wgmma=D % 16 == 0)
+
+
+def sdpa_band(torch, F, q, k, v, window: int, n: int):
+    """(ms, form) of scaled_dot_product_attention over the causal band of
+    ``window`` keys: K/V expanded to the query heads and a boolean band
+    mask, on the memory-efficient backend (the math backend would hold
+    [H, S, S] scores); (None, why) where that backend refuses it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S = q.shape[2]
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - window)
+    ke, ve = (x.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+              for x in (k, v))
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return (device_ms(lambda: F.scaled_dot_product_attention(
+                q, ke, ve, attn_mask=mask), n=n),
+                "expanded K/V, band mask, memory-efficient backend")
+    except RuntimeError as e:
+        return None, f"not measured: {str(e)[:80]}"
+
+
+def check_k5_new_widths(torch, np, TA, TA_REF, widths) -> tuple:
+    """K5 at each new (H, K, D) against its plain version over random pools
+    whose sequences hold 4,000 to 6,000 tokens (past a 4,096 window's
+    edge), bf16 and f32, window None and 4,096; timed in bf16 at each
+    width's own window. Returns (max abs error, cases, {width: times})."""
+    rng = np.random.default_rng(31)
+    pt, err, cases, times = 16, 0.0, 0, {}
+    for label, (B, H, K, D, window) in widths.items():
+        Mp = 208                       # the windowed configs' fast pool
+        n_pages = K5_SEQ[1] // pt + 1
+        q = rng.standard_normal((B, H, D)).astype(np.float32)
+        pk, pv = (rng.standard_normal((B, Mp, pt, K, D)).astype(np.float32)
+                  for _ in range(2))
+        slot = np.stack([rng.permutation(n_pages)[:Mp] for _ in range(B)])
+        slot = np.where(rng.random((B, Mp)) < 0.15, -1, slot).astype(np.int32)
+        seq = rng.integers(*K5_SEQ, B).astype(np.int32)
+        for dtype in (torch.bfloat16, torch.float32):
+            a = [torch.as_tensor(x, device="cuda") for x in
+                 (q, pk, pv, slot, seq)]
+            a[:3] = [x.to(dtype) for x in a[:3]]
+            for win in (None, NEW_WINDOW):
+                got = TA.pool_attention_partial(*a, window=win)
+                want = TA_REF.pool_attention_partial_ref(*a, window=win)
+                for g, w in zip(got, want):
+                    require(bool(torch.isfinite(g).all()), "K5: non-finite")
+                    d = float((g - w).abs().max())
+                    err = max(err, d)
+                    require(torch.allclose(g, w, atol=K5_TOL, rtol=K5_TOL),
+                            f"K5 {label} B={B} H={H} K={K} D={D} {dtype} "
+                            f"window={win}: max err {d}")
+                cases += 1
+                if dtype == torch.bfloat16 and win == window:
+                    elem = a[1].element_size()
+                    tok = (torch.as_tensor(slot, device="cuda")[:, :, None]
+                           * pt + torch.arange(pt, device="cuda"))
+                    cur = a[4][:, None, None]
+                    ok = (a[3] >= 0)[:, :, None] & (tok <= cur)
+                    if win is not None:
+                        ok &= tok > cur - win
+                    n_valid = int(ok.sum())
+                    nbytes = (n_valid * K * D * elem * 2 + B * H * D * elem
+                              + B * Mp * 4 + B * 4 + B * H * D * 4
+                              + 2 * B * H * 4 + B * H * Mp * 4)
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = n_valid * H * D * 4 / F32_OPS_PER_S * 1e3
+                    times[label] = dict(
+                        B=B, H=H, K=K, D=D, window=win, n_valid=n_valid,
+                        ms=device_ms(lambda: TA.pool_attention_partial(
+                            *a, window=win)),
+                        plain_ms=device_ms(
+                            lambda: TA_REF.pool_attention_partial_ref(
+                                *a, window=win), n=10),
+                        bound_ms=max(t_bytes, t_ops))
+            del a
+    torch.cuda.synchronize()
+    return err, cases, times
+
+
+def check_k6_new_pages(torch, np, KMIG, KMIG_REF, pages) -> int:
+    """K6 bitwise against its plain version at each new page size (one
+    pool and K+V, bf16, aligned and at an odd offset). Returns cases."""
+    rng = np.random.default_rng(32)
+    cases = 0
+    for label, (L, B, Mf, Ms, pt, K, D) in pages.items():
+        si = torch.as_tensor(rng.integers(0, Mf, B), device="cuda")
+        di = torch.as_tensor(rng.integers(0, Ms, B), device="cuda")
+        sel = torch.as_tensor(rng.random(B) < 0.5, device="cuda")
+        for offset in (0, 1):
+            pools = [at_offset(torch, torch.randn(
+                (L, B, m, pt, K, D), device="cuda").to(torch.bfloat16),
+                offset) for m in (Mf, Ms, Mf, Ms)]
+            got = KMIG.migrate_pages(pools[0], pools[1].clone(), si, di, sel)
+            want = KMIG_REF.migrate_pages_ref(pools[0], pools[1].clone(), si,
+                                              di, sel)
+            require(torch.equal(got, want), f"K6 {label} offset {offset}: "
+                                            "kernel != plain")
+            got = KMIG.migrate_pages_kv(pools[0], pools[1].clone(), pools[2],
+                                        pools[3].clone(), si, di, sel)
+            want = KMIG_REF.migrate_pages_kv_ref(
+                pools[0], pools[1].clone(), pools[2], pools[3].clone(), si,
+                di, sel)
+            require(all(torch.equal(g, w) for g, w in zip(got, want)),
+                    f"K6 K+V {label} offset {offset}: kernel != plain")
+            cases += 2
+            del pools
+    torch.cuda.synchronize()
+    return cases
+
+
+def family_phases(torch, np, env: dict) -> dict:
+    """Phases 27-31: the moe, dense and ssm families at full width, each
+    model freed before the next. Returns {"serve": {label: numbers},
+    "prefill_labels": [...], "k5": ..., "k7": [...], ...} for the kernels'
+    record."""
+    import dataclasses
+    from repro_torch.configs import (get_config, get_serve_load,
+                                     reduced_depth_config)
+    make_model, prefill_cell = env["make_model"], env["prefill_cell"]
+    pwrap = env["pwrap"]
+    res = {"serve": {}, "prefill": []}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    free()
+    phase("27-31", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                   "allocated before the first model")
+
+    # ---- 27. MoE serving: granite-moe-3b-a800m, full width and depth -------
+    gcfg = get_config(GRANITE)
+    model = make_model(gcfg, seed=0, device="cuda")
+    gB, gsteps = get_serve_load(GRANITE)
+    res["serve"]["S5 granite"] = serve_cell(
+        torch, np, env, model, batch=gB, steps=gsteps, seed=27,
+        tag="27-moe-serve", side_steps=MOE_SIDE_STEPS, profile=True,
+        need_moves=True)
+
+    # ---- 28. MoE prefill: granite, then Mixtral 8x22B at depth 8 ----------
+    prefill_cell(model, "granite", tag="28-moe-prefill")
+    res["prefill"].append("granite")
+    del model
+    free()
+    mcfg = dataclasses.replace(reduced_depth_config(MIXTRAL, MIXTRAL_DEPTH),
+                               param_dtype="bfloat16")
+    model = make_model(mcfg, seed=0, device="cuda")
+    # Mixtral's K7 on the path is held to K7_TOL of each output's max
+    # |value| (every other prefill elementwise, as phase 14): at depth 8
+    # the stacked init's std of 1/sqrt(layers) per weight leaves q and k
+    # elements near 28 and scores in the thousands, which K7's bf16
+    # tensor-core products accumulate in float32 in another order than the
+    # plain version; the softmax carries that into each output relative to
+    # its scale (on an H100, PERF.md: 0.5 where |v| reaches 141, 1.68x the
+    # elementwise bound; random inputs at its shape stay within that bound,
+    # phase 31)
+    prefill_cell(model, "mixtral", tag="28-moe-prefill", scaled=True,
+                 tail=path_tail(mcfg))
+    res["prefill"].append("mixtral")
+    mB, msteps = get_serve_load(MIXTRAL)
+    res["serve"]["S5 mixtral"] = serve_cell(
+        torch, np, env, model, batch=mB, steps=msteps, seed=28,
+        tag="28-moe-serve", profile=True)
+    del model
+    free()
+
+    # ---- 29. the dense configs: h2o-danube-3-4b, codeqwen1.5-7b, qwen3 ---
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        batch = PREFILL_B
+        if arch == "qwen3_32b":
+            # full depth 64 in bf16 weights (65.5 GB)
+            cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+            batch = 1        # plain K7's [B, 64, S, S] float32 scores
+        model = make_model(cfg, seed=0, device="cuda")
+        prefill_cell(model, arch, tag="29-dense-prefill", batch=batch,
+                     tail=path_tail(cfg))
+        res["prefill"].append(arch)
+        b, steps = get_serve_load(arch)
+        res["serve"][f"S6 {arch}"] = serve_cell(
+            torch, np, env, model, batch=b, steps=steps, seed=29,
+            tag="29-dense-serve", profile=arch == "qwen3_32b")
+        del model
+        free()
+
+    # ---- 30. Mamba2-130m: prefill through K8, serving, decode == forward --
+    scfg = get_config(MAMBA2)
+    model = make_model(scfg, seed=0, device="cuda")
+    prefill_cell(model, "mamba2", tag="30-ssm-prefill")
+    res["prefill"].append("mamba2")
+    sB, ssteps = get_serve_load(MAMBA2)
+    res["serve"]["S7 mamba2"] = ssm_serve_cell(
+        torch, np, env, model, batch=sB, steps=ssteps, seed=30,
+        tag="30-ssm-serve")
+    del model
+    free()
+
+    # ---- 31. K5, K6 and K7 at the new widths --------------------------------
+    F, FA, FA_REF = env["F"], env["FA"], env["FA_REF"]
+    shapes = {}
+    for arch in (GRANITE, MIXTRAL) + DENSE_ARCHS:
+        c = get_config(arch)
+        shapes[arch] = (c.num_heads, c.num_kv_heads, c.resolved_head_dim,
+                        c.sliding_window)
+    k5_err, k5_cases, k5_times = check_k5_new_widths(
+        torch, np, env["TA"], env["TA_REF"],
+        {a: (get_serve_load(a)[0], H, K, D, w)
+         for a, (H, K, D, w) in shapes.items()})
+    phase("31-k5", f"pool_attention_partial within {K5_TOL} of plain (max "
+          f"abs err {k5_err:.3g}) over {k5_cases} cases (G = 3, 6, 4, 1, "
+          f"8: " + ", ".join(f"{a} H={H} K={K} D={D}" for a, (H, K, D, _)
+                             in shapes.items())
+          + f"; seq_len {K5_SEQ[0]}-{K5_SEQ[1]}, 208-slot pools, bf16/f32, "
+          f"window None/{NEW_WINDOW}); bf16 at each config's window: " +
+          "; ".join(f"{a} {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                    f"bound {t['bound_ms']:.5f}, {t['n_valid']} valid tokens)"
+                    for a, t in k5_times.items()))
+    pages = {}
+    for arch in (GRANITE, MIXTRAL) + DENSE_ARCHS:
+        c = get_config(arch)
+        pages[arch] = (4, 32, 16, 16, 16, c.num_kv_heads,
+                       c.resolved_head_dim)
+    k6_cases = check_k6_new_pages(torch, np, env["KMIG"], env["RMIG"], pages)
+    phase("31-k6", f"migrate_pages bitwise over {k6_cases} cases at the new "
+          "page sizes (bytes, bf16: " + ", ".join(
+              f"{a} {16 * K * D * 2}" for a, (*_, K, D) in pages.items())
+          + "; one pool and K+V, aligned and at an odd offset)")
+    k7 = []
+    for arch, (H, K, D, _) in shapes.items():
+        for S in (PREFILL_S, TIMED_S):
+            for window in (None, NEW_WINDOW):
+                r = k7_shape_numbers(torch, F, FA, FA_REF, H, K, D, S,
+                                     window)
+                r["arch"] = arch
+                k7.append(r)
+                plain = ("not measured (its [H, S, S] float32 scores)"
+                         if r["plain_ms"] is None else f"{r['plain_ms']:.4f}")
+                lib = ("none" if r["library_ms"] is None
+                       else f"{r['library_ms']:.4f}")
+                phase("31-k7", f"flash_attention [{arch} H={H} K={K} D={D}"
+                      f"{'' if r['wgmma'] else ' (CUDA cores: D % 16)'}, "
+                      f"B=1 S={S}, bf16, causal, window {window}]: "
+                      f"{r['ms']:.4f} ms (plain {plain}, library "
+                      f"{lib} (SDPA, {r['library_form']}), "
+                      f"bound {r['bound_ms']:.5f} ({r['bound_by']})); max "
+                      f"abs err {r['err']:.3g} over the last {r['tail']} "
+                      "query rows")
+                free()
+    res.update(k5_err=k5_err, k5_times=k5_times, k7=k7)
+    return res
+
+
+def path_hooks(torch, env: dict, label: str, tail=None, scaled=False):
+    """The ``on_path`` hooks of K7 (its last ``tail`` query rows; the bound
+    ``scaled`` or not, ``k7_vs_plain``) and K8: the first kernel call of a
+    prefill held against the plain version on the path's own arguments,
+    readings to ``env["checks"]``."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(on_path(
+        env["FA"], "flash_attention", functools.partial(
+            k7_vs_plain, torch, env["FA_REF"], tail=tail, scaled=scaled),
+        env["checks"], label))
+    stack.enter_context(on_path(
+        env["SSD"], "ssd_scan", functools.partial(
+            k8_vs_plain, torch, env["SSD_REF"]), env["checks"], label))
+    return stack
+
+
+def run_prefill_cell(torch, np, env: dict, model, label, tag="14-prefill",
+                     batch=PREFILL_B, tail=PATH_TAIL, scaled=False):
+    """Phase 14's prefill cell at ``model``'s config: cuda vs ref at
+    S=4,096 in bf16 and f32, then one timed prefill at B=1, S=32,768 after
+    a warm-up, with layer 0's K7 and K8 calls held on the path (K7's bound
+    ``scaled`` or not, ``k7_vs_plain``). Records ``env["rows"][label]``;
+    returns (the step, the timed tokens)."""
+    make_prefill_step, pwrap = env["make_prefill_step"], env["pwrap"]
+    cfg_m = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(14).integers(
+        0, cfg_m.vocab_size, (batch, PREFILL_S)).astype(np.int32),
+        device="cuda")
+    rel, routed = {}, {}
+    for dt in ("bfloat16", "float32"):
+        with path_hooks(torch, env, f"{label} B={batch} S={PREFILL_S} {dt}",
+                        scaled=scaled):
+            rel[dt], routed[dt] = prefill_agree(
+                torch, make_prefill_step, with_dtype(model, dt), toks,
+                PREFILL_TOL[dt], env["LAYERS"])
+    step = make_prefill_step(cfg_m, impl="cuda")
+    toks = torch.as_tensor(np.random.default_rng(15).integers(
+        0, cfg_m.vocab_size, (TIMED_B, TIMED_S)).astype(np.int32),
+        device="cuda")
+    # layer 0's K7 (last ``tail`` query rows) and K8 (all 128 chunks)
+    # at the timed length, in a prefill of its own
+    with path_hooks(torch, env, f"{label} B={TIMED_B} S={TIMED_S} "
+                    f"{cfg_m.dtype}", tail=tail, scaled=scaled):
+        step(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    for w in pwrap.values():
+        w.launches = 0
+    warm_ms, ms, peak = time_prefill(torch, step, model, toks)
+    n = {k: w.launches // 2 for k, w in pwrap.items()}
+    env["rows"][label] = dict(ms=ms, peak=peak, launches=n,
+                              layers=cfg_m.num_layers,
+                              ssm=cfg_m.family == "ssm")
+    def agreement(dt):
+        r = routed[dt]
+        first = next((i for i, d in enumerate(r) if d), None)
+        held = rel[dt] <= PREFILL_TOL[dt]
+        return (f"{rel[dt]:.3g}" + (f" <= {PREFILL_TOL[dt]}" if held else
+                                    ", not held")
+                + ("" if not r else " (expert routing equal in every layer)"
+                   if first is None else f" (expert routing differs from "
+                   f"layer {first}: {r[first]} decisions there, {sum(r)} "
+                   f"over {len(r)} layers)"))
+
+    phase(tag, f"{cfg_m.name} {cfg_m.num_layers} layers: cuda "
+          f"vs ref at B={batch} S={PREFILL_S}: bf16 max |d logit| / "
+          f"max |logit| {agreement('bfloat16')}, f32 "
+          f"{agreement('float32')}, all finite; timed B={TIMED_B} "
+          f"S={TIMED_S} bf16 (impl=cuda, CUDA events): {ms:.1f} ms "
+          f"(warm-up {warm_ms:.1f}), {TIMED_B * TIMED_S / (ms / 1e3):.1f}"
+          f" tokens/s, peak memory {peak:.2f} GiB; launches per prefill "
+          f"{n}")
+    env["rows"][label]["routed"] = routed
+    return step, toks
+
+
+def record_families(rows: list, fam: dict, prefill_rows: dict,
+                    checks: list) -> None:
+    """Phases 28-30's path checks (each within its bound) and launch
+    counts (K7 once a layer in every attention prefill, K8 in mamba2's),
+    and the new paths' launches and widths on the kernels' rows."""
+    for r in checks:
+        phase("28-30-prefill-path", f"{r['label']}: {r['what']}: max abs "
+              f"err {r['err']:.3g}, {r['share']:.3g} of the bound (atol "
+              f"{r['atol']}, rtol {r['rtol']})")
+        require(r["share"] <= 1.0, f"{r['label']} {r['what']}: max abs err "
+                                   f"{r['err']:.3g} exceeds the bound")
+    # K7 in each attention prefill, K8 in mamba2's: layer 0 at S=4,096 in
+    # bf16 and f32 and at S=32,768 (K8: y and h)
+    require(len(checks) == 3 * (len(fam["prefill"]) - 1)
+            + 3 * 2, f"path checks: {len(checks)} readings")
+    for label in fam["prefill"]:
+        pr = prefill_rows[label]
+        want = {"flash_attention": 0 if pr["ssm"] else pr["layers"],
+                "ssd_scan": pr["layers"] if pr["ssm"] else 0}
+        require(pr["launches"] == want, f"{label} prefill launches "
+                                        f"{pr['launches']}, want {want}")
+    # the new paths' launches, beside each row's main-path count
+    by_name = {r["name"]: r for r in rows if "kernel" not in r}
+    for label, sv in fam["serve"].items():
+        if "launches" not in sv:
+            continue                   # ssm serving: no kernel
+        for k in ("pool_attention_partial", "migrate_pages"):
+            fl = by_name[k].setdefault("family_launches", {})
+            fl[label] = sv["launches"][k]
+            wk = "k5" if k == "pool_attention_partial" else "k6"
+            by_name[k].setdefault("family_widths", {})[label] = {
+                f: sv[wk][f] for f in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms")}
+    for label in fam["prefill"]:
+        for k, n in prefill_rows[label]["launches"].items():
+            if n:
+                by_name[k].setdefault("family_launches", {})[
+                    f"prefill {label}"] = n
+    by_name["pool_attention_partial"]["past_window"] = fam["k5_times"]
+    by_name["pool_attention_partial"]["max_abs_err"] = max(
+        by_name["pool_attention_partial"]["max_abs_err"], fam["k5_err"])
+    by_name["flash_attention"]["family_shapes"] = fam["k7"]
+    by_name["flash_attention"]["max_abs_err"] = max(
+        [by_name["flash_attention"]["max_abs_err"]]
+        + [r["err"] for r in fam["k7"]])
+    for k in ("flash_attention", "ssd_scan"):
+        by_name[k]["max_abs_err"] = max(
+            [by_name[k]["max_abs_err"]] + [
+                r["err"] for r in checks
+                if r["what"].startswith(KERNEL_TAG[k])])
+
+
 # ---------------------------------------------------------- phase 18 ----
 KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
                   ("K8 ssd_scan", DEVICE_KERNELS["ssd_scan"]),
@@ -1851,8 +2851,11 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ref as SSD_REF
     from repro_torch.launch.serve import full_load
     from repro_torch.memtier import kvcache as KC
+    from repro_torch.models import layers as LAYERS
+    from repro_torch.models import transformer as TF
     from repro_torch.models.transformer import (DenseLM, hybrid_forward,
-                                                lm_forward, make_model)
+                                                lm_forward, make_model,
+                                                ssm_lm_forward)
     from repro_torch.numerics import fused_mul_add
     from repro_torch.serve import decode as SD
     from repro_torch.train.step import make_prefill_step
@@ -2338,62 +3341,18 @@ def main() -> int:
 
     # ---- 14. prefill at full width: Llama 3.2 1B, then Zamba2-7B ---------
     pwrap = {"flash_attention": FA.flash_attention, "ssd_scan": SSD.ssd_scan}
-    prefill_launches = {k: 0 for k in pwrap}
-    prefill_rows = {}
-    path_checks = []
-
-    def path_hooks(label, tail=None):
-        stack = contextlib.ExitStack()
-        stack.enter_context(on_path(
-            FA, "flash_attention", functools.partial(
-                k7_vs_plain, torch, FA_REF, tail=tail), path_checks, label))
-        stack.enter_context(on_path(
-            SSD, "ssd_scan", functools.partial(k8_vs_plain, torch, SSD_REF),
-            path_checks, label))
-        return stack
-
-    def prefill_cell(model, label):
-        cfg_m = model.cfg
-        toks = torch.as_tensor(np.random.default_rng(14).integers(
-            0, cfg_m.vocab_size, (PREFILL_B, PREFILL_S)).astype(np.int32),
-            device="cuda")
-        rel = {}
-        for dt in ("bfloat16", "float32"):
-            with path_hooks(f"{label} B={PREFILL_B} S={PREFILL_S} {dt}"):
-                rel[dt] = prefill_agree(torch, make_prefill_step,
-                                        with_dtype(model, dt), toks,
-                                        PREFILL_TOL[dt])
-        step = make_prefill_step(cfg_m, impl="cuda")
-        toks = torch.as_tensor(np.random.default_rng(15).integers(
-            0, cfg_m.vocab_size, (TIMED_B, TIMED_S)).astype(np.int32),
-            device="cuda")
-        # layer 0's K7 (last PATH_TAIL query rows) and K8 (all 128 chunks)
-        # at the timed length, in a prefill of its own
-        with path_hooks(f"{label} B={TIMED_B} S={TIMED_S} "
-                        f"{cfg_m.dtype}", tail=PATH_TAIL):
-            step(model, {"tokens": toks})
-        torch.cuda.synchronize()
-        for w in pwrap.values():
-            w.launches = 0
-        warm_ms, ms, peak = time_prefill(torch, step, model, toks)
-        n = {k: w.launches // 2 for k, w in pwrap.items()}
-        for k in n:
-            prefill_launches[k] += n[k]
-        prefill_rows[label] = dict(ms=ms, peak=peak, launches=n)
-        phase("14-prefill", f"{cfg_m.name} {cfg_m.num_layers} layers: cuda "
-              f"vs ref at B={PREFILL_B} S={PREFILL_S}: bf16 max |d logit| / "
-              f"max |logit| {rel['bfloat16']:.3g} <= "
-              f"{PREFILL_TOL['bfloat16']}, f32 {rel['float32']:.3g} <= "
-              f"{PREFILL_TOL['float32']}, all finite; timed B={TIMED_B} "
-              f"S={TIMED_S} bf16 (impl=cuda, CUDA events): {ms:.1f} ms "
-              f"(warm-up {warm_ms:.1f}), {TIMED_B * TIMED_S / (ms / 1e3):.1f}"
-              f" tokens/s, peak memory {peak:.2f} GiB; launches per prefill "
-              f"{n}")
-        return step, toks
+    prefill_rows, path_checks = {}, []
+    prefill_cell = functools.partial(
+        run_prefill_cell, torch, np, dict(
+            FA=FA, FA_REF=FA_REF, SSD=SSD, SSD_REF=SSD_REF, pwrap=pwrap,
+            LAYERS=LAYERS,
+            make_prefill_step=make_prefill_step, rows=prefill_rows,
+            checks=path_checks))
 
     prefill_cell(model, "llama")
-    require(prefill_launches["flash_attention"] == cfg.num_layers,
-            f"llama prefill launched K7 {prefill_launches} times")
+    require(prefill_rows["llama"]["launches"]["flash_attention"]
+            == cfg.num_layers, f"llama prefill launched K7 "
+            f"{prefill_rows['llama']['launches']} times")
     del model
     torch.cuda.empty_cache()
     zcfg = get_config("zamba2_7b")
@@ -2404,6 +3363,8 @@ def main() -> int:
     require(prefill_rows["zamba2"]["launches"] == {
         "flash_attention": n_apps, "ssd_scan": zcfg.num_layers},
         f"zamba2 prefill launches {prefill_rows['zamba2']['launches']}")
+    prefill_launches = {k: sum(prefill_rows[m]["launches"][k] for m in (
+        "llama", "zamba2")) for k in pwrap}
     phase("14-prefill", f"{zcfg.name}: {n_params:,} parameters (float32 "
           f"weights {n_params * 4 / 1e9:.1f} GB); K7 launches per prefill "
           f"{n_apps}, K8 {zcfg.num_layers}")
@@ -2660,11 +3621,7 @@ def main() -> int:
                                     "saw no device event")
     else:
         n_dev, busy_ms, top, pwall = pprof
-        by_cls: dict = {}
-        for nm, t, cnt in top:
-            cls = classify(nm)
-            ms0, c0 = by_cls.get(cls, (0.0, 0))
-            by_cls[cls] = (ms0 + t, c0 + cnt)
+        by_cls = class_ms(top)
         k8_dev = by_cls.get("K8 ssd_scan", (0.0, 0))[1]
         k8_row["device_launches_per_call"] = k8_dev / zcfg.num_layers
         phase("18-prefill-profile", f"{zcfg.name} prefill B={TIMED_B} "
@@ -2677,7 +3634,8 @@ def main() -> int:
                       by_cls.items(), key=lambda kv: -kv[1][0]))
               + "; top: " + "; ".join(f"{nm[:50]} {t:.1f} ms x{cnt}"
                                       for nm, t, cnt in top[:8]))
-    del zmodel
+    # the serving contexts hold the model too
+    del zmodel, zctx, ctx32, zstep, ztoks, ztoks_d
     torch.cuda.empty_cache()
 
     churn_phases(torch, np, rows, floor_ms)
@@ -2687,6 +3645,15 @@ def main() -> int:
         k = row.get("kernel", row["name"])
         row["fleet_launches"] = {p: c[k] for p, c in fleet_launches.items()
                                  if k in c}
+
+    n_checks = len(path_checks)
+    fam = family_phases(torch, np, dict(
+        F=F, SD=SD, TF=TF, LAYERS=LAYERS, TA=TA, TA_REF=TA_REF, KMIG=KMIG,
+        RMIG=RMIG, FA=FA,
+        FA_REF=FA_REF, swrap=swrap, pwrap=pwrap, full_load=full_load,
+        fused_mul_add=fused_mul_add, make_model=make_model,
+        prefill_cell=prefill_cell, ssm_lm_forward=ssm_lm_forward))
+    record_families(rows, fam, prefill_rows, path_checks[n_checks:])
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

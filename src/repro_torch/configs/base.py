@@ -1,9 +1,8 @@
 """Configuration for the port (a copy of the reference's ``configs/base.py``).
 
-A ``ModelConfig`` fully describes one architecture (``MoEConfig`` and
-``SSMConfig`` are carried as plain field types; the port runs the dense
-and hybrid families so far); ``TieringConfig`` carries the Equilibria fairness
-parameters (paper §IV).
+A ``ModelConfig`` fully describes one architecture (with its ``MoEConfig``
+or ``SSMConfig``; the port runs the dense, moe, ssm and hybrid families);
+``TieringConfig`` carries the Equilibria fairness parameters (paper §IV).
 """
 from __future__ import annotations
 

@@ -6,12 +6,13 @@ Every function reads a reference tree whose leaves were made numpy arrays
 * ``state_from_numpy`` / ``state_to_numpy``: the tiering engine's
   ``TierState``;
 * ``params_from_numpy``: the reference's parameter tree -> the port's
-  ``DenseLM`` or ``HybridLM`` (names and layouts map one to one, the
-  hybrid's ``shared`` block included);
+  ``DenseLM``, ``MoELM``, ``SSMLM`` or ``HybridLM`` (names and layouts map
+  one to one: the moe layers' router and [L, E, d, f] experts, the ssm
+  LM's Mamba2 stack, the hybrid's ``shared`` block);
 * ``cache_from_numpy`` / ``cache_to_numpy``: the serving path's
   ``TieredKVCache``;
 * ``mamba_cache_from_numpy`` / ``mamba_cache_to_numpy``: the serving
-  path's stacked ``MambaCache`` (hybrid family).
+  path's stacked ``MambaCache`` (ssm and hybrid families).
 """
 from __future__ import annotations
 
@@ -96,8 +97,9 @@ def state_to_numpy(state: TierState) -> dict:
 def params_from_numpy(tree, cfg, device="cuda"):
     """The port's model of ``cfg``'s family from a reference parameter tree
     whose leaves were made numpy arrays (``{"embed": {...}, "layers": {...}}``
-    with a stacked layer axis, plus ``"shared"`` for the hybrid). Names and
-    layouts map one to one; every leaf must match the model's shape."""
+    with a stacked layer axis, ``layers.moe`` for the moe family, plus
+    ``"shared"`` for the hybrid). Names and layouts map one to one; every
+    leaf must match the model's shape."""
     model = make_model(cfg, seed=None, device=device)
     params = dict(model.named_parameters())
     seen = set()

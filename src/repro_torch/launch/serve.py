@@ -1,5 +1,6 @@
 """Multi-tenant serving launcher: Equilibria-tiered paged-KV decode (torch
-port of the reference's ``launch/serve.py``, dense and hybrid families).
+port of the reference's ``launch/serve.py``; dense, moe, ssm and hybrid
+families).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama32_1b \\
       --smoke --tenants 4 --batch 8 --steps 48 --mode equilibria --bound 3 \\
@@ -8,20 +9,29 @@ port of the reference's ``launch/serve.py``, dense and hybrid families).
       --smoke --tenants 4 --batch 8 --steps 48 --mode equilibria --bound 3 \\
       --device cpu
 
+(and ``--arch`` any of ``configs.ARCH_IDS``: granite_moe_3b_a800m,
+mixtral_8x22b, codeqwen15_7b, h2o_danube_3_4b, qwen3_32b, mamba2_130m).
+
 Runs a continuous-batching greedy decode loop: every sequence belongs to a
 tenant (sequence b to tenant b mod T); the Equilibria policy (lower
 protection / upper bound / Eq.1 / Eq.2 / thrash mitigation) manages the
 shared fast-tier page budget inside the step. Prints the per-tenant
-cgroup-style ``tier_stat`` counters and the tail of the migration ring.
+cgroup-style ``tier_stat`` counters and the tail of the migration ring;
+the attention-free ssm family has no paged KV, so it prints the decode line
+alone, as the reference's launcher does.
 
 ``--device`` defaults to ``cuda`` and raises without a card. ``--full``
 runs the serving load the port is measured at for the arch: the
 (sequences, steps) of its config's ``SERVE_LOAD`` (llama32_1b 64 x 512,
-zamba2_7b 32 x 256) under ``full_load``'s policy, 4 tenants, 16-token
-pages, a 256-slot thrash table, and protections and bounds that are fixed
-shares of each tenant's quarter of the fast budget (75% of the logical
-pages, which binds): llama32_1b (320, 256, 128, 0) and (0, 448, 384, 320)
-pages, zamba2_7b (80, 64, 32, 0) and (0, 112, 96, 80). The port runs on
+zamba2_7b 32 x 256, granite_moe_3b_a800m and mamba2_130m 64 x 256,
+mixtral_8x22b 16 x 64, the other dense configs 32 x 64) under
+``full_load``'s policy, 4 tenants, 16-token pages, a 256-slot thrash table,
+and protections and bounds that are fixed shares of each tenant's quarter
+of the fast budget (75% of the logical pages): llama32_1b (320, 256, 128,
+0) and (0, 448, 384, 320) pages, zamba2_7b (80, 64, 32, 0) and (0, 112, 96,
+80), granite_moe_3b_a800m (160, 128, 64, 0) and (0, 224, 192, 160), where
+the budget binds; the windowed configs' logical pages cover their window
+(4,096 tokens), which the short loads do not fill. The port runs on
 one device and builds no mesh, so the reference's ``--production`` (its
 production mesh) is refused.
 """
@@ -70,6 +80,8 @@ def full_load(cfg: ModelConfig, batch: int, steps: int) -> TieringConfig:
     tcfg = TieringConfig(n_tenants=len(PROTECTION_SIXTHS), page_tokens=16,
                          thrash_table_slots=256,
                          promo_hot_threshold=FULL_PROMO_THRESHOLD)
+    if kv_layer_count(cfg) == 0:
+        return tcfg                       # no paged KV: no fast budget
     share = fast_budget_pages(cfg, tcfg, batch, steps) // tcfg.n_tenants
     return dataclasses.replace(
         tcfg, lower_protection=tuple(share * s // 6
@@ -106,14 +118,13 @@ def main(argv=None) -> None:
     if args.full:
         batch, steps = get_serve_load(args.arch)
         tcfg = full_load(cfg, batch, steps)
-        tenants = tcfg.n_tenants
     else:
-        tenants, batch, steps = args.tenants, args.batch, args.steps
+        batch, steps = args.batch, args.steps
         tcfg = TieringConfig(
-            n_tenants=tenants, page_tokens=args.page_tokens,
+            n_tenants=args.tenants, page_tokens=args.page_tokens,
             thrash_table_slots=256,
-            lower_protection=(args.protection,) * tenants,
-            upper_bound=(args.bound,) * tenants)
+            lower_protection=(args.protection,) * args.tenants,
+            upper_bound=(args.bound,) * args.tenants)
 
     model = make_model(cfg, seed=0, device=dev)
     state = init_serve_state(cfg, tcfg, batch, steps, device=dev)
@@ -134,7 +145,13 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} mode={args.mode} device={dev} decoded "
           f"{steps} tokens x {batch} seqs in {dt:.2f}s "
           f"({batch * steps / dt:.1f} tok/s)")
-    kv = state["kv"]
+    if "kv" in state:
+        print_tier_stat(state["kv"], cfg, tcfg)
+
+
+def print_tier_stat(kv, cfg: ModelConfig, tcfg: TieringConfig) -> None:
+    """The per-tenant ``tier_stat`` blocks and the migration ring's tail."""
+    tenants = tcfg.n_tenants
     ten = kv.tenant.cpu().numpy()
     fp = (kv.fast_page >= 0).sum(1).cpu().numpy()
     sp = (kv.slow_page >= 0).sum(1).cpu().numpy()

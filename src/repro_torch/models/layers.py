@@ -1,6 +1,7 @@
-"""Core neural layers of the dense decoder (torch port of the reference's
-``models/layers.py``: norms, rotary, the attention projections, SwiGLU and
-the materialised-scores attention used by the full-sequence forward).
+"""Core neural layers of the decoders (torch port of the reference's
+``models/layers.py``: norms, rotary, the attention projections, SwiGLU, the
+top-k mixture of experts and the materialised-scores attention used by the
+full-sequence forward).
 
 Layouts are the reference's: activations [B, S, d], heads [B, S, H, D],
 weights ``wq`` [d, H, D], ``wk``/``wv`` [d, K, D], ``wo`` [H, D, d]. Each
@@ -9,7 +10,8 @@ weights to the activation dtype at use, and upcasts to float32 exactly where
 the reference does. Full-sequence self-attention (``self_attention``) goes
 through the ``flash_attention`` op (K7); ``attn_dense`` stays the plain
 materialised form. The tiered paged decode attention lives in
-``memtier/kvcache.py`` and ``kernels/tiered_attention``.
+``memtier/kvcache.py`` and ``kernels/tiered_attention``. The MoE products
+are the reference's plain products (no Pallas kernel there, none here).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as FA
-from repro_torch.models.params import dtype_of
+from repro_torch.kernels.select.ref import top_k
+from repro_torch.models.params import ParamSpec, dtype_of
 
 NEG_INF = -1e30
 
@@ -99,6 +102,100 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = x @ p["wg"].to(dt)
     u = x @ p["wu"].to(dt)
     return (F.silu(g) * u) @ p["wd"].to(dt)
+
+
+def moe_specs(cfg: ModelConfig):
+    """A MoE layer's parameters: the router [d, E] (std 0.02) and the
+    experts' SwiGLU weights ``wg``/``wu`` [E, d, f] and ``wd`` [E, f, d]."""
+    d, m = cfg.d_model, cfg.moe
+    e, f = m.num_experts, m.d_ff_expert
+    return {"router": ParamSpec((d, e), init="small"),
+            "wg": ParamSpec((e, d, f)), "wu": ParamSpec((e, d, f)),
+            "wd": ParamSpec((e, f, d))}
+
+
+def _router(p, x: torch.Tensor) -> torch.Tensor:
+    """Float32 router probabilities [.., E]."""
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    return torch.softmax(logits, dim=-1)
+
+
+def _experts(p, xe: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """Each expert's SwiGLU over its own rows: xe [E, N, d] -> [E, N, d]."""
+    g = torch.bmm(xe, p["wg"].to(dt))
+    u = torch.bmm(xe, p["wu"].to(dt))
+    return torch.bmm(F.silu(g) * u, p["wd"].to(dt))
+
+
+def moe_block(p, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k MoE with the reference's grouped gather dispatch: each sample
+    is a routing group, and every expert takes its top-C member tokens of
+    the sample (C = max(ceil(S k / E x capacity_factor), 4), at most S;
+    ties to the lower token index), gathered directly. Outputs are
+    normalised by the kept gates. x [B, S, d] -> (out [B, S, d], the Switch
+    load-balancing aux loss).
+
+    The experts' outputs are added into their tokens one expert after
+    another (an ``index_add_`` per expert, whose rows are distinct), so the
+    sums associate the same way on every run and device."""
+    m = cfg.moe
+    dt = dtype_of(cfg.dtype)
+    b, s, d = x.shape
+    e = m.num_experts
+    probs = _router(p, x)                                         # [B,S,E]
+    member = probs >= top_k(probs, m.top_k)[0][..., -1:]          # k-th
+    score = torch.where(member, probs, 0.0)
+    capacity = min(max(math.ceil(s * m.top_k / m.num_experts
+                                 * m.capacity_factor), 4), s)
+    vals, idx = top_k(score.transpose(1, 2), capacity)            # [B,E,C]
+    w = torch.where(vals > 0.0, vals, 0.0)                        # kept gates
+    xe = x[torch.arange(b, device=x.device)[:, None, None], idx]  # [B,E,C,d]
+    ye = _experts(p, xe.transpose(0, 1).reshape(e, b * capacity, d), dt)
+    weighted = ye.to(torch.float32) * w.transpose(0, 1).reshape(
+        e, b * capacity, 1)
+    rows = (idx + torch.arange(b, device=x.device)[:, None, None] * s
+            ).transpose(0, 1).reshape(e, b * capacity)
+    out = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)
+    denom = torch.zeros((b * s,), dtype=torch.float32, device=x.device)
+    wt = w.transpose(0, 1).reshape(e, b * capacity)
+    for i in range(e):
+        out.index_add_(0, rows[i], weighted[i])
+        denom.index_add_(0, rows[i], wt[i])
+    out = out / torch.clamp(denom, min=1e-9)[:, None]
+    # load-balancing aux loss (Switch): E * sum_e f_e * P_e
+    me = probs.mean(dim=(0, 1))
+    ce = member.to(torch.float32).mean(dim=(0, 1)) / m.top_k * m.num_experts
+    aux = torch.sum(me * ce)
+    return out.reshape(b, s, d).to(dt), aux
+
+
+def moe_block_decode(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """MoE for decode: every token's top-k experts (ties to the lower
+    expert index), gates renormalised to sum to 1, no capacity. x [B, 1, d].
+
+    The reference gathers each token's k expert matrices ([T, k, d, f]); here
+    the tokens are grouped by expert instead: token t's j-th expert takes
+    it into row ``rank`` of that expert's group (rank: its order among the
+    expert's tokens), each expert runs its three products once over its
+    group (rows past the group's tokens are zeros and never read back),
+    and every token sums its k outputs, weighted by its gates, in float32.
+    The same dot products as the reference's; only the float association
+    of the k-way sum may differ."""
+    m = cfg.moe
+    dt = dtype_of(cfg.dtype)
+    b, s, d = x.shape
+    e, k = m.num_experts, m.top_k
+    tokens = x.reshape(b * s, d)
+    n = tokens.shape[0]
+    gate, expert = top_k(_router(p, tokens), k)                   # [T,k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    ex = expert.reshape(-1)                                       # [T*k]
+    rank = (F.one_hot(ex, e).cumsum(0) - 1).gather(1, ex[:, None])[:, 0]
+    xg = tokens.new_zeros((e, n, d))
+    xg[ex, rank] = tokens.repeat_interleave(k, dim=0)
+    y = _experts(p, xg, dt)[ex, rank].reshape(n, k, d)
+    out = torch.einsum("tkd,tk->td", y.to(torch.float32), gate)
+    return out.reshape(b, s, d).to(dt)
 
 
 def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:

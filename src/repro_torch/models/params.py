@@ -9,8 +9,10 @@ to one. ``init_params`` draws every tensor from one seeded
 ones, ``embed`` (std 1), ``small`` (std 0.02), else normal with std
 ``scale / sqrt(fan_in)``, where fan_in is the spec's first dimension — for
 a stacked spec that is the layer count, exactly as the reference computes
-it. The streams differ from ``jax.random``'s, so the tests hand the
-reference's weights over through ``convert.params_from_numpy``.
+it. Weights in a narrower ``param_dtype`` than float32 are drawn in float32
+blocks of leading rows and rounded once. The streams differ from
+``jax.random``'s, so the tests hand the reference's weights over through
+``convert.params_from_numpy``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DRAW_BLOCK = 1 << 26      # float32 elements drawn at once for a narrower dtype
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -57,9 +60,19 @@ def init_param(spec: ParamSpec, generator: torch.Generator,
         std = 0.02
     else:
         std = spec.scale / math.sqrt(max(fan_in, 1))
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
-                    device=device)
-    return (x * std).to(dtype)
+    if dtype == torch.float32 or len(spec.shape) < 2:
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (x * std).to(dtype)
+    # a narrower dtype is drawn in float32 a block of leading rows at a time:
+    # a whole stacked tensor in float32 (Mixtral's experts, 25.8 GB at depth
+    # 8) would not fit beside the weights on one card
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_BLOCK // out[0].numel())
+    for block in out.split(rows):
+        block.copy_(torch.randn(block.shape, generator=generator,
+                                dtype=torch.float32, device=device) * std)
+    return out
 
 
 def init_params(specs: Dict, generator: torch.Generator,

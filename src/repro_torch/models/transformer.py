@@ -1,19 +1,20 @@
-"""The dense decoder LM and the zamba2-style hybrid (torch port of the
-dense and hybrid families of the reference's ``models/transformer.py``).
+"""The decoder LMs (torch port of the dense, moe, ssm and hybrid families
+of the reference's ``models/transformer.py``).
 
-``DenseLM`` and ``HybridLM`` are ``nn.Module``s whose parameter trees carry
-the reference's names and layouts: ``embed.tok`` [V, d], ``embed.final_norm``
-[d] (plus ``embed.lm_head`` [d, V] when embeddings are untied) and the
-layer stack under ``layers`` with a leading layer axis (``layers.attn.wq``
-[L, d, H, D], ...; Mamba2 blocks for the hybrid), plus the hybrid's one
-weight-shared attention block under ``shared`` (no layer axis).
-``model.layer(l)`` is layer ``l``'s parameters as a nested dict of views,
-the reference's ``tree_map(lambda a: a[l], ...)``.
+``DenseLM``, ``MoELM``, ``SSMLM`` and ``HybridLM`` are ``nn.Module``s whose
+parameter trees carry the reference's names and layouts: ``embed.tok``
+[V, d], ``embed.final_norm`` [d] (plus ``embed.lm_head`` [d, V] when
+embeddings are untied) and the layer stack under ``layers`` with a leading
+layer axis (``layers.attn.wq`` [L, d, H, D], ...; ``layers.moe.wg``
+[L, E, d, f] for the moe family; Mamba2 blocks for the ssm LM and the
+hybrid), plus the hybrid's one weight-shared attention block under
+``shared`` (no layer axis). ``model.layer(l)`` is layer ``l``'s parameters
+as a nested dict of views, the reference's ``tree_map(lambda a: a[l], ...)``.
 
-``lm_forward`` and ``hybrid_forward`` are the full-sequence forwards: every
-self-attention goes through the ``flash_attention`` op (K7) and every
-Mamba2 block through the ``ssd_scan`` op (K8), or straight to their plain
-versions with ``impl="ref"``. The decode block takes an ``attend``
+``lm_forward`` (dense and moe), ``ssm_lm_forward`` and ``hybrid_forward``
+are the full-sequence forwards: every self-attention goes through the
+``flash_attention`` op (K7) and every Mamba2 block through the ``ssd_scan``
+op (K8), or straight to their plain versions with ``impl="ref"``. The decode block takes an ``attend``
 callback so the serving path (``serve/decode.py``) owns the tiered paged
 cache.
 """
@@ -61,13 +62,23 @@ def mlp_specs(cfg: ModelConfig) -> Dict:
 
 def decoder_block_specs(cfg: ModelConfig) -> Dict:
     d = cfg.d_model
-    return {"ln1": ParamSpec((d,), init="ones"), "attn": attention_specs(cfg),
-            "ln2": ParamSpec((d,), init="ones"), "mlp": mlp_specs(cfg)}
+    specs = {"ln1": ParamSpec((d,), init="ones"),
+             "attn": attention_specs(cfg), "ln2": ParamSpec((d,), init="ones")}
+    if cfg.family == "moe":
+        specs["moe"] = L.moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 def lm_specs(cfg: ModelConfig) -> Dict:
     return {"embed": embed_specs(cfg),
             "layers": stack_specs(decoder_block_specs(cfg), cfg.num_layers)}
+
+
+def ssm_lm_specs(cfg: ModelConfig) -> Dict:
+    return {"embed": embed_specs(cfg),
+            "layers": stack_specs(S.mamba_specs(cfg), cfg.num_layers)}
 
 
 def hybrid_specs(cfg: ModelConfig) -> Dict:
@@ -86,8 +97,8 @@ def hybrid_specs(cfg: ModelConfig) -> Dict:
 
 
 # families the port runs, and what is still to port
-FAMILIES = ("dense", "hybrid")
-UNPORTED = ("moe", "encdec", "vlm", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+UNPORTED = ("encdec", "vlm")
 
 
 def _require_family(cfg: ModelConfig) -> None:
@@ -99,7 +110,8 @@ def _require_family(cfg: ModelConfig) -> None:
 
 def model_specs(cfg: ModelConfig) -> Dict:
     _require_family(cfg)
-    return lm_specs(cfg) if cfg.family == "dense" else hybrid_specs(cfg)
+    return {"dense": lm_specs, "moe": lm_specs, "ssm": ssm_lm_specs,
+            "hybrid": hybrid_specs}[cfg.family](cfg)
 
 
 class ParamTree(nn.Module):
@@ -174,6 +186,17 @@ class DenseLM(_LM):
     FAMILY = "dense"
 
 
+class MoELM(_LM):
+    """Mixture-of-experts decoder LM (``embed``, ``layers`` with a ``moe``
+    subtree in place of ``mlp``)."""
+    FAMILY = "moe"
+
+
+class SSMLM(_LM):
+    """Attention-free Mamba2 LM (``embed``, ``layers`` of Mamba2 blocks)."""
+    FAMILY = "ssm"
+
+
 class HybridLM(_LM):
     """Zamba2-style hybrid (``embed``, ``layers`` of Mamba2 blocks, and the
     weight-shared attention block ``shared``)."""
@@ -184,7 +207,8 @@ def make_model(cfg: ModelConfig, *, seed: Optional[int] = 0,
                device="cuda") -> _LM:
     """The model class of ``cfg``'s family."""
     _require_family(cfg)
-    cls = DenseLM if cfg.family == "dense" else HybridLM
+    cls = {"dense": DenseLM, "moe": MoELM, "ssm": SSMLM,
+           "hybrid": HybridLM}[cfg.family]
     return cls(cfg, seed=seed, device=device)
 
 
@@ -203,13 +227,19 @@ def lm_logits(model: _LM, x: torch.Tensor,
 
 
 def decoder_block(p, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
-    """Pre-norm full-sequence block; causal attention through K7."""
+                  positions: torch.Tensor, impl: str = "cuda"):
+    """Pre-norm full-sequence block; causal attention through K7. Returns
+    (x, the MoE aux loss: 0 for the dense family)."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     x = x + L.self_attention(p["attn"], h, cfg, positions, causal=True,
                              window=cfg.sliding_window, impl=impl)
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    return x + L.mlp(p["mlp"], h, cfg)
+    if cfg.family == "moe":
+        y, aux = L.moe_block(p["moe"], h, cfg)
+    else:
+        y, aux = L.mlp(p["mlp"], h, cfg), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def decoder_block_decode(p, x: torch.Tensor, cfg: ModelConfig,
@@ -221,6 +251,8 @@ def decoder_block_decode(p, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = L.attention_qkv(p["attn"], h, cfg, positions)
     x = x + L.attention_out(p["attn"], attend(q, k, v), cfg)
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    if cfg.family == "moe":
+        return x + L.moe_block_decode(p["moe"], h, cfg)
     return x + L.mlp(p["mlp"], h, cfg)
 
 
@@ -233,15 +265,32 @@ def _logits(model: _LM, x: torch.Tensor, last_only: bool) -> torch.Tensor:
     return lm_logits(model, x[:, -1:] if last_only else x, model.cfg)
 
 
-def lm_forward(model: DenseLM, tokens: torch.Tensor, *, impl: str = "cuda",
-               last_only: bool = False) -> torch.Tensor:
-    """tokens [B,S] -> logits [B,S,V] ([B,1,V] with ``last_only``: the
-    logits are row-wise, so the last position's need no other row)."""
+def lm_forward(model: _LM, tokens: torch.Tensor, *, impl: str = "cuda",
+               last_only: bool = False, return_aux: bool = False):
+    """Dense or moe LM: tokens [B,S] -> logits [B,S,V] ([B,1,V] with
+    ``last_only``: the logits are row-wise, so the last position's need no
+    other row); with ``return_aux``, (logits, the MoE aux loss summed over
+    layers), as the reference's ``lm_forward`` returns them."""
     cfg = model.cfg
     x = embed_tokens(model, tokens, cfg)
     positions = _positions(tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = decoder_block(model.layer(i), x, cfg, positions, impl)
+        x, a = decoder_block(model.layer(i), x, cfg, positions, impl)
+        aux = aux + a
+    logits = _logits(model, x, last_only)
+    return (logits, aux) if return_aux else logits
+
+
+def ssm_lm_forward(model: SSMLM, tokens: torch.Tensor, *,
+                   impl: str = "cuda", last_only: bool = False
+                   ) -> torch.Tensor:
+    """Mamba2 LM: tokens [B,S] -> logits [B,S,V] ([B,1,V] with
+    ``last_only``); every block's scan through K8."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens, cfg)
+    for i in range(cfg.num_layers):
+        x, _ = S.mamba_block(model.layer(i), x, cfg, impl=impl)
     return _logits(model, x, last_only)
 
 
@@ -300,5 +349,6 @@ def model_forward(model: _LM, batch: Dict[str, torch.Tensor], *,
     ``last_only``)."""
     cfg = model.cfg
     _require_family(cfg)
-    fwd = lm_forward if cfg.family == "dense" else hybrid_forward
+    fwd = {"dense": lm_forward, "moe": lm_forward, "ssm": ssm_lm_forward,
+           "hybrid": hybrid_forward}[cfg.family]
     return fwd(model, batch["tokens"], impl=impl, last_only=last_only)

@@ -1,5 +1,5 @@
 """Multi-tenant decode serving with Equilibria-tiered paged KV caches (torch
-port of the dense and hybrid families of the reference's
+port of the dense, moe, ssm and hybrid families of the reference's
 ``serve/decode.py``).
 
 ``build_serve_step(cfg, tcfg, batch, seq)`` returns
@@ -9,8 +9,9 @@ from attention mass, Eq.1/Eq.2-regulated migrations, thrash mitigation).
 The reference's scan over layers is a Python loop; the KV pools and the
 Mamba2 decode state are updated in place (token append, page moves, the
 per-layer recurrent state). State is a dict ``{"kv": TieredKVCache}``, plus
-``"mamba": MambaCache`` (stacked over layers) for the hybrid. The moe,
-encdec, vlm and ssm families are still to port.
+``"mamba": MambaCache`` (stacked over layers) for the hybrid; the
+attention-free ssm family has no paged KV and no tiering step, only
+``{"mamba": MambaCache}``. The encdec and vlm families are still to port.
 """
 from __future__ import annotations
 
@@ -47,8 +48,10 @@ def fast_budget_pages(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 def init_serve_state(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                      seq: int, device="cuda") -> Dict[str, object]:
     _require_served(cfg)
-    state = {"kv": KC.init_cache(cfg, tcfg, batch, seq, device=device)}
-    if cfg.family == "hybrid":
+    state = {}
+    if cfg.family != "ssm":
+        state["kv"] = KC.init_cache(cfg, tcfg, batch, seq, device=device)
+    if cfg.family in ("ssm", "hybrid"):
         state["mamba"] = S.init_mamba_cache(cfg, batch, cfg.num_layers,
                                             device=device)
     return state
@@ -86,6 +89,27 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     if impl == "cuda" and dev.type != "cuda":
         raise ValueError("impl='cuda' needs a CUDA device; use impl='ref' on "
                          "the CPU")
+
+    def mamba_layer(model, x, mc: S.MambaCache, idx: int):
+        """Layer ``idx``'s Mamba2 decode step; its state updated in place."""
+        x, new = S.mamba_decode_step(model.layer(idx), x,
+                                     S.MambaCache(*(c[idx] for c in mc)), cfg)
+        for c, n in zip(mc, new):
+            c[idx].copy_(n)
+        return x
+
+    if cfg.family == "ssm":
+        def serve_step(model: TF.SSMLM, state, tokens: torch.Tensor):
+            """The reference's ssm branch: no paged KV (its fast budget is
+            0) and no tiering step; no kernel runs (the decode step is the
+            O(1)-state recurrence)."""
+            x = TF.embed_tokens(model, tokens, cfg)
+            for idx in range(cfg.num_layers):
+                x = mamba_layer(model, x, state["mamba"], idx)
+            return TF.lm_logits(model, x, cfg), dict(state)
+
+        return serve_step
+
     policy = make_policy(tcfg, dev)
     budget = fast_budget_pages(cfg, tcfg, batch, seq)
     window = cfg.sliding_window
@@ -121,8 +145,9 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                                   masses[1] / n_layers, tcfg, policy, budget,
                                   mode=mode, impl=impl)
 
-    if cfg.family == "dense":
-        def serve_step(model: TF.DenseLM, state, tokens: torch.Tensor):
+    if cfg.family in ("dense", "moe"):
+        def serve_step(model: TF._LM, state, tokens: torch.Tensor):
+            """Dense and moe (``moe_block_decode`` in place of the MLP)."""
             kv, lpage, masses, x = begin(state, model, tokens)
             pos = kv.seq_len[:, None]
             for i in range(n_layers):
@@ -151,11 +176,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                 x = TF.shared_attn_block(
                     sp, x, emb0, cfg, TF.cached_attention(
                         cfg, pos, attend_fn(kv, lpage, idx // every, masses)))
-            x, new = S.mamba_decode_step(
-                model.layer(idx), x, S.MambaCache(*(c[idx] for c in mc)),
-                cfg)
-            for c, n in zip(mc, new):
-                c[idx].copy_(n)
+            x = mamba_layer(model, x, mc, idx)
         kv = tiering(kv, masses)
         return TF.lm_logits(model, x, cfg), {**state, "kv": kv}
 

@@ -20,10 +20,11 @@ IMPLS = ("cuda", "ref")
 def make_prefill_step(cfg: ModelConfig, *, impl: Optional[str] = None,
                       device="cuda"):
     """Returns prefill_step(model, batch {"tokens": [B,S]}) -> the last
-    position's logits [B,V]: the full forward, whose self-attention runs K7
-    and whose Mamba2 blocks run K8 with ``impl="cuda"`` (the default on a
-    card), or their plain versions with ``impl="ref"`` (the default on the
-    CPU). Only the last position goes through the logits matmul (the
+    position's logits [B,V]: the full forward of a dense, moe, ssm or hybrid
+    model (``model_forward``), whose self-attention runs K7 and whose Mamba2
+    blocks run K8 with ``impl="cuda"`` (the default on a card), or their
+    plain versions with ``impl="ref"`` (the default on the CPU); the MoE
+    products are plain torch in both. Only the last position goes through the logits matmul (the
     reference computes all positions and keeps the last; the rows are
     independent)."""
     model_specs(cfg)                      # raises for an unported family

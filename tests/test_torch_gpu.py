@@ -749,3 +749,92 @@ def test_fleet_rollout_cuda_equals_ref_with_seams_on_card(chunk, cuda):
                                       whole.attribution_totals())
         np.testing.assert_allclose(a.latency_mean, whole.latency_mean,
                                    rtol=1e-6)
+
+
+# ------------------------------------- the decoder families (slice E1/F2a) ----
+FAMILY_ARCHS = ("granite_moe_3b_a800m", "mixtral_8x22b", "codeqwen15_7b",
+                "h2o_danube_3_4b", "qwen3_32b", "mamba2_130m")
+
+
+def _family_leaves(state):
+    """Every tensor of a serve state by dotted name (the KV cache's
+    metadata and pools, the Mamba2 state); the migration ring's hotness
+    column, float bits in an int32 array, as floats."""
+    out = {}
+    for key, tree in state.items():
+        for f in tree._fields:
+            v = getattr(tree, f)
+            if hasattr(v, "_fields"):
+                out.update({f"{key}.{f}.{g}": getattr(v, g)
+                            for g in v._fields})
+            elif torch.is_tensor(v):
+                out[f"{key}.{f}"] = v
+    if "kv.ring.data" in out:
+        ring = out.pop("kv.ring.data")
+        out["kv.ring.data"] = ring[:, :4]
+        out["kv.ring.hot"] = ring[:, 4].contiguous().view(torch.float32)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["equilibria", "tpp", "static"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_serve_step_cuda_equals_ref_on_card(arch, mode, cuda):
+    """The new families' serve steps at their smoke widths in float32,
+    impl "cuda" (K5, K6) against "ref" over 48 steps (past the windowed
+    configs' window of 32), two tenants bounded at 3 pages: integer state
+    bitwise, floats and logits within 1e-4 (float32 sums in another
+    order)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve import decode as SD
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    tcfg = TieringConfig(n_tenants=2, page_tokens=4, thrash_table_slots=64,
+                         lower_protection=(2, 2), upper_bound=(3, 3))
+    B, steps = 8, 48
+    model = make_model(cfg, seed=0, device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, steps)).astype(np.int32), device=cuda)
+    step_c = SD.build_serve_step(cfg, tcfg, B, steps, mode=mode,
+                                 impl="cuda", device=cuda)
+    step_r = SD.build_serve_step(cfg, tcfg, B, steps, mode=mode,
+                                 impl="ref", device=cuda)
+    sc = SD.init_serve_state(cfg, tcfg, B, steps, device=cuda)
+    sr = SD.init_serve_state(cfg, tcfg, B, steps, device=cuda)
+    with torch.no_grad():
+        for i in range(steps):
+            lc, sc = step_c(model, sc, toks[:, i:i + 1])
+            lr, sr = step_r(model, sr, toks[:, i:i + 1])
+            torch.testing.assert_close(lc, lr, atol=1e-4, rtol=1e-4)
+            a, b = _family_leaves(sc), _family_leaves(sr)
+            assert sorted(a) == sorted(b)
+            for name, x in a.items():
+                if x.is_floating_point():
+                    torch.testing.assert_close(x, b[name], atol=1e-4,
+                                               rtol=1e-4, msg=name)
+                else:
+                    assert torch.equal(x, b[name]), f"step {i}: {name}"
+    if "kv" in sc:
+        assert sc["kv"].t == steps == sr["kv"].t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_prefill_cuda_equals_ref_on_card(arch, cuda):
+    """``make_prefill_step`` of the new families at their smoke widths in
+    float32 at S=64 (past the smoke window), impl "cuda" (K7, or K8 for
+    mamba2) against "ref", within 1e-4 of max |logit|."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import make_model
+    from repro_torch.train.step import make_prefill_step
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = make_model(cfg, seed=0, device=cuda)
+    toks = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32), device=cuda)}
+    got = make_prefill_step(cfg, impl="cuda", device=cuda)(model, toks)
+    want = make_prefill_step(cfg, impl="ref", device=cuda)(model, toks)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < 1e-4, rel

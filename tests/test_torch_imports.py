@@ -152,7 +152,8 @@ def _constructors(**dev):
     from repro_torch.launch import serve as launch_serve
     from repro_torch.memtier import kvcache
     from repro_torch.models import ssm
-    from repro_torch.models.transformer import DenseLM, HybridLM, make_model
+    from repro_torch.models.transformer import (DenseLM, HybridLM, MoELM,
+                                                SSMLM, make_model)
     from repro_torch.obs import (attribution, counterfactual, dashboard,
                                  fleet, sketch, stats, streaming, trace)
     from repro_torch.serve import decode
@@ -162,6 +163,8 @@ def _constructors(**dev):
     owner = np.repeat(np.arange(2, dtype=np.int32), 4)
     mcfg = get_smoke_config("llama32_1b")
     hcfg = get_smoke_config("zamba2_7b")
+    ecfg = get_smoke_config("granite_moe_3b_a800m")
+    scfg = get_smoke_config("mamba2_130m")
 
     def param_tree(model_cfg=mcfg):
         tree: dict = {}
@@ -265,6 +268,22 @@ def _constructors(**dev):
                                  2, 4, device="cpu"), **dev),
         "launch.serve[hybrid]": lambda: launch_serve.main(
             ["--arch", "zamba2_7b"] + cli),
+        "MoELM": lambda: MoELM(ecfg, **dev),
+        "SSMLM": lambda: SSMLM(scfg, **dev),
+        "build_serve_step[moe]": lambda: decode.build_serve_step(
+            ecfg, cfg, 2, 8, **dev),
+        "build_serve_step[ssm]": lambda: decode.build_serve_step(
+            scfg, cfg, 2, 8, **dev),
+        "init_serve_state[ssm]": lambda: decode.init_serve_state(
+            scfg, cfg, 2, 8, **dev),
+        "make_prefill_step[moe]": lambda: make_prefill_step(ecfg, **dev),
+        "make_prefill_step[ssm]": lambda: make_prefill_step(scfg, **dev),
+        "params_from_numpy[moe]": lambda: convert.params_from_numpy(
+            param_tree(ecfg), ecfg, **dev),
+        "launch.serve[moe]": lambda: launch_serve.main(
+            ["--arch", "granite_moe_3b_a800m"] + cli),
+        "launch.serve[ssm]": lambda: launch_serve.main(
+            ["--arch", "mamba2_130m"] + cli),
     }
 
 

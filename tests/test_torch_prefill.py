@@ -389,8 +389,8 @@ def test_self_attention_matches_reference_dense_path():
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(t_smoke("llama32_1b"), family="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
+    cfg = dataclasses.replace(t_smoke("llama32_1b"), family="encdec")
+    with pytest.raises(NotImplementedError, match="encdec"):
         TF.model_specs(cfg)
     with pytest.raises(NotImplementedError, match="still to port"):
         t_prefill(cfg, device=CPU)
