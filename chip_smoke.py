@@ -10,7 +10,8 @@ tiering tick through ``simulate`` / ``run_engine``; tiered paged-KV serving
 of Llama 3.2 1B and of Zamba2-7B through ``build_serve_step``; the prefill
 of both through ``make_prefill_step``; the churn tick; the fleet through
 ``run_fleet`` / ``run_mixed_fleet`` / ``fleet_rollout``; serving and the
-prefill of the moe, ssm and remaining dense configs — and checks what
+prefill of the moe, ssm and remaining dense configs, and of the encdec
+(whisper-tiny) and vlm (Llama 3.2 Vision) families — and checks what
 comes out. Phases,
 one line each, each with its duration:
 
@@ -129,6 +130,32 @@ one line each, each with its duration:
      (past a 4,096 window), bf16 and f32; K6 bitwise at each new page
      size; K7 at each new head shape, causal and window 4,096, S = 4,096
      and 32,768: time, plain, the faster SDPA form, bound
+
+ 32. encdec: whisper-tiny at full width and depth (4 + 4 layers, f32
+     weights), its biases opened (seeded, nonzero): 64 x 256 serving under
+     ``full_load`` (the budget binds) with the cross K/V from
+     ``encode_frames`` + ``compute_cross_kv`` on seeded frames, cuda vs
+     ref step by step as phase 27 (integers every step; K5's first call
+     each step and every K6 call that moves a page held on the path); the
+     prefill as phase 28 with the frames in the batch, layer 0's encoder
+     (full, 1,500 x 1,500), decoder self (causal) and cross (Sq > Skv) K7
+     calls each held on the path; decode == forward in f32 over 4 x 128
+     steps. Its random model carries a last-bit change to every output (a
+     one-ulp witness is printed beside each comparison), so its logits and
+     hotness are held block by block: one decode step and the prefill in
+     bf16 and f32 with each block fed the ref run's input, and decode ==
+     forward with each block fed the forward's input (``block_trace``);
+     float32 runs are also held end to end within 10x their witness
+ 33. vlm: Llama 3.2 Vision at full width and depth 10 of 100 (two units of
+     4 self + 1 gated cross layer, bf16 weights), its gates opened: the
+     prefill (compared at B=1; self and cross K7 held on the path) and
+     16 x 64 serving, held end to end as phases 27-29 (K5 on the path to a
+     bound that grows with its scores, ``k5_vs_plain``) and block by block
+     as phase 32; decode == forward in f32 as phase 32
+ 34. K7's cross-attention shapes (whisper H=6 D=64 against 1,500 frames,
+     the vlm's H=64 K=8 D=128 against 1,600 image tokens; Sq = 4,096 and
+     32,768) and the encoder's 1,500 x 1,500, non-causal, bf16: time,
+     plain (where its scores fit), non-causal SDPA, bound
 
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -823,6 +850,9 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
     step_c = SD.build_serve_step(cfg, tcfg, B, seq, mode=mode, impl="cuda")
     step_r = SD.build_serve_step(cfg, tcfg, B, seq, mode=mode, impl="ref")
     state = SD.init_serve_state(cfg, tcfg, B, seq)
+    if ctx.get("cross") is not None:       # encdec, vlm: precomputed K/V
+        state["cross_k"], state["cross_v"] = (x.clone()
+                                              for x in ctx["cross"])
     rec = ctx["rec"]
     out = {"logit_rel": [], "hot_err": [], "float_err": 0.0, "flips": [],
            "route_flips": [], "snapshot": None, "logits": []}
@@ -894,11 +924,13 @@ def serve_compare(torch, np, ctx, mode: str, steps: int, tol: dict,
     return out
 
 
-def check_compare(np, run, tol: dict, what: str) -> None:
+def check_compare(np, run, tol: dict, what: str,
+                  hold_floats: bool = True) -> None:
     """Print a ``serve_compare`` run's agreement (max and p99 over steps)
     and raise unless it is within ``tol``: the integers in every step (a
     flip excused only within its deciding margin), logits and hotness in
-    every step whose expert routing agrees (all steps but a moe model's)."""
+    every step whose expert routing agrees (all steps but a moe model's),
+    unless ``hold_floats`` is False (a cell held block by block)."""
     routed = {i for i, _, _ in run["route_flips"]}
     lr_all = np.asarray(run["logit_rel"])
     lr = np.asarray([v for i, v in enumerate(run["logit_rel"])
@@ -927,12 +959,16 @@ def check_compare(np, run, tol: dict, what: str) -> None:
         require(margin <= tol["hot_atol"], f"{what} step {i}: integers "
                 f"differ in {bad} with deciding margin {margin:.3g} > "
                 f"{tol['hot_atol']}")
+    require(run["float_err"] <= 1e-5, f"{what}: float state differs by "
+            f"{run['float_err']:.3g}")
+    if not hold_floats:
+        phase(what, "logits and hotness not held end to end here: the "
+                    "cell is held block by block (serve_layer_check)")
+        return
     require(lr.max() <= tol["logit_rtol"], f"{what}: logits differ by "
             f"{lr.max():.3g} of max |logit| > {tol['logit_rtol']}")
     require(he.max() <= tol["hot_atol"], f"{what}: hotness differs by "
             f"{he.max():.3g} > {tol['hot_atol']}")
-    require(run["float_err"] <= 1e-5, f"{what}: float state differs by "
-            f"{run['float_err']:.3g}")
 
 
 # ----------------------------------------------------------- phase 11 ----
@@ -1237,23 +1273,29 @@ def k8_vs_plain(torch, SSD_REF, out, x, a, b, c, *, chunk, impl="cuda"
 
 @contextlib.contextmanager
 def on_path(mod, name: str, compare, found: list, label: str,
-            every: int = 0):
+            every: int = 0, kind=None):
     """While active, the first ``impl="cuda"`` call of ``mod.name`` on a card
-    tensor (with ``every``, also each ``every``-th such call after it) is
-    held against its plain version by ``compare(out, *args, **kwargs)``;
-    its readings go to ``found``, tagged ``label``. The path's own output
+    tensor (with ``every``, also each ``every``-th such call after it; with
+    ``kind(*args, **kwargs)``, the first call of each kind) is held
+    against its plain version by ``compare(out, *args, **kwargs)``; its
+    readings go to ``found``, tagged ``label``. The path's own output
     stands for the kernel's, so the check launches nothing. The op counts
     its launches on the module's global of its name, the hook while it is
     active; the count is carried over both ways."""
     orig = getattr(mod, name)
     calls = [0]
+    kinds: set = set()
 
     def hooked(*args, **kwargs):
         out = orig(*args, **kwargs)
         if kwargs.get("impl", "cuda") == "cuda" and args[0].is_cuda:
             n = calls[0]
             calls[0] += 1
-            if n == 0 or (every and n % every == 0):
+            new = kind is not None and kind(*args, **kwargs) not in kinds
+            if new:
+                kinds.add(kind(*args, **kwargs))
+            if new or (kind is None and n == 0) or (every and n % every
+                                                    == 0):
                 found.extend(dict(r, label=label)
                              for r in compare(out, *args, **kwargs))
         return out
@@ -1294,7 +1336,7 @@ def k6_on_path(torch, KMIG, RMIG, held: list, label: str):
 
 
 def prefill_agree(torch, make_prefill_step, model, toks, tol: float,
-                  LAYERS) -> tuple:
+                  LAYERS, extra=None, layered: bool = False) -> tuple:
     """Last-position logits of ``make_prefill_step`` with impl "cuda" and
     "ref" on the same model and tokens; raises unless finite and within
     ``tol`` of max |logit|, where a moe model's expert routing (top-k and
@@ -1305,7 +1347,7 @@ def prefill_agree(torch, make_prefill_step, model, toks, tol: float,
     for impl in ("cuda", "ref"):
         with moe_inputs(LAYERS, calls[impl]):
             outs[impl] = make_prefill_step(cfg, impl=impl)(
-                model, {"tokens": toks})
+                model, {"tokens": toks, **(extra or {})})
     got, want = outs["cuda"], outs["ref"]
     require(got.shape == (toks.shape[0], cfg.vocab_size), "prefill shape")
     require(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite")
@@ -1313,14 +1355,16 @@ def prefill_agree(torch, make_prefill_step, model, toks, tol: float,
                 / want.float().abs().max())
     routed = route_diff(torch, *(moe_routes(torch, LAYERS, cfg, calls[i])
                                  for i in ("cuda", "ref")))
-    require(rel <= tol or any(routed), f"{cfg.name} {cfg.dtype} prefill: "
-            f"cuda vs ref {rel:.3g} > {tol} with the expert routing equal")
+    require(rel <= tol or any(routed) or layered, f"{cfg.name} {cfg.dtype} "
+            f"prefill: cuda vs ref {rel:.3g} > {tol} with the expert routing "
+            "equal")
     return rel, routed
 
 
-def time_prefill(torch, step, model, toks):
-    """(warm-up ms, ms, peak GiB) of two prefills (CUDA events); the second
-    is the measurement, its peak memory from a reset."""
+def time_prefill(torch, step, model, toks, extra=None):
+    """(warm-up ms, ms, peak GiB) of two prefills (CUDA events) of the batch
+    ``toks`` (and ``extra``'s encoder input); the second is the
+    measurement, its peak memory from a reset."""
     out = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1328,7 +1372,7 @@ def time_prefill(torch, step, model, toks):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        logits = step(model, {"tokens": toks})
+        logits = step(model, {"tokens": toks, **(extra or {})})
         e.record()
         torch.cuda.synchronize()
         require(bool(torch.isfinite(logits).all()), "prefill: non-finite")
@@ -2015,6 +2059,7 @@ LAYER_RTOL = 5e-2
 # into every output (granite on an H100, PERF.md: 9.5e-4 absolute,
 # 5x phase 8's atol of 1e-4, on outputs of order 1)
 K5_PATH_RTOL = 1e-3
+K5_PATH_SCORES = 1e3
 SERVE_CLASSES = (("K5 tiered attention", DEVICE_KERNELS[
     "pool_attention_partial"]), ("K6 migrate_pages", ("migrate_pages",)))
 
@@ -2046,18 +2091,32 @@ def n_parameters(model) -> int:
 
 
 def k5_vs_plain(torch, TA_REF, out, q, pool_k, pool_v, slot_page, seq_len,
-                *, window=None, sm_scale=None) -> list:
+                *, window=None, sm_scale=None, score_scaled=False) -> list:
     """K5's (acc, m, l, mass) on the path vs the plain version on the same
     tensors, each within ``K5_PATH_RTOL`` of its own max |value|: one
-    reading, the largest share of the bound over the four."""
+    reading, the largest share of the bound over the four. With
+    ``score_scaled``, the bound grows with the path's max |score| past
+    ``K5_PATH_SCORES`` (``K5_PATH_RTOL`` was set at scores near 10^3; the
+    float32 rounding of a score, and so of each softmax weight, grows with
+    its magnitude)."""
     want = TA_REF.pool_attention_partial_ref(q, pool_k, pool_v, slot_page,
                                              seq_len, window=window,
                                              sm_scale=sm_scale)
-    rs = [reading(torch, "", g, w, K5_PATH_RTOL * float(w.abs().max()), 0.0)
+    b, h, d = q.shape
+    kh = pool_k.shape[-2]
+    smax = float((torch.einsum(
+        "bkgd,btkd->bkgt", q.float().reshape(b, kh, h // kh, d),
+        pool_k.float().reshape(b, -1, kh, d)).abs().max()) * (
+            sm_scale if sm_scale is not None else d ** -0.5))
+    rtol = K5_PATH_RTOL * (max(1.0, smax / K5_PATH_SCORES) if score_scaled
+                           else 1.0)
+    rs = [reading(torch, "", g, w, rtol * float(w.abs().max()), 0.0)
           for g, w in zip(out, want)]
     worst = max(rs, key=lambda r: r["share"])
     return [dict(worst, what=f"K5 q {_shape(q)} pool {_shape(pool_k)} "
-                             f"window={window}")]
+                             f"window={window} max |score| {smax:.4g}"
+                             + (f" (bound {rtol:.3g} of each output's max "
+                                "|value|)" if score_scaled else ""))]
 
 
 def one_ulp(torch, x):
@@ -2148,7 +2207,9 @@ def moe_layer_check(torch, env: dict, model, tcfg, seq: int, snap, tok,
 
 def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
                seed: int, tag: str, side_steps: int = 0,
-               profile: bool = False, need_moves: bool = False) -> dict:
+               profile: bool = False, need_moves: bool = False,
+               cross=None, layered: bool = False,
+               k5_scaled: bool = False) -> dict:
     """Phase 9's serving check at ``model``'s config: ``batch`` sequences x
     ``steps`` teacher-forced steps under ``full_load``, equilibria, impl
     "cuda" against "ref" step by step from a shared state (``check_compare``:
@@ -2159,7 +2220,13 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
     by one (``moe_layer_check``); tpp and static for ``side_steps`` each;
     with ``profile`` one profiled step; K5 and K6 timed on the run's own
     cache. K5 and K6 must launch, and with ``need_moves`` pages must move
-    (and K6's path check must have held some). Returns the run's numbers."""
+    (and K6's path check must have held some). ``cross``: the encdec's or
+    vlm's precomputed cross K/V, copied into each run's initial state; for
+    these families one step is also held block by block
+    (``serve_layer_check``), and with ``layered`` the end-to-end logits
+    and hotness are printed beside the one-ulp witness but held only
+    through that check. ``k5_scaled``: K5's path bound grows with the
+    path's scores (``k5_vs_plain``). Returns the run's numbers."""
     F, SD, TA, TA_REF = env["F"], env["SD"], env["TA"], env["TA_REF"]
     KMIG, RMIG, swrap = env["KMIG"], env["RMIG"], env["swrap"]
     cfg = model.cfg
@@ -2179,7 +2246,7 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
     try:
         ctx = dict(SD=SD, fused_mul_add=env["fused_mul_add"], cfg=cfg,
                    tcfg=tcfg, model=model, toks=toks, steps=steps, rec=rec,
-                   LAYERS=env["LAYERS"])
+                   LAYERS=env["LAYERS"], cross=cross)
         torch.cuda.reset_peak_memory_stats()
         for w in swrap.values():
             w.launches = 0
@@ -2187,8 +2254,9 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
         # K5 runs twice a KV layer (fast and slow pool): layer 0's fast
         # call opens every step
         with on_path(TA, "pool_attention_partial", functools.partial(
-                k5_vs_plain, torch, TA_REF), path, tag,
-                every=2 * cfg.num_layers), \
+                k5_vs_plain, torch, TA_REF, score_scaled=k5_scaled), path,
+                tag,
+                every=2 * env["KC"].kv_layer_count(cfg)), \
                 k6_on_path(torch, KMIG, RMIG, moved, tag):
             run = serve_compare(torch, np, ctx, "equilibria", steps,
                                 TOL["bf16"], snapshot_at=steps // 2)
@@ -2228,10 +2296,12 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
         out["k6_path_calls"], out["k6_path_pages"] = len(moved), sum(moved)
         phase(f"{tag}-path", f"K6 on the path: {len(moved)} of "
               f"{launches['migrate_pages']} calls moved pages ("
-              f"{sum(moved)} sequences' pages over {cfg.num_layers} layers, "
+              f"{sum(moved)} sequences' pages over "
+              f"{env['KC'].kv_layer_count(cfg)} KV layers, "
               "K and V), each bitwise equal to the plain version on the "
               "path's own pools and indices")
-        check_compare(np, run, TOL["bf16"], f"{tag}-agree")
+        check_compare(np, run, TOL["bf16"], f"{tag}-agree",
+                      hold_floats=not layered)
         for name, n in launches.items():
             require(n > 0, f"{tag}: the serving path never launched {name}")
         if need_moves:
@@ -2280,6 +2350,10 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
                                               for nm, t, n in top[:8]))
         if cfg.family == "moe":
             out["layers"] = moe_layer_check(
+                torch, env, model, tcfg, steps, snap,
+                toks[:, steps // 2:steps // 2 + 1], tag)
+        if cfg.family in DEC_BLOCKS:
+            out["layers"] = serve_layer_check(
                 torch, env, model, tcfg, steps, snap,
                 toks[:, steps // 2:steps // 2 + 1], tag)
         del snap
@@ -2666,16 +2740,25 @@ def family_phases(torch, np, env: dict) -> dict:
     return res
 
 
+def k7_kind(q, k, v, *, causal=True, window=None, impl="cuda") -> str:
+    """The kind of a K7 call: causal self-attention (or windowed), full
+    self-attention (an encoder's) or cross-attention (Sq != Skv)."""
+    if causal or window is not None:
+        return "causal" if window is None else "window"
+    return "full" if q.shape[2] == k.shape[2] else "cross"
+
+
 def path_hooks(torch, env: dict, label: str, tail=None, scaled=False):
     """The ``on_path`` hooks of K7 (its last ``tail`` query rows; the bound
-    ``scaled`` or not, ``k7_vs_plain``) and K8: the first kernel call of a
-    prefill held against the plain version on the path's own arguments,
-    readings to ``env["checks"]``."""
+    ``scaled`` or not, ``k7_vs_plain``) and K8: the first kernel call of
+    each K7 kind (``k7_kind``) and the first K8 call of a prefill held
+    against the plain version on the path's own arguments, readings to
+    ``env["checks"]``."""
     stack = contextlib.ExitStack()
     stack.enter_context(on_path(
         env["FA"], "flash_attention", functools.partial(
             k7_vs_plain, torch, env["FA_REF"], tail=tail, scaled=scaled),
-        env["checks"], label))
+        env["checks"], label, kind=k7_kind))
     stack.enter_context(on_path(
         env["SSD"], "ssd_scan", functools.partial(
             k8_vs_plain, torch, env["SSD_REF"]), env["checks"], label))
@@ -2683,12 +2766,18 @@ def path_hooks(torch, env: dict, label: str, tail=None, scaled=False):
 
 
 def run_prefill_cell(torch, np, env: dict, model, label, tag="14-prefill",
-                     batch=PREFILL_B, tail=PATH_TAIL, scaled=False):
+                     batch=PREFILL_B, tail=PATH_TAIL, scaled=False,
+                     extra=None, layered=False):
     """Phase 14's prefill cell at ``model``'s config: cuda vs ref at
     S=4,096 in bf16 and f32, then one timed prefill at B=1, S=32,768 after
-    a warm-up, with layer 0's K7 and K8 calls held on the path (K7's bound
-    ``scaled`` or not, ``k7_vs_plain``). Records ``env["rows"][label]``;
-    returns (the step, the timed tokens)."""
+    a warm-up, with layer 0's K7 (each kind) and K8 calls held on the path
+    (K7's bound ``scaled`` or not, ``k7_vs_plain``). ``extra(b)`` gives
+    the encoder input of a batch of ``b`` (encdec, vlm), whose prefill is
+    also held block by block (``prefill_layer_check``); with ``layered``
+    its end-to-end logits are printed but held only through that check.
+    Records ``env["rows"][label]``; returns (the step, the timed
+    tokens)."""
+    extra = extra or (lambda b: {})
     make_prefill_step, pwrap = env["make_prefill_step"], env["pwrap"]
     cfg_m = model.cfg
     toks = torch.as_tensor(np.random.default_rng(14).integers(
@@ -2700,30 +2789,36 @@ def run_prefill_cell(torch, np, env: dict, model, label, tag="14-prefill",
                         scaled=scaled):
             rel[dt], routed[dt] = prefill_agree(
                 torch, make_prefill_step, with_dtype(model, dt), toks,
-                PREFILL_TOL[dt], env["LAYERS"])
+                PREFILL_TOL[dt], env["LAYERS"], extra(batch), layered)
+    layers = (prefill_layer_check(torch, env, model, toks, extra(batch), tag)
+              if cfg_m.family in FWD_BLOCKS else None)
     step = make_prefill_step(cfg_m, impl="cuda")
     toks = torch.as_tensor(np.random.default_rng(15).integers(
         0, cfg_m.vocab_size, (TIMED_B, TIMED_S)).astype(np.int32),
         device="cuda")
     # layer 0's K7 (last ``tail`` query rows) and K8 (all 128 chunks)
     # at the timed length, in a prefill of its own
+    timed_extra = extra(TIMED_B)
     with path_hooks(torch, env, f"{label} B={TIMED_B} S={TIMED_S} "
                     f"{cfg_m.dtype}", tail=tail, scaled=scaled):
-        step(model, {"tokens": toks})
+        step(model, {"tokens": toks, **timed_extra})
     torch.cuda.synchronize()
     for w in pwrap.values():
         w.launches = 0
-    warm_ms, ms, peak = time_prefill(torch, step, model, toks)
+    warm_ms, ms, peak = time_prefill(torch, step, model, toks, timed_extra)
     n = {k: w.launches // 2 for k, w in pwrap.items()}
     env["rows"][label] = dict(ms=ms, peak=peak, launches=n,
                               layers=cfg_m.num_layers,
                               ssm=cfg_m.family == "ssm")
+    if layers is not None:
+        env["rows"][label]["blocks"] = layers
     def agreement(dt):
         r = routed[dt]
         first = next((i for i, d in enumerate(r) if d), None)
         held = rel[dt] <= PREFILL_TOL[dt]
         return (f"{rel[dt]:.3g}" + (f" <= {PREFILL_TOL[dt]}" if held else
-                                    ", not held")
+                                    ", held block by block" if layered
+                                    else ", not held")
                 + ("" if not r else " (expert routing equal in every layer)"
                    if first is None else f" (expert routing differs from "
                    f"layer {first}: {r[first]} decisions there, {sum(r)} "
@@ -2791,6 +2886,462 @@ def record_families(rows: list, fam: dict, prefill_rows: dict,
             [by_name[k]["max_abs_err"]] + [
                 r["err"] for r in checks
                 if r["what"].startswith(KERNEL_TAG[k])])
+
+
+# ------------------------------------------------------ phases 32-34 ----
+# the encoder-decoder and vision families (slice E1/F2b), at full width
+WHISPER, VISION = "whisper_tiny", "llama32_vision_90b"
+# Llama 3.2 Vision 90B's 87.7B parameters fit no single card in any dtype:
+# its full width at 10 of its 100 layers (two units of 4 self layers and 1
+# gated cross layer), bf16 weights (10.66B parameters)
+VISION_DEPTH = 10
+ENC_INPUT_STD = 0.02     # the reference's data/pipeline.py encoder inputs
+# phase 34: the query lengths of K7's cross-attention calls
+CROSS_SQ = (PREFILL_S, TIMED_S)
+# plain K7's float32 scores [H, Sq, Skv] are timed up to 4 GiB
+PLAIN_SCORES_BYTES = 1 << 32
+# The blocks whose input and output the layer checks read, by family, in
+# the full-sequence forward and in the decode step (x is each one's second
+# argument; ``decoder_block`` returns (x, aux)); the encoder's blocks only
+# in the prefill, whose decoder blocks follow them.
+FWD_BLOCKS = {"encdec": ("encoder_block", "encdec_dec_block"),
+              "vlm": ("decoder_block", "cross_block")}
+DEC_BLOCKS = {"encdec": ("encdec_dec_block",),
+              "vlm": ("decoder_block_decode", "cross_block")}
+# A block's output against the ref run's (or the forward's), both fed the
+# same input, relative to the ref output's max |value|: in bf16 one ulp is
+# 2^-8 of a value (LAYER_RTOL, phase 27's bound); in float32 sums in
+# another order move a score by about |s| 2^-24 per add, and the softmax
+# carries that into the block's output. The stacked init's scores reach
+# 450 on whisper's path and 1.9e4 on the vlm's (K5 on the path, NVIDIA
+# H100 80GB HBM3, 700 W): at K5_PATH_RTOL's rate of 1e-3 per 10^3 of
+# score that is 1e-2 and more
+BLOCK_RTOL = {"bfloat16": LAYER_RTOL, "float32": 1e-2}
+# A float32 run held block by block is also held end to end against its
+# witness: the kernels' last-bit differences enter at every attention
+# call, the witness's at one, and the random model carries either to the
+# logits (whisper: a one-ulp change at the first block reaches 0.18 of max
+# |logit| in its prefill); a wrong block would carry O(1) differences
+WITNESS_FACTOR = 10
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+@contextlib.contextmanager
+def block_trace(torch, TF, names, ins: list, outs: list, feed=None,
+                nudge: bool = False):
+    """While active, every call of the blocks ``names`` of ``TF`` appends
+    its input x and its output to ``ins`` and ``outs``, in call order. With
+    ``feed``, call i takes x = ``feed(i, x)`` (teacher forcing: each block
+    fed another run's input); with ``nudge``, the first call's x moves one
+    ulp (the witness of how far the model carries a last-bit change)."""
+    origs = {n: getattr(TF, n) for n in names}
+
+    def make(orig):
+        def block(p, x, *args, **kwargs):
+            i = len(ins)
+            if feed is not None:
+                x = feed(i, x)
+            elif nudge and i == 0:
+                x = one_ulp(torch, x)
+            ins.append(x)
+            out = orig(p, x, *args, **kwargs)
+            outs.append(out[0] if isinstance(out, tuple) else out)
+            return out
+        return block
+
+    for n, f in origs.items():
+        setattr(TF, n, make(f))
+    try:
+        yield
+    finally:
+        for n, f in origs.items():
+            setattr(TF, n, f)
+
+
+def layer_readings(torch, run, tag: str, what: str, dt: str) -> dict:
+    """``run(impl, feed=None, nudge=False) -> (ins, outs, logits)``, four
+    times: "ref"; "cuda" teacher-forced (each block fed the ref run's
+    input); "cuda" free-running; "ref" with the first block's input one
+    ulp off. Holds every teacher-forced block within ``BLOCK_RTOL[dt]`` of
+    the ref output's max |value|; prints the free-running and witness
+    divergence after each block and at the logits."""
+    r_in, r_out, r_lg = run("ref")
+    t_out = run("cuda", feed=lambda i, x: r_in[i])[1]
+    blocks = [_rel(a, b) for a, b in zip(t_out, r_out)]
+    _, f_out, f_lg = run("cuda")
+    free = [_rel(a, b) for a, b in zip(f_out, r_out)]
+    _, w_out, w_lg = run("ref", nudge=True)
+    witness = [_rel(a, b) for a, b in zip(w_out, r_out)]
+    out = dict(blocks=blocks, free=free, witness=witness,
+               free_logits=_rel(f_lg, r_lg), witness_logits=_rel(w_lg, r_lg))
+    phase(tag, f"{what}, {dt}, {len(blocks)} blocks: teacher-forced cuda vs "
+          f"ref max {max(blocks):.3g} (per block "
+          + " ".join(f"{x:.2g}" for x in blocks)
+          + f") <= {BLOCK_RTOL[dt]}; free-running "
+          + " ".join(f"{x:.2g}" for x in free)
+          + f", logits {out['free_logits']:.3g}; witness (ref, one ulp "
+          "off at the first block) " + " ".join(f"{x:.2g}" for x in witness)
+          + f", logits {out['witness_logits']:.3g}")
+    require(len(blocks) == len(r_out) and max(blocks) <= BLOCK_RTOL[dt],
+            f"{tag}: a block's cuda output differs from ref by "
+            f"{max(blocks):.3g} > {BLOCK_RTOL[dt]}")
+    return out
+
+
+def prefill_layer_check(torch, env: dict, model, toks, extra: dict,
+                        tag: str) -> dict:
+    """The prefill of an encdec or vlm model at ``toks`` in bf16 and f32,
+    block by block (``layer_readings``): each encoder, decoder and cross
+    block."""
+    TF, make_prefill_step = env["TF"], env["make_prefill_step"]
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        m = with_dtype(model, dt)
+
+        def run(impl, feed=None, nudge=False):
+            ins, outs = [], []
+            with torch.no_grad(), block_trace(
+                    torch, TF, FWD_BLOCKS[m.cfg.family], ins, outs, feed,
+                    nudge):
+                lg = make_prefill_step(m.cfg, impl=impl)(
+                    m, {"tokens": toks, **extra})
+            return ins, outs, lg
+
+        out[dt] = r = layer_readings(torch, run, f"{tag}-layers",
+                                     f"{m.cfg.name} prefill B="
+                                     f"{toks.shape[0]} S={toks.shape[1]}",
+                                     dt)
+        if dt == "float32":
+            require(r["free_logits"] <= max(
+                PREFILL_TOL[dt], WITNESS_FACTOR * r["witness_logits"]),
+                f"{tag}: f32 prefill cuda vs ref {r['free_logits']:.3g} > "
+                f"{WITNESS_FACTOR} x the witness {r['witness_logits']:.3g}")
+    return out
+
+
+def serve_layer_check(torch, env: dict, model, tcfg, seq: int, snap, tok,
+                      tag: str) -> dict:
+    """One bf16 decode step of an encdec or vlm model from the snapshot
+    ``snap`` (its cross K/V included), block by block
+    (``layer_readings``)."""
+    SD, TF = env["SD"], env["TF"]
+    cfg = model.cfg
+
+    def run(impl, feed=None, nudge=False):
+        ins, outs = [], []
+        step = SD.build_serve_step(cfg, tcfg, tok.shape[0], seq, impl=impl)
+        with torch.no_grad(), block_trace(torch, TF, DEC_BLOCKS[cfg.family],
+                                          ins, outs, feed, nudge):
+            lg, _ = step(model, clone_state(torch, snap), tok)
+        return ins, outs, lg
+
+    return layer_readings(torch, run, f"{tag}-layers",
+                          f"one step at position {seq // 2}", cfg.dtype)
+
+
+def open_gates(torch, np, model, seed: int) -> int:
+    """Give every scalar gate (``gate``, ``gate_mlp``) a value from U[0.5,
+    1.0] and every bias (``b1``, ``b2``) one from N(0, 0.1), seeded (the
+    CPU tests' ``open_tree``): the reference's init leaves them at zero,
+    which hides the gated cross blocks and the bias path. Returns the
+    number of values set."""
+    rng = np.random.default_rng(seed)
+    n = 0
+    for name, p in sorted(model.named_parameters()):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("gate", "gate_mlp"):
+            v = rng.uniform(0.5, 1.0, tuple(p.shape))
+        elif leaf in ("b1", "b2"):
+            v = rng.standard_normal(tuple(p.shape)) * 0.1
+        else:
+            continue
+        with torch.no_grad():
+            p.copy_(torch.as_tensor(v, dtype=torch.float32, device="cuda"))
+        n += p.numel()
+    return n
+
+
+def encoder_input(torch, np, cfg, batch: int) -> dict:
+    """A batch's seeded encoder input on the card, float32: {"frames": [B,
+    encoder_seq, d]} (encdec) or {"image_embeds": [B, n_img, d]} (vlm),
+    normal x ``ENC_INPUT_STD``."""
+    key, n = (("frames", cfg.encoder_seq) if cfg.family == "encdec"
+              else ("image_embeds", cfg.num_image_tokens))
+    x = np.random.default_rng(320 + batch).standard_normal(
+        (batch, n, cfg.d_model), dtype=np.float32) * ENC_INPUT_STD
+    return {key: torch.as_tensor(x, device="cuda")}
+
+
+def cross_kv(torch, env: dict, model, extra: dict):
+    """The cross K/V of every cross layer (impl "cuda": the encoder's K7)."""
+    SD, TF = env["SD"], env["TF"]
+    with torch.no_grad():
+        x = next(iter(extra.values()))
+        enc = (TF.encode_frames(model, x) if model.cfg.family == "encdec"
+               else x)
+        return SD.compute_cross_kv(model, model.cfg, enc)
+
+
+def cross_decode_forward(torch, np, env: dict, model, tag: str) -> dict:
+    """Decode == forward in float32, impl "cuda": ``FWD_BATCH`` x
+    ``FWD_STEPS`` teacher-forced tokens of the tiered decode, its cross K/V
+    from ``compute_cross_kv``, under bounds that put pages in the slow
+    tier, against ``model_forward`` of the same tokens and encoder input.
+    Held block by block: a second decode feeds every decoder and cross
+    block at step t the forward's input to that block at position t (so
+    its cache holds the forward's K/V), and each block's output must be
+    within ``BLOCK_RTOL["float32"]`` of the forward's at t, relative to
+    the forward block output's max |value|. End to end, the free-running
+    decode's logits are held within ``FWD_RTOL`` of the forward's or
+    ``WITNESS_FACTOR`` times a witness, the forward with its first block's
+    input one ulp off."""
+    SD, TF = env["SD"], env["TF"]
+    m32 = with_dtype(model, "float32")
+    cfg = m32.cfg
+    tcfg = env["TieringConfig"](n_tenants=2, page_tokens=16,
+                                thrash_table_slots=256,
+                                lower_protection=(2, 2), upper_bound=(3, 3))
+    toks = torch.as_tensor(np.random.default_rng(33).integers(
+        0, cfg.vocab_size, (FWD_BATCH, FWD_STEPS)).astype(np.int32),
+        device="cuda")
+    extra = encoder_input(torch, np, cfg, FWD_BATCH)
+    batch = {"tokens": toks, **extra}
+    cross = cross_kv(torch, env, m32, extra)
+    fwd_names = tuple(n for n in FWD_BLOCKS[cfg.family]
+                      if n != "encoder_block")
+
+    def forward(nudge=False):
+        ins, outs = [], []
+        with torch.no_grad(), block_trace(torch, TF, fwd_names, ins, outs,
+                                          nudge=nudge):
+            return TF.model_forward(m32, batch), ins, outs
+
+    def decode(feed=None):
+        state = SD.init_serve_state(cfg, tcfg, FWD_BATCH, FWD_STEPS)
+        state["cross_k"], state["cross_v"] = (x.clone() for x in cross)
+        step = SD.build_serve_step(cfg, tcfg, FWD_BATCH, FWD_STEPS)
+        logits, outs = [], []
+        with torch.no_grad():
+            for t in range(FWD_STEPS):
+                ins, o = [], []
+                with block_trace(torch, TF, DEC_BLOCKS[cfg.family], ins, o,
+                                 None if feed is None else
+                                 functools.partial(feed, t)):
+                    lg, state = step(m32, state, toks[:, t:t + 1])
+                logits.append(lg[:, 0])
+                outs.append(o)
+        return torch.stack(logits, dim=1), outs, state
+
+    ref, f_in, f_out = forward()
+    dec, _, state = decode()
+    rel = _rel(dec, ref)
+    witness = _rel(forward(nudge=True)[0], ref)
+    _, t_outs, _ = decode(feed=lambda t, i, x: f_in[i][:, t:t + 1])
+    blocks = [max(float((o[i].float() - f_out[i][:, t:t + 1].float()).abs()
+                        .max()) for t, o in enumerate(t_outs))
+              / float(f_out[i].float().abs().max()) for i in range(len(f_out))]
+    kv = state["kv"]
+    moves = int(kv.counters.promotions.sum() + kv.counters.demotions.sum())
+    slow = int((kv.slow_page >= 0).sum())
+    phase(tag, f"{cfg.name} f32, {FWD_BATCH} seqs x {FWD_STEPS} steps, cross "
+          f"K/V from compute_cross_kv, {moves} page moves, {slow} slow "
+          f"pages: teacher-forced decode vs forward, per block "
+          + " ".join(f"{x:.2g}" for x in blocks)
+          + f" <= {BLOCK_RTOL['float32']}; free-running max |decode - "
+          f"forward| / max |logit| = {rel:.3g} <= max({FWD_RTOL}, "
+          f"{WITNESS_FACTOR} x the witness (forward, one ulp off at the "
+          f"first block) {witness:.3g})")
+    require(bool(torch.isfinite(dec).all())
+            and all(len(o) == len(f_out) for o in t_outs)
+            and max(blocks) <= BLOCK_RTOL["float32"],
+            f"{tag}: decode != forward block by block: {max(blocks):.3g}")
+    require(rel <= max(FWD_RTOL, WITNESS_FACTOR * witness),
+            f"{tag}: decode != forward end to end: {rel:.3g}")
+    require(slow > 0, f"{tag}: no page in the slow tier")
+    return dict(rel=rel, witness=witness, blocks=blocks, moves=moves,
+                slow=slow)
+
+
+def k7_cross_numbers(torch, F, FA, FA_REF, H, K, D, Sq, Skv) -> dict:
+    """K7 on a full-attention call of one shape (cross-attention, Sq !=
+    Skv, or an encoder's Sq = Skv), B=1, bf16 inputs: agreement with the
+    plain version (on the last query rows whose scores fit
+    ``PATH_SCORES``), its time, the plain version's (where its [H, Sq,
+    Skv] float32 scores fit ``PLAIN_SCORES_BYTES``), non-causal SDPA's and
+    the bound over all Sq x Skv pairs."""
+    g = torch.Generator(device="cuda").manual_seed(34)
+    q = torch.randn((1, H, Sq, D), generator=g, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, K, Skv, D), generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    out = FA.flash_attention(q, k, v, causal=False)
+    tail = min(Sq, PATH_SCORES // (H * Skv))
+    want = FA_REF.flash_attention_ref(q[:, :, -tail:], k, v, causal=False)
+    err = float((out[:, :, -tail:].float() - want.float()).abs().max())
+    require(torch.allclose(out[:, :, -tail:].float(), want.float(),
+                           atol=K7_TOL["bfloat16"], rtol=K7_TOL["bfloat16"]),
+            f"K7 cross H={H} K={K} D={D} Sq={Sq} Skv={Skv}: max err {err}")
+    del want
+    n = 10 if Sq <= PREFILL_S else 3
+    t_bytes = 2 * (2 * H * Sq * D + 2 * K * Skv * D) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * H * D * Sq * Skv / BF16_OPS_PER_S * 1e3
+    plain = None
+    if 4 * H * Sq * Skv <= PLAIN_SCORES_BYTES:
+        plain = device_ms(lambda: FA_REF.flash_attention_ref(
+            q, k, v, causal=False), n=3)
+    return dict(H=H, K=K, D=D, Sq=Sq, Skv=Skv, err=err, tail=tail,
+                ms=device_ms(lambda: FA.flash_attention(q, k, v,
+                                                        causal=False), n=n),
+                plain_ms=plain,
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, enable_gqa=True), n=n),
+                library_form="non-causal GQA",
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def cross_phases(torch, np, env: dict) -> dict:
+    """Phases 32-34: whisper-tiny at full width and depth, Llama 3.2 Vision
+    at full width and depth ``VISION_DEPTH`` in bf16 weights, each with its
+    gates and biases opened and freed before the next; then K7's cross and
+    encoder shapes. Returns {"serve": {label: numbers}, "prefill":
+    [labels], "fwd": {...}, "k7": [...]} for the kernels' record."""
+    import dataclasses
+    from repro_torch.configs import (get_config, get_serve_load,
+                                     reduced_depth_config)
+    make_model, prefill_cell = env["make_model"], env["prefill_cell"]
+    res: dict = {"serve": {}, "prefill": [], "fwd": {}, "k7_calls": {}}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # ---- 32. whisper-tiny: serving (S8), prefill (P9), decode == forward --
+    free()
+    model = make_model(get_config(WHISPER), seed=0, device="cuda")
+    wcfg = model.cfg
+    n_open = open_gates(torch, np, model, seed=32)
+    phase("32-encdec", f"{wcfg.name}: {wcfg.encoder_layers} encoder and "
+          f"{wcfg.num_layers} decoder layers, d={wcfg.d_model}, "
+          f"{n_parameters(model):,} parameters ({wcfg.param_dtype}), "
+          f"{n_open:,} bias values opened")
+    B, steps = get_serve_load(WHISPER)
+    # whisper's random model carries a last-bit difference to every output
+    # (the witnesses printed beside each run), so its serving and prefill
+    # are held block by block, their end-to-end logits printed
+    res["serve"]["S8 whisper"] = serve_cell(
+        torch, np, env, model, batch=B, steps=steps, seed=32,
+        tag="32-encdec-serve", need_moves=True, layered=True,
+        cross=cross_kv(torch, env, model, encoder_input(torch, np, wcfg, B)))
+    prefill_cell(model, "whisper", tag="32-encdec-prefill", layered=True,
+                 extra=functools.partial(encoder_input, torch, np, wcfg))
+    res["prefill"].append("whisper")
+    res["k7_calls"]["whisper"] = wcfg.encoder_layers + 2 * wcfg.num_layers
+    res["fwd"]["whisper"] = cross_decode_forward(
+        torch, np, env, model, "32-encdec-forward")
+    del model
+    free()
+
+    # ---- 33. Llama 3.2 Vision at depth 10, bf16 weights (S9, P10) ---------
+    vcfg = dataclasses.replace(reduced_depth_config(VISION, VISION_DEPTH),
+                               param_dtype="bfloat16")
+    model = make_model(vcfg, seed=0, device="cuda")
+    n_open = open_gates(torch, np, model, seed=33)
+    phase("33-vlm", f"{vcfg.name} at depth {vcfg.num_layers} of 100 "
+          f"({vcfg.num_layers // vcfg.cross_attn_every} units of "
+          f"{vcfg.cross_attn_every - 1} self + 1 gated cross layer), "
+          f"d={vcfg.d_model}, {n_parameters(model):,} parameters "
+          f"(bf16), {n_open} gates opened; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # the stacked init's std of 1/sqrt(units) per weight (0.71 at two
+    # units) puts scores in the thousands, as Mixtral's depth 8 does: K7
+    # on the path is held to K7_TOL of each output's max |value| (phase 28)
+    prefill_cell(model, "vlm", tag="33-vlm-prefill", batch=1, scaled=True,
+                 tail=path_tail(vcfg),
+                 extra=functools.partial(encoder_input, torch, np, vcfg))
+    res["prefill"].append("vlm")
+    res["k7_calls"]["vlm"] = vcfg.num_layers      # self and cross layers
+    B, steps = get_serve_load(VISION)
+    res["serve"]["S9 vlm"] = serve_cell(
+        torch, np, env, model, batch=B, steps=steps, seed=33,
+        tag="33-vlm-serve", k5_scaled=True, cross=cross_kv(
+            torch, env, model, encoder_input(torch, np, vcfg, B)))
+    res["fwd"]["vlm"] = cross_decode_forward(torch, np, env, model,
+                                             "33-vlm-forward")
+    del model
+    free()
+
+    # ---- 34. K7's cross-attention and encoder shapes ----------------------
+    F, FA, FA_REF = env["F"], env["FA"], env["FA_REF"]
+    shapes = []
+    for arch in (WHISPER, VISION):
+        c = get_config(arch)
+        skv = c.encoder_seq if c.family == "encdec" else c.num_image_tokens
+        for sq in CROSS_SQ:
+            shapes.append((arch, c.num_heads, c.num_kv_heads,
+                           c.resolved_head_dim, sq, skv))
+    c = get_config(WHISPER)
+    shapes.append((f"{WHISPER} encoder", c.num_heads, c.num_kv_heads,
+                   c.resolved_head_dim, c.encoder_seq, c.encoder_seq))
+    k7 = []
+    for label, H, K, D, sq, skv in shapes:
+        r = k7_cross_numbers(torch, F, FA, FA_REF, H, K, D, sq, skv)
+        r["arch"] = label
+        k7.append(r)
+        plain = ("not measured (its [H, Sq, Skv] float32 scores)"
+                 if r["plain_ms"] is None else f"{r['plain_ms']:.4f}")
+        phase("34-k7-cross", f"flash_attention [{label} H={H} K={K} D={D}, "
+              f"B=1 Sq={sq} Skv={skv}, bf16, non-causal]: {r['ms']:.4f} ms "
+              f"(plain {plain}, library {r['library_ms']:.4f} (SDPA, "
+              f"{r['library_form']}), bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']})); max abs err {r['err']:.3g} over the "
+              f"last {r['tail']} query rows")
+        free()
+    res["k7"] = k7
+    return res
+
+
+def record_cross(rows: list, res: dict, prefill_rows: dict,
+                 checks: list) -> None:
+    """Phases 32-33's path checks (each within its bound: every K7 kind of
+    each prefill, at S=4,096 in bf16 and f32 and at S=32,768) and launch
+    counts (K7 once per encoder, self and cross layer), and the new paths'
+    launches and widths on the kernels' rows."""
+    for r in checks:
+        phase("32-33-prefill-path", f"{r['label']}: {r['what']}: max abs "
+              f"err {r['err']:.3g}, {r['share']:.3g} of the bound (atol "
+              f"{r['atol']}, rtol {r['rtol']})")
+        require(r["share"] <= 1.0, f"{r['label']} {r['what']}: max abs err "
+                                   f"{r['err']:.3g} exceeds the bound")
+    # whisper: encoder (full), decoder self (causal) and cross; the vlm:
+    # self (causal) and cross; three runs each
+    require(len(checks) == 3 * 3 + 3 * 2, f"cross path checks: "
+                                          f"{len(checks)} readings")
+    for label, n in res["k7_calls"].items():
+        got = prefill_rows[label]["launches"]
+        require(got == {"flash_attention": n, "ssd_scan": 0},
+                f"{label} prefill launches {got}, want {n} K7 calls")
+    by_name = {r["name"]: r for r in rows if "kernel" not in r}
+    for label, sv in res["serve"].items():
+        for k in ("pool_attention_partial", "migrate_pages"):
+            by_name[k].setdefault("family_launches", {})[label] = \
+                sv["launches"][k]
+            wk = "k5" if k == "pool_attention_partial" else "k6"
+            by_name[k].setdefault("family_widths", {})[label] = {
+                f: sv[wk][f] for f in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms")}
+    fa = by_name["flash_attention"]
+    for label in res["prefill"]:
+        fa.setdefault("family_launches", {})[f"prefill {label}"] = \
+            prefill_rows[label]["launches"]["flash_attention"]
+    fa["cross_shapes"] = res["k7"]
+    fa["max_abs_err"] = max([fa["max_abs_err"]]
+                            + [r["err"] for r in res["k7"]])
 
 
 # ---------------------------------------------------------- phase 18 ----
@@ -3345,7 +3896,7 @@ def main() -> int:
     prefill_cell = functools.partial(
         run_prefill_cell, torch, np, dict(
             FA=FA, FA_REF=FA_REF, SSD=SSD, SSD_REF=SSD_REF, pwrap=pwrap,
-            LAYERS=LAYERS,
+            LAYERS=LAYERS, TF=TF,
             make_prefill_step=make_prefill_step, rows=prefill_rows,
             checks=path_checks))
 
@@ -3647,13 +4198,18 @@ def main() -> int:
                                  if k in c}
 
     n_checks = len(path_checks)
-    fam = family_phases(torch, np, dict(
-        F=F, SD=SD, TF=TF, LAYERS=LAYERS, TA=TA, TA_REF=TA_REF, KMIG=KMIG,
-        RMIG=RMIG, FA=FA,
+    fam_env = dict(
+        F=F, SD=SD, TF=TF, KC=KC, LAYERS=LAYERS, TA=TA, TA_REF=TA_REF,
+        KMIG=KMIG, RMIG=RMIG, FA=FA,
         FA_REF=FA_REF, swrap=swrap, pwrap=pwrap, full_load=full_load,
         fused_mul_add=fused_mul_add, make_model=make_model,
-        prefill_cell=prefill_cell, ssm_lm_forward=ssm_lm_forward))
+        prefill_cell=prefill_cell, ssm_lm_forward=ssm_lm_forward,
+        TieringConfig=TieringConfig)
+    fam = family_phases(torch, np, fam_env)
     record_families(rows, fam, prefill_rows, path_checks[n_checks:])
+    n_checks = len(path_checks)
+    cross = cross_phases(torch, np, fam_env)
+    record_cross(rows, cross, prefill_rows, path_checks[n_checks:])
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

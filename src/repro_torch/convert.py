@@ -6,9 +6,11 @@ Every function reads a reference tree whose leaves were made numpy arrays
 * ``state_from_numpy`` / ``state_to_numpy``: the tiering engine's
   ``TierState``;
 * ``params_from_numpy``: the reference's parameter tree -> the port's
-  ``DenseLM``, ``MoELM``, ``SSMLM`` or ``HybridLM`` (names and layouts map
-  one to one: the moe layers' router and [L, E, d, f] experts, the ssm
-  LM's Mamba2 stack, the hybrid's ``shared`` block);
+  model of any family (names and layouts map one to one: the moe layers'
+  router and [L, E, d, f] experts, the ssm LM's Mamba2 stack, the hybrid's
+  ``shared`` block, the encdec's ``encoder``/``decoder`` stacks and
+  ``enc_ln``, the vlm's ``units.self`` with its two stacked axes and
+  ``units.cross`` with its scalar gates);
 * ``cache_from_numpy`` / ``cache_to_numpy``: the serving path's
   ``TieredKVCache``;
 * ``mamba_cache_from_numpy`` / ``mamba_cache_to_numpy``: the serving
@@ -98,8 +100,10 @@ def params_from_numpy(tree, cfg, device="cuda"):
     """The port's model of ``cfg``'s family from a reference parameter tree
     whose leaves were made numpy arrays (``{"embed": {...}, "layers": {...}}``
     with a stacked layer axis, ``layers.moe`` for the moe family, plus
-    ``"shared"`` for the hybrid). Names and layouts map one to one; every
-    leaf must match the model's shape."""
+    ``"shared"`` for the hybrid; ``encoder``, ``decoder`` and the top-level
+    leaf ``enc_ln`` for the encdec; ``units`` for the vlm, ``units.self``
+    stacked [n_units, every - 1, ...] and the gates [n_units]). Names and
+    layouts map one to one; every leaf must match the model's shape."""
     model = make_model(cfg, seed=None, device=device)
     params = dict(model.named_parameters())
     seen = set()

@@ -1253,8 +1253,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long osb, long long osh, long long oss,
                            int causal, int use_window, int window, float scale,
                            int is_bf16, cudaStream_t stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || K <= 0 || H % K != 0 || D <= 0 ||
-      D > kFaMaxD || Sq > Skv)
+  // Sq > Skv only for full attention (cross-attention): q_offset = Skv - Sq
+  // is read by the causal and window masks alone
+  if (B <= 0 || H <= 0 || Sq <= 0 || K <= 0 || Skv <= 0 || H % K != 0 ||
+      D <= 0 || D > kFaMaxD || (Sq > Skv && (causal || use_window)))
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * ((size_t)kFaBQ * (D + 1) + (size_t)kFaBK * (D + 1) +

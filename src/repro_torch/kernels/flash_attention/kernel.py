@@ -4,8 +4,12 @@
 kernel.py`` ``flash_attention_tpu``. Bound by operations: the products
 Q K^T and P V of every pair of tiles inside the causal / sliding-window
 band. The kv head of query head h is h // (H/K), with no expansion. Any
-Sq <= Skv and any head dim up to 128 (the TPU wrapper's padding of D to 128
-lanes is not needed; ``sm_scale`` is 1/sqrt(D)). q, k and v are read
+Sq <= Skv, and any Sq against any Skv for full attention (neither causal
+nor windowed: cross-attention, whose queries outnumber the encoder's or
+image's keys at prefill length; the right-aligned query offset Skv - Sq is
+read only by the causal and window masks), and any head dim up to 128
+(the TPU wrapper's padding of D to 128 lanes is not needed; ``sm_scale`` is
+1/sqrt(D)). q, k and v are read
 through their strides, so [B, S, H, D] activations viewed as [B, H, S, D]
 need no copy.
 
@@ -44,12 +48,15 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         check_strided(x, (q.dtype,), 4, name)
     B, H, Sq, D = q.shape
     K, Skv = k.shape[1], k.shape[2]
+    full = not causal and window is None
     if (k.shape != (B, K, Skv, D) or v.shape != k.shape or H % K
-            or not 1 <= D <= MAX_HEAD_DIM or not 1 <= Sq <= Skv):
+            or not 1 <= D <= MAX_HEAD_DIM or Sq < 1 or Skv < 1
+            or (Sq > Skv and not full)):
         raise ValueError(
             f"flash_attention: bad shapes q {tuple(q.shape)} k "
             f"{tuple(k.shape)} v {tuple(v.shape)} (K divides H, head dim "
-            f"<= {MAX_HEAD_DIM}, 1 <= Sq <= Skv)")
+            f"<= {MAX_HEAD_DIM}, 1 <= Sq <= Skv unless neither causal nor "
+            "windowed)")
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]

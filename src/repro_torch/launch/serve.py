@@ -1,6 +1,5 @@
 """Multi-tenant serving launcher: Equilibria-tiered paged-KV decode (torch
-port of the reference's ``launch/serve.py``; dense, moe, ssm and hybrid
-families).
+port of the reference's ``launch/serve.py``; every family).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama32_1b \\
       --smoke --tenants 4 --batch 8 --steps 48 --mode equilibria --bound 3 \\
@@ -10,7 +9,15 @@ families).
       --device cpu
 
 (and ``--arch`` any of ``configs.ARCH_IDS``: granite_moe_3b_a800m,
-mixtral_8x22b, codeqwen15_7b, h2o_danube_3_4b, qwen3_32b, mamba2_130m).
+mixtral_8x22b, codeqwen15_7b, h2o_danube_3_4b, qwen3_32b, mamba2_130m,
+whisper_tiny, llama32_vision_90b).
+
+For the encdec (whisper_tiny) and vlm (llama32_vision_90b) families the
+launcher leaves the serve state's cross-attention K/V at zeros, as the
+reference's launcher does: it has no audio or image frontend, so the
+cross-attention reads zero keys and values (its output is zero). A caller
+with frames or image embeddings fills ``state["cross_k"]`` and
+``state["cross_v"]`` from ``serve.decode.compute_cross_kv``.
 
 Runs a continuous-batching greedy decode loop: every sequence belongs to a
 tenant (sequence b to tenant b mod T); the Equilibria policy (lower
@@ -23,13 +30,15 @@ alone, as the reference's launcher does.
 ``--device`` defaults to ``cuda`` and raises without a card. ``--full``
 runs the serving load the port is measured at for the arch: the
 (sequences, steps) of its config's ``SERVE_LOAD`` (llama32_1b 64 x 512,
-zamba2_7b 32 x 256, granite_moe_3b_a800m and mamba2_130m 64 x 256,
-mixtral_8x22b 16 x 64, the other dense configs 32 x 64) under
+zamba2_7b 32 x 256, granite_moe_3b_a800m, mamba2_130m and whisper_tiny
+64 x 256, mixtral_8x22b and llama32_vision_90b 16 x 64, the other dense
+configs 32 x 64) under
 ``full_load``'s policy, 4 tenants, 16-token pages, a 256-slot thrash table,
 and protections and bounds that are fixed shares of each tenant's quarter
 of the fast budget (75% of the logical pages): llama32_1b (320, 256, 128,
 0) and (0, 448, 384, 320) pages, zamba2_7b (80, 64, 32, 0) and (0, 112, 96,
-80), granite_moe_3b_a800m (160, 128, 64, 0) and (0, 224, 192, 160), where
+80), granite_moe_3b_a800m and whisper_tiny (160, 128, 64, 0) and (0, 224,
+192, 160), where
 the budget binds; the windowed configs' logical pages cover their window
 (4,096 tokens), which the short loads do not fill. The port runs on
 one device and builds no mesh, so the reference's ``--production`` (its

@@ -82,19 +82,21 @@ def cache_dims(cfg: ModelConfig, shape_seq: int, page_tokens: int,
 
 def kv_layer_count(cfg: ModelConfig) -> int:
     """Number of attention layers that need a paged KV cache: every layer
-    of the dense and moe families; none for the attention-free ssm family;
-    for the hybrid, the reference's ``num_layers // hybrid_attn_every + 1``
-    (one per application of the shared block, plus one spare when
-    ``every`` divides the depth)."""
-    if cfg.family in ("dense", "moe"):
+    of the dense and moe families and every decoder self-attention of the
+    encdec (its cross K/V are not paged); none for the attention-free ssm
+    family; for the hybrid, the reference's ``num_layers //
+    hybrid_attn_every + 1`` (one per application of the shared block, plus
+    one spare when ``every`` divides the depth); for the vlm, its self
+    layers, ``num_layers - num_layers // cross_attn_every``."""
+    if cfg.family in ("dense", "moe", "encdec"):
         return cfg.num_layers
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.hybrid_attn_every + 1
-    raise NotImplementedError(
-        f"family {cfg.family!r}: the paged KV cache is ported for the dense, "
-        "moe, ssm and hybrid families; encdec and vlm are still to port")
+    if cfg.family == "vlm":
+        return cfg.num_layers - cfg.num_layers // cfg.cross_attn_every
+    raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def init_cache(cfg: ModelConfig, tcfg: TieringConfig, batch: int, seq: int,

@@ -1,15 +1,19 @@
 """Core neural layers of the decoders (torch port of the reference's
-``models/layers.py``: norms, rotary, the attention projections, SwiGLU, the
-top-k mixture of experts and the materialised-scores attention used by the
-full-sequence forward).
+``models/layers.py``: norms, rotary, the attention projections, SwiGLU and
+the GELU MLP with biases, the top-k mixture of experts, cross-attention and
+the materialised-scores attention cores).
 
 Layouts are the reference's: activations [B, S, d], heads [B, S, H, D],
 weights ``wq`` [d, H, D], ``wk``/``wv`` [d, K, D], ``wo`` [H, D, d]. Each
 function takes one layer's parameters as a mapping (``p["wq"]``), casts the
 weights to the activation dtype at use, and upcasts to float32 exactly where
-the reference does. Full-sequence self-attention (``self_attention``) goes
-through the ``flash_attention`` op (K7); ``attn_dense`` stays the plain
-materialised form. The tiered paged decode attention lives in
+the reference does. Full-sequence self-attention (``self_attention``) and
+cross-attention (``cross_attention``, non-causal, queries against encoder
+or image positions) go through the ``flash_attention`` op (K7);
+``attn_dense`` stays the plain materialised form, and ``attn_decode``
+(single-query attention against a contiguous cache, the decode step's
+cross-attention) is the reference's plain product, outside any kernel
+there and here. The tiered paged decode attention lives in
 ``memtier/kvcache.py`` and ``kernels/tiered_attention``. The MoE products
 are the reference's plain products (no Pallas kernel there, none here).
 """
@@ -57,17 +61,20 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def attention_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions):
-    """Project to q, k, v (+qk-norm, +rope). Returns q [B,S,H,D] and
-    k, v [B,S,K,D]."""
+def attention_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions, *,
+                  kv_x: Optional[torch.Tensor] = None, rope: bool = True):
+    """Project to q, k, v (+qk-norm, +rope). q comes from ``x`` and k, v
+    from ``kv_x`` (cross-attention) or ``x``. Returns q [B,S,H,D] and k, v
+    [B,T,K,D]. Rope applies to self-attention with positions only."""
     dt = dtype_of(cfg.dtype)
+    kv_src = x if kv_x is None else kv_x
     q = _proj(x, p["wq"].to(dt))
-    k = _proj(x, p["wk"].to(dt))
-    v = _proj(x, p["wv"].to(dt))
+    k = _proj(kv_src, p["wk"].to(dt))
+    v = _proj(kv_src, p["wv"].to(dt))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
-    if positions is not None:
+    if rope and kv_x is None and positions is not None:
         q = rotary_embed(q, positions, cfg.rope_theta)
         k = rotary_embed(k, positions, cfg.rope_theta)
     return q, k, v
@@ -94,14 +101,31 @@ def self_attention(p, x: torch.Tensor, cfg: ModelConfig, positions, *,
     return attention_out(p, attn.transpose(1, 2), cfg)
 
 
+def cross_attention(p, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
+                    *, impl: str = "cuda") -> torch.Tensor:
+    """Cross-attention block body: queries from ``x`` [B,S,d], keys and
+    values from ``enc`` [B,T,d], no rope, no mask. The reference's
+    ``attn_dense`` materialises [B, H, S, T] float32 scores; the
+    ``flash_attention`` op computes the same function non-causally, with S
+    longer than T at prefill length."""
+    q, k, v = attention_qkv(p, x, cfg, None, kv_x=enc, rope=False)
+    attn = FA.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False, impl=impl)
+    return attention_out(p, attn.transpose(1, 2), cfg)
+
+
 def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU MLP (the only activation of the ported family)."""
-    if "wg" not in p:
-        raise NotImplementedError("only the SwiGLU MLP is ported")
+    """SwiGLU (``wg``/``wu``/``wd``), or the GELU MLP with biases
+    (``w1``/``b1``/``w2``/``b2``, ``act="gelu"``): ``jax.nn.gelu``'s
+    default tanh form, the biases added in the activation dtype."""
     dt = dtype_of(cfg.dtype)
-    g = x @ p["wg"].to(dt)
-    u = x @ p["wu"].to(dt)
-    return (F.silu(g) * u) @ p["wd"].to(dt)
+    if "wg" in p:
+        g = x @ p["wg"].to(dt)
+        u = x @ p["wu"].to(dt)
+        return (F.silu(g) * u) @ p["wd"].to(dt)
+    h = x @ p["w1"].to(dt) + p["b1"].to(dt)
+    h = F.gelu(h, approximate="tanh")
+    return h @ p["w2"].to(dt) + p["b2"].to(dt)
 
 
 def moe_specs(cfg: ModelConfig):
@@ -226,3 +250,22 @@ def attn_dense(q, k, v, *, causal: bool, window: Optional[int] = None,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", p, ve)
     return out.to(q.dtype)
+
+
+def attn_decode(q, k_cache, v_cache, kv_len: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Single-token attention against a contiguous cache, float32 scores.
+    q [B,1,H,D]; caches [B,T,K,D]; kv_len (optional) [B] valid lengths.
+    Returns [B,1,H,D]."""
+    h, d = q.shape[2], q.shape[3]
+    t = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    ke = _expand_kv(k_cache, h).to(torch.float32)
+    ve = _expand_kv(v_cache, h).to(torch.float32)
+    sc = torch.einsum("bhd,bthd->bht", q[:, 0].to(torch.float32) * scale, ke)
+    if kv_len is not None:
+        valid = torch.arange(t, device=q.device)[None] < kv_len[:, None]
+        sc = torch.where(valid[:, None], sc, NEG_INF)
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bht,bthd->bhd", p, ve)
+    return out[:, None].to(q.dtype)

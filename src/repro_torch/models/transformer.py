@@ -1,27 +1,35 @@
-"""The decoder LMs (torch port of the dense, moe, ssm and hybrid families
-of the reference's ``models/transformer.py``).
+"""The model stacks (torch port of the reference's ``models/transformer.py``:
+the dense, moe, ssm, hybrid, encdec and vlm families).
 
-``DenseLM``, ``MoELM``, ``SSMLM`` and ``HybridLM`` are ``nn.Module``s whose
-parameter trees carry the reference's names and layouts: ``embed.tok``
-[V, d], ``embed.final_norm`` [d] (plus ``embed.lm_head`` [d, V] when
-embeddings are untied) and the layer stack under ``layers`` with a leading
-layer axis (``layers.attn.wq`` [L, d, H, D], ...; ``layers.moe.wg``
-[L, E, d, f] for the moe family; Mamba2 blocks for the ssm LM and the
-hybrid), plus the hybrid's one weight-shared attention block under
-``shared`` (no layer axis). ``model.layer(l)`` is layer ``l``'s parameters
-as a nested dict of views, the reference's ``tree_map(lambda a: a[l], ...)``.
+``DenseLM``, ``MoELM``, ``SSMLM``, ``HybridLM``, ``EncDecLM`` and
+``VisionLM`` are ``nn.Module``s whose parameter trees carry the reference's
+names and layouts: ``embed.tok`` [V, d], ``embed.final_norm`` [d] (plus
+``embed.lm_head`` [d, V] when embeddings are untied) and the layer stack
+under ``layers`` with a leading layer axis (``layers.attn.wq`` [L, d, H,
+D], ...; ``layers.moe.wg`` [L, E, d, f] for the moe family; Mamba2 blocks
+for the ssm LM and the hybrid), plus the hybrid's one weight-shared
+attention block under ``shared`` (no layer axis). The encdec model has
+``encoder`` and ``decoder`` stacks and ``enc_ln``; the vlm has ``units``,
+each (``cross_attn_every`` - 1) self blocks (``units.self``, two stacked
+axes [n_units, every - 1, ...]) and one gated cross block
+(``units.cross``). ``model.layer(l)`` is layer ``l``'s parameters as a
+nested dict of views, the reference's ``tree_map(lambda a: a[l], ...)``.
 
-``lm_forward`` (dense and moe), ``ssm_lm_forward`` and ``hybrid_forward``
-are the full-sequence forwards: every self-attention goes through the
-``flash_attention`` op (K7) and every Mamba2 block through the ``ssd_scan``
-op (K8), or straight to their plain versions with ``impl="ref"``. The decode block takes an ``attend``
-callback so the serving path (``serve/decode.py``) owns the tiered paged
-cache.
+``lm_forward`` (dense and moe), ``ssm_lm_forward``, ``hybrid_forward``,
+``encdec_forward`` and ``vlm_forward`` are the full-sequence forwards:
+every self- and cross-attention goes through the ``flash_attention`` op
+(K7) and every Mamba2 block through the ``ssd_scan`` op (K8), or straight
+to their plain versions with ``impl="ref"``. The reference scans its
+stacks (``models/unroll.py`` picks scan or unroll); here every stack is a
+Python loop over layers, so that module has no counterpart. The decode
+blocks take an ``attend`` callback so the serving path
+(``serve/decode.py``) owns the tiered paged cache.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -53,11 +61,14 @@ def attention_specs(cfg: ModelConfig) -> Dict:
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict:
-    if cfg.act != "silu":
-        raise NotImplementedError("only the SwiGLU MLP is ported")
-    d = cfg.d_model
-    return {"wg": ParamSpec((d, cfg.d_ff)), "wu": ParamSpec((d, cfg.d_ff)),
-            "wd": ParamSpec((cfg.d_ff, d))}
+    """SwiGLU for ``act="silu"``, else the GELU MLP with zero-initialised
+    biases."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "silu":
+        return {"wg": ParamSpec((d, f)), "wu": ParamSpec((d, f)),
+                "wd": ParamSpec((f, d))}
+    return {"w1": ParamSpec((d, f)), "b1": ParamSpec((f,), init="zeros"),
+            "w2": ParamSpec((f, d)), "b2": ParamSpec((d,), init="zeros")}
 
 
 def decoder_block_specs(cfg: ModelConfig) -> Dict:
@@ -96,22 +107,57 @@ def hybrid_specs(cfg: ModelConfig) -> Dict:
             "shared": shared}
 
 
-# families the port runs, and what is still to port
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-UNPORTED = ("encdec", "vlm")
+def vlm_specs(cfg: ModelConfig) -> Dict:
+    """num_layers = self layers + cross layers: ``num_layers //
+    cross_attn_every`` units of (every - 1) self blocks and one gated cross
+    block, whose scalar gates start at zero."""
+    every = cfg.cross_attn_every
+    if every <= 1 or cfg.num_layers % every:
+        raise ValueError(f"vlm: num_layers {cfg.num_layers} is not a "
+                         f"multiple of cross_attn_every {every} > 1")
+    d = cfg.d_model
+    unit = {"self": stack_specs(decoder_block_specs(cfg), every - 1),
+            "cross": {"ln": ParamSpec((d,), init="ones"),
+                      "attn": attention_specs(cfg),
+                      "gate": ParamSpec((), init="zeros"),
+                      "ln2": ParamSpec((d,), init="ones"),
+                      "mlp": mlp_specs(cfg),
+                      "gate_mlp": ParamSpec((), init="zeros")}}
+    return {"embed": embed_specs(cfg),
+            "units": stack_specs(unit, cfg.num_layers // every)}
+
+
+def encdec_specs(cfg: ModelConfig) -> Dict:
+    d = cfg.d_model
+    enc_block = {"ln1": ParamSpec((d,), init="ones"),
+                 "attn": attention_specs(cfg),
+                 "ln2": ParamSpec((d,), init="ones"), "mlp": mlp_specs(cfg)}
+    dec_block = {"ln1": ParamSpec((d,), init="ones"),
+                 "attn": attention_specs(cfg),
+                 "ln_x": ParamSpec((d,), init="ones"),
+                 "xattn": attention_specs(cfg),
+                 "ln2": ParamSpec((d,), init="ones"), "mlp": mlp_specs(cfg)}
+    return {"embed": embed_specs(cfg),
+            "enc_ln": ParamSpec((d,), init="ones"),
+            "encoder": stack_specs(enc_block, cfg.encoder_layers),
+            "decoder": stack_specs(dec_block, cfg.num_layers)}
+
+
+_SPECS = {"dense": lm_specs, "moe": lm_specs, "ssm": ssm_lm_specs,
+          "hybrid": hybrid_specs, "encdec": encdec_specs, "vlm": vlm_specs}
+# the families of the reference's router, all of them ported
+FAMILIES = tuple(_SPECS)
 
 
 def _require_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported: the port runs "
-            f"{', '.join(FAMILIES)}; {', '.join(UNPORTED)} are still to port")
+        raise ValueError(f"unknown family {cfg.family!r} (the families are "
+                         f"{', '.join(FAMILIES)})")
 
 
 def model_specs(cfg: ModelConfig) -> Dict:
     _require_family(cfg)
-    return {"dense": lm_specs, "moe": lm_specs, "ssm": ssm_lm_specs,
-            "hybrid": hybrid_specs}[cfg.family](cfg)
+    return _SPECS[cfg.family](cfg)
 
 
 class ParamTree(nn.Module):
@@ -139,9 +185,13 @@ class ParamTree(nn.Module):
     def index(self, i: int) -> Dict:
         """Entry ``i`` of the leading axis of every tensor, as a nested dict
         of views."""
-        out = {k: p[i] for k, p in self._parameters.items()}
-        out.update({k: m.index(i) for k, m in self._modules.items()})
-        return out
+        return index_tree(self.tree(), i)
+
+
+def index_tree(tree: Dict, i: int) -> Dict:
+    """Entry ``i`` of the leading axis of every tensor of a nested dict."""
+    return {k: index_tree(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 class _LM(nn.Module):
@@ -172,13 +222,19 @@ class _LM(nn.Module):
             tree = init_params(specs, gen, dev, dt)
         self.cfg = cfg
         for k, v in tree.items():
-            self.add_module(k, ParamTree(v))
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
 
     def layer(self, i: int) -> Dict:
         return self.layers.index(i)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return model_forward(self, {"tokens": tokens})
+    def forward(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
+        """Logits of ``tokens``; ``inputs`` are the batch's ``frames``
+        (encdec) or ``image_embeds`` (vlm)."""
+        return model_forward(self, {"tokens": tokens, **inputs})
 
 
 class DenseLM(_LM):
@@ -203,13 +259,37 @@ class HybridLM(_LM):
     FAMILY = "hybrid"
 
 
+class EncDecLM(_LM):
+    """Whisper-style encoder-decoder (``embed``, ``encoder``, ``enc_ln``,
+    ``decoder``); ``layer(i)`` is decoder layer ``i``."""
+    FAMILY = "encdec"
+
+    def layer(self, i: int) -> Dict:
+        return self.decoder.index(i)
+
+    def encoder_layer(self, i: int) -> Dict:
+        return self.encoder.index(i)
+
+
+class VisionLM(_LM):
+    """Llama-3.2-Vision-style LM (``embed``, ``units``): ``unit(u)`` is unit
+    ``u``'s {"self": [every - 1, ...] stacked self blocks, "cross": the
+    gated cross block}."""
+    FAMILY = "vlm"
+
+    def unit(self, u: int) -> Dict:
+        return self.units.index(u)
+
+
+_CLASSES = {"dense": DenseLM, "moe": MoELM, "ssm": SSMLM, "hybrid": HybridLM,
+            "encdec": EncDecLM, "vlm": VisionLM}
+
+
 def make_model(cfg: ModelConfig, *, seed: Optional[int] = 0,
                device="cuda") -> _LM:
     """The model class of ``cfg``'s family."""
     _require_family(cfg)
-    cls = {"dense": DenseLM, "moe": MoELM, "ssm": SSMLM,
-           "hybrid": HybridLM}[cfg.family]
-    return cls(cfg, seed=seed, device=device)
+    return _CLASSES[cfg.family](cfg, seed=seed, device=device)
 
 
 def embed_tokens(model: _LM, tokens: torch.Tensor,
@@ -341,14 +421,134 @@ def hybrid_forward(model: HybridLM, tokens: torch.Tensor, *,
     return _logits(model, x, last_only)
 
 
+def cross_block(cp, x: torch.Tensor, cfg: ModelConfig,
+                attention: Callable) -> torch.Tensor:
+    """The vlm's gated cross block. ``attention(p, a) -> [B,S,d]`` is the
+    cross-attention body (``L.cross_attention`` in the full-sequence
+    forward, against the precomputed K/V in decode). Each gate is
+    ``tanh(gate)`` in float32, cast to the activation dtype, then
+    multiplied, as the reference casts it."""
+    h = L.rms_norm(x, cp["ln"], cfg.rms_eps)
+    a = attention(cp["attn"], h)
+    x = x + torch.tanh(cp["gate"].to(torch.float32)).to(x.dtype) * a
+    h = L.rms_norm(x, cp["ln2"], cfg.rms_eps)
+    y = L.mlp(cp["mlp"], h, cfg)
+    return x + torch.tanh(cp["gate_mlp"].to(torch.float32)).to(x.dtype) * y
+
+
+def vlm_forward(model: VisionLM, tokens: torch.Tensor,
+                image_embeds: torch.Tensor, *, impl: str = "cuda",
+                last_only: bool = False) -> torch.Tensor:
+    """tokens [B,S]; image_embeds [B, n_img, d] (the stub frontend's patch
+    embeddings) -> logits [B,S,V] ([B,1,V] with ``last_only``). Each unit:
+    its self blocks (causal K7), then the gated cross block (non-causal K7
+    against every image position)."""
+    cfg = model.cfg
+    x = embed_tokens(model, tokens, cfg)
+    positions = _positions(tokens)
+    enc = image_embeds.to(dtype_of(cfg.dtype))
+
+    def attention(p, a):
+        return L.cross_attention(p, a, enc, cfg, impl=impl)
+
+    for u in range(cfg.num_layers // cfg.cross_attn_every):
+        up = model.unit(u)
+        for j in range(cfg.cross_attn_every - 1):
+            x, _ = decoder_block(index_tree(up["self"], j), x, cfg,
+                                 positions, impl)
+        x = cross_block(up["cross"], x, cfg, attention)
+    return _logits(model, x, last_only)
+
+
+def _sinusoid(seq: int, d: int) -> torch.Tensor:
+    """The encoder's [seq, d] position table: computed in float64 by the
+    reference's numpy expression and rounded once to float32, so it is
+    bitwise the reference's table."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    return torch.from_numpy(np.concatenate(
+        [np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32))
+
+
+def encode_frames(model: EncDecLM, frames: torch.Tensor, *,
+                  impl: str = "cuda") -> torch.Tensor:
+    """frames [B, T_enc, d] (the stub conv frontend's frame embeddings) ->
+    the encoder's output [B, T_enc, d]: its blocks (``encoder_block``),
+    then ``enc_ln``."""
+    cfg = model.cfg
+    dt = dtype_of(cfg.dtype)
+    x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model).to(
+        device=frames.device, dtype=dt)
+    for i in range(cfg.encoder_layers):
+        x = encoder_block(model.encoder_layer(i), x, cfg, impl)
+    return L.rms_norm(x, model.enc_ln, cfg.rms_eps)
+
+
+def encoder_block(p, x: torch.Tensor, cfg: ModelConfig,
+                  impl: str = "cuda") -> torch.Tensor:
+    """One pre-norm encoder block: non-causal K7 self-attention without
+    rope, then the MLP."""
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    x = x + L.self_attention(p["attn"], h, cfg, None, causal=False,
+                             impl=impl)
+    h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    return x + L.mlp(p["mlp"], h, cfg)
+
+
+def encdec_dec_block(p, x: torch.Tensor, cfg: ModelConfig,
+                     self_attention: Callable,
+                     cross_attention: Callable) -> torch.Tensor:
+    """One decoder block: causal self-attention, cross-attention, MLP, each
+    pre-norm. ``self_attention(p, a)`` and ``cross_attention(p, a)`` are
+    the bodies (K7 in the full-sequence forward; the tiered cache and the
+    precomputed cross K/V in decode)."""
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    x = x + self_attention(p["attn"], h)
+    h = L.rms_norm(x, p["ln_x"], cfg.rms_eps)
+    x = x + cross_attention(p["xattn"], h)
+    h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    return x + L.mlp(p["mlp"], h, cfg)
+
+
+def encdec_forward(model: EncDecLM, tokens: torch.Tensor,
+                   frames: torch.Tensor, *, impl: str = "cuda",
+                   last_only: bool = False) -> torch.Tensor:
+    """tokens [B,S]; frames [B, T_enc, d] -> logits [B,S,V] ([B,1,V] with
+    ``last_only``: the encoder and the cross K/V still cover every
+    position)."""
+    cfg = model.cfg
+    enc = encode_frames(model, frames, impl=impl)
+    x = embed_tokens(model, tokens, cfg)
+    positions = _positions(tokens)
+
+    def self_attention(p, a):
+        return L.self_attention(p, a, cfg, positions, causal=True,
+                                impl=impl)
+
+    def cross_attention(p, a):
+        return L.cross_attention(p, a, enc, cfg, impl=impl)
+
+    for i in range(cfg.num_layers):
+        x = encdec_dec_block(model.layer(i), x, cfg, self_attention,
+                             cross_attention)
+    return _logits(model, x, last_only)
+
+
 def model_forward(model: _LM, batch: Dict[str, torch.Tensor], *,
                   impl: str = "cuda", last_only: bool = False
                   ) -> torch.Tensor:
-    """Unified full-sequence forward of the ported families. batch:
-    {"tokens": [B,S]}. Returns logits [B,S,V] ([B,1,V] with
-    ``last_only``)."""
+    """Unified full-sequence forward. batch: {"tokens": [B,S]}, plus
+    ``frames`` [B, T_enc, d] (encdec) or ``image_embeds`` [B, n_img, d]
+    (vlm). Returns logits [B,S,V] ([B,1,V] with ``last_only``)."""
     cfg = model.cfg
     _require_family(cfg)
+    tokens = batch["tokens"]
+    kw = dict(impl=impl, last_only=last_only)
+    if cfg.family == "vlm":
+        return vlm_forward(model, tokens, batch["image_embeds"], **kw)
+    if cfg.family == "encdec":
+        return encdec_forward(model, tokens, batch["frames"], **kw)
     fwd = {"dense": lm_forward, "moe": lm_forward, "ssm": ssm_lm_forward,
            "hybrid": hybrid_forward}[cfg.family]
-    return fwd(model, batch["tokens"], impl=impl, last_only=last_only)
+    return fwd(model, tokens, **kw)

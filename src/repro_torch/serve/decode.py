@@ -1,6 +1,5 @@
 """Multi-tenant decode serving with Equilibria-tiered paged KV caches (torch
-port of the dense, moe, ssm and hybrid families of the reference's
-``serve/decode.py``).
+port of the reference's ``serve/decode.py``, every family).
 
 ``build_serve_step(cfg, tcfg, batch, seq)`` returns
 ``serve_step(model, state, tokens [B,1]) -> (logits [B,1,V], state)``: one
@@ -9,9 +8,11 @@ from attention mass, Eq.1/Eq.2-regulated migrations, thrash mitigation).
 The reference's scan over layers is a Python loop; the KV pools and the
 Mamba2 decode state are updated in place (token append, page moves, the
 per-layer recurrent state). State is a dict ``{"kv": TieredKVCache}``, plus
-``"mamba": MambaCache`` (stacked over layers) for the hybrid; the
-attention-free ssm family has no paged KV and no tiering step, only
-``{"mamba": MambaCache}``. The encdec and vlm families are still to port.
+``"mamba": MambaCache`` (stacked over layers) for the hybrid, and
+``"cross_k"``/``"cross_v"`` (the cross-attention K/V of every cross layer,
+precomputed by ``compute_cross_kv`` from the encoder output or the image
+embeddings) for the encdec and vlm families; the attention-free ssm family
+has no paged KV and no tiering step, only ``{"mamba": MambaCache}``.
 """
 from __future__ import annotations
 
@@ -24,18 +25,12 @@ from repro_torch.core.state import make_policy
 from repro_torch.device import resolve_device
 from repro_torch.memtier import kvcache as KC
 from repro_torch.memtier.tiering import MODES, equilibria_kv_step
+from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as TF
+from repro_torch.models.params import dtype_of
 
 IMPLS = ("cuda", "ref")
-
-
-def _require_served(cfg: ModelConfig) -> None:
-    if cfg.family not in TF.FAMILIES:
-        raise NotImplementedError(
-            f"serving family {cfg.family!r} is not ported yet (the port "
-            f"serves {', '.join(TF.FAMILIES)}; {', '.join(TF.UNPORTED)} are "
-            "still to port)")
 
 
 def fast_budget_pages(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
@@ -47,13 +42,28 @@ def fast_budget_pages(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 
 def init_serve_state(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                      seq: int, device="cuda") -> Dict[str, object]:
-    _require_served(cfg)
+    """The empty serve state of ``batch`` sequences of up to ``seq`` tokens.
+    The cross K/V start at zeros ([n_units, B, n_img, K, D] for the vlm,
+    [num_layers, B, encoder_seq, K, D] for the encdec); a caller that has
+    an encoder output or image embeddings fills them from
+    ``compute_cross_kv``."""
+    TF.model_specs(cfg)                  # raises for an unknown family
+    dev = resolve_device(device)
     state = {}
     if cfg.family != "ssm":
-        state["kv"] = KC.init_cache(cfg, tcfg, batch, seq, device=device)
+        state["kv"] = KC.init_cache(cfg, tcfg, batch, seq, device=dev)
     if cfg.family in ("ssm", "hybrid"):
         state["mamba"] = S.init_mamba_cache(cfg, batch, cfg.num_layers,
-                                            device=device)
+                                            device=dev)
+    if cfg.family in ("encdec", "vlm"):
+        layers, t = ((cfg.num_layers, cfg.encoder_seq)
+                     if cfg.family == "encdec" else
+                     (cfg.num_layers // cfg.cross_attn_every,
+                      cfg.num_image_tokens))
+        shape = (layers, batch, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+        for k in ("cross_k", "cross_v"):
+            state[k] = torch.zeros(shape, dtype=dtype_of(cfg.dtype),
+                                   device=dev)
     return state
 
 
@@ -70,6 +80,33 @@ def serve_exposition(state: Dict[str, object],
     return kv_exposition(state["kv"], prefix=prefix)
 
 
+def compute_cross_kv(model: TF._LM, cfg: ModelConfig, enc: torch.Tensor):
+    """The cross-attention K/V of every cross layer from the encoder output
+    (encdec) or the stub image embeddings (vlm). enc [B, T, d]. Returns
+    (ck, cv), each [L_cross, B, T, K, D] in the activation dtype."""
+    if cfg.family == "encdec":
+        xattn = model.decoder["xattn"]            # wk [L, d, K, D]
+    elif cfg.family == "vlm":
+        xattn = model.units["cross"]["attn"]      # wk [n_units, d, K, D]
+    else:
+        raise ValueError(f"family {cfg.family!r} has no cross-attention")
+    dt = dtype_of(cfg.dtype)
+    enc = enc.to(dt)
+    return tuple(torch.stack([L._proj(enc, w.to(dt)) for w in xattn[name]])
+                 for name in ("wk", "wv"))
+
+
+def cross_attend(p, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Decode cross-attention against precomputed K/V: x [B,1,d]; ck, cv
+    [B,T,K,D]. The reference's plain single-query product
+    (``attn_decode``), float32 scores."""
+    q = L._proj(x, p["wq"].to(dtype_of(cfg.dtype)))
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.rms_eps)
+    return L.attention_out(p, L.attn_decode(q, ck, cv), cfg)
+
+
 def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                      seq: int, mode: str = "equilibria",
                      impl: Optional[str] = None, device="cuda"):
@@ -78,7 +115,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     impl "cuda" (the default on a card) runs the attention and the page
     moves through the hand-written kernels' wrappers; "ref" (the default on
     the CPU) calls their plain versions directly, on any device."""
-    _require_served(cfg)
+    TF.model_specs(cfg)                  # raises for an unknown family
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     dev = resolve_device(device)
@@ -153,6 +190,51 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
             for i in range(n_layers):
                 x = TF.decoder_block_decode(model.layer(i), x, cfg, pos,
                                             attend_fn(kv, lpage, i, masses))
+            kv = tiering(kv, masses)
+            return TF.lm_logits(model, x, cfg), {**state, "kv": kv}
+
+        return serve_step
+
+    def cross_fn(state, i: int):
+        """The decode cross-attention body of cross layer ``i``."""
+        ck, cv = state["cross_k"][i], state["cross_v"][i]
+        return lambda p, a: cross_attend(p, a, ck, cv, cfg)
+
+    if cfg.family == "encdec":
+        def serve_step(model: TF.EncDecLM, state, tokens: torch.Tensor):
+            """The reference's encdec branch: each decoder layer attends
+            over its tiered KV layer (K5), then over the precomputed cross
+            K/V of its layer."""
+            kv, lpage, masses, x = begin(state, model, tokens)
+            pos = kv.seq_len[:, None]
+            for i in range(n_layers):
+                x = TF.encdec_dec_block(
+                    model.layer(i), x, cfg, TF.cached_attention(
+                        cfg, pos, attend_fn(kv, lpage, i, masses)),
+                    cross_fn(state, i))
+            kv = tiering(kv, masses)
+            return TF.lm_logits(model, x, cfg), {**state, "kv": kv}
+
+        return serve_step
+
+    if cfg.family == "vlm":
+        n_self = cfg.cross_attn_every - 1
+
+        def serve_step(model: TF.VisionLM, state, tokens: torch.Tensor):
+            """The reference's vlm branch: self layer j of unit u uses KV
+            layer ``u * (every - 1) + j`` (the reference's reshape of the
+            pools to [n_units, every - 1, ...]); each unit ends with its
+            gated cross block over the precomputed K/V; the masses are
+            divided by the KV layer count ``n_units * (every - 1)``."""
+            kv, lpage, masses, x = begin(state, model, tokens)
+            pos = kv.seq_len[:, None]
+            for u in range(cfg.num_layers // cfg.cross_attn_every):
+                up = model.unit(u)
+                for j in range(n_self):
+                    x = TF.decoder_block_decode(
+                        TF.index_tree(up["self"], j), x, cfg, pos,
+                        attend_fn(kv, lpage, u * n_self + j, masses))
+                x = TF.cross_block(up["cross"], x, cfg, cross_fn(state, u))
             kv = tiering(kv, masses)
             return TF.lm_logits(model, x, cfg), {**state, "kv": kv}
 

@@ -19,15 +19,17 @@ IMPLS = ("cuda", "ref")
 
 def make_prefill_step(cfg: ModelConfig, *, impl: Optional[str] = None,
                       device="cuda"):
-    """Returns prefill_step(model, batch {"tokens": [B,S]}) -> the last
-    position's logits [B,V]: the full forward of a dense, moe, ssm or hybrid
-    model (``model_forward``), whose self-attention runs K7 and whose Mamba2
-    blocks run K8 with ``impl="cuda"`` (the default on a card), or their
-    plain versions with ``impl="ref"`` (the default on the CPU); the MoE
-    products are plain torch in both. Only the last position goes through the logits matmul (the
-    reference computes all positions and keeps the last; the rows are
-    independent)."""
-    model_specs(cfg)                      # raises for an unported family
+    """Returns prefill_step(model, batch) -> the last position's logits
+    [B,V]. ``batch`` is {"tokens": [B,S]}, plus ``frames`` [B, T_enc, d]
+    for the encdec or ``image_embeds`` [B, n_img, d] for the vlm, passed
+    through to the full forward (``model_forward``), whose self- and
+    cross-attention (and the encoder's) run K7 and whose Mamba2 blocks run
+    K8 with ``impl="cuda"`` (the default on a card), or their plain
+    versions with ``impl="ref"`` (the default on the CPU); the MoE products
+    are plain torch in both. Only the last position goes through the
+    logits matmul (the reference computes all positions and keeps the
+    last; the rows are independent)."""
+    model_specs(cfg)                      # raises for an unknown family
     dev = resolve_device(device)
     if impl is None:
         impl = "cuda" if dev.type == "cuda" else "ref"

@@ -174,13 +174,10 @@ def test_reduced_depth_config_matches_reference(arch):
 
 
 def test_registry_covers_the_decoder_families():
+    """The port's registry is the reference's, in its order, and the model
+    router holds all six families."""
     from repro.configs import ARCH_IDS as J_IDS
-    assert set(ARCH_IDS) == set(J_IDS) - {"whisper_tiny",
-                                          "llama32_vision_90b"}
-    assert [a for a in J_IDS if a in ARCH_IDS] == ARCH_IDS
-    for arch in ("whisper_tiny", "llama32_vision_90b"):
-        with pytest.raises(NotImplementedError, match="encdec and vlm"):
-            get_config(arch)
+    assert ARCH_IDS == J_IDS
     assert get_config("h2o-danube-3-4b") is get_config("h2o_danube_3_4b")
     assert get_config("mixtral_8x22b").moe.capacity_factor == 1.25
     loads = {a: get_serve_load(a) for a in ARCH_IDS}
@@ -188,9 +185,12 @@ def test_registry_covers_the_decoder_families():
                      "granite_moe_3b_a800m": (64, 256),
                      "qwen3_32b": (32, 64), "codeqwen15_7b": (32, 64),
                      "h2o_danube_3_4b": (32, 64), "llama32_1b": (64, 512),
-                     "mamba2_130m": (64, 256), "zamba2_7b": (32, 256)}
-    assert TF.FAMILIES == ("dense", "moe", "ssm", "hybrid")
-    assert TF.UNPORTED == ("encdec", "vlm")
+                     "mamba2_130m": (64, 256), "whisper_tiny": (64, 256),
+                     "llama32_vision_90b": (16, 64), "zamba2_7b": (32, 256)}
+    assert set(TF.FAMILIES) == {"dense", "moe", "ssm", "hybrid", "encdec",
+                                "vlm"}
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("whisper_large")
 
 
 def test_kv_layer_count_is_the_references():
@@ -202,15 +202,17 @@ def test_kv_layer_count_is_the_references():
 
 
 def test_full_load_of_the_new_configs():
-    """``full_load``: granite's budget binds (768 of 1,024 logical pages);
-    the windowed configs' logical pages cover the window; the ssm family
-    has no budget to share."""
+    """``full_load``: granite's and whisper's budgets bind (768 of 1,024
+    logical pages); the windowed configs' logical pages cover the window;
+    the ssm family has no budget to share."""
     from repro_torch.serve.decode import fast_budget_pages
     cases = {"granite_moe_3b_a800m": (768, (160, 128, 64, 0),
                                       (0, 224, 192, 160)),
              "mixtral_8x22b": (3264, (680, 544, 272, 0),
                                (0, 952, 816, 680)),
-             "qwen3_32b": (384, (80, 64, 32, 0), (0, 112, 96, 80))}
+             "qwen3_32b": (384, (80, 64, 32, 0), (0, 112, 96, 80)),
+             "whisper_tiny": (768, (160, 128, 64, 0), (0, 224, 192, 160)),
+             "llama32_vision_90b": (192, (40, 32, 16, 0), (0, 56, 48, 40))}
     for arch, (budget, prot, bound) in cases.items():
         cfg = get_config(arch)
         batch, steps = get_serve_load(arch)

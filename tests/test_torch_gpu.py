@@ -549,6 +549,68 @@ def test_flash_attention_wgmma_grid_matches_plain_on_card(
     torch.cuda.synchronize()
 
 
+# cross-attention: full (neither causal nor windowed) attention with more
+# queries than keys, at the encoder's and the image's ragged key counts
+# (1,500 frames, 1,600 image tokens): whisper's heads (H = K = 6, D = 64)
+# and the vlm's (G = 8, D = 128), then a head dim off the wgmma path
+FLASH_CROSS_SHAPES = [(2, 6, 6, 2048, 1500, 64), (1, 16, 2, 2100, 1600, 128),
+                      (1, 4, 2, 1700, 1500, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", FLASH_CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v_scale", [1.0, 64.0])
+def test_flash_attention_cross_matches_plain_on_card(shape, dtype, v_scale,
+                                                     cuda):
+    """Non-causal K7 with Sq > Skv (the right-aligned query offset Skv - Sq
+    negative, read by no mask) within the reference's kernel tolerance of
+    its plain version; strided [B, S, H, D] views read the same."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = flash_case(shape, seed=shape[4])
+    q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
+               for x in (q, k, v * v_scale))
+    before = FA.flash_attention.launches
+    got = FA.flash_attention(q, k, v, causal=False)
+    assert FA.flash_attention.launches == before + 1
+    want = FA_REF.flash_attention_ref(q, k, v, causal=False)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    assert torch.equal(FA.flash_attention(*views, causal=False), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 64),
+                                           (False, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_masked_sq_over_skv_on_card(causal, window,
+                                                            dtype, cuda):
+    """With a causal or window mask, Sq > Skv stays refused: by the
+    wrapper, and by the launcher itself when the wrapper is bypassed."""
+    import ctypes
+    from repro_torch.kernels.build import load_library, stream_of
+    from repro_torch.kernels.flash_attention import kernel as FK
+    q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
+               for x in flash_case((1, 4, 2, 300, 200, 64)))
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        FK.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    out = torch.empty_like(q)
+    strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    with pytest.raises(RuntimeError, match="flash_attention_launch failed"):
+        load_library("prefill").call(
+            "flash_attention_launch", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), 1, 4, 2, 300, 200, 64, *strides,
+            int(causal), int(window is not None), int(window or 0),
+            ctypes.c_float(0.125), int(dtype == torch.bfloat16),
+            stream_of(q))
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_prefill_library_runs_wgmma_and_tma(cuda):
     """The built prefill library's machine code holds Hopper's warpgroup

@@ -22,6 +22,7 @@ import torch
 from repro.configs import get_smoke_config as j_smoke
 from repro.configs.base import TrainConfig
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_flash_ref
 from repro.kernels.ssd_scan.ops import ssd_scan as j_ssd
 from repro.models import ssm as JS
 from repro.models.params import init_params as j_init_params
@@ -37,7 +38,8 @@ from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TF
 from repro_torch.train.step import make_prefill_step as t_prefill
-from test_torch_gpu import (FLASH_MASKS, FLASH_SHAPES, SSD_SHAPES,
+from test_torch_gpu import (FLASH_CROSS_SHAPES, FLASH_MASKS, FLASH_SHAPES,
+                            SSD_SHAPES,
                             flash_case, ssd_case)
 from repro_torch.kernels.ssd_scan import ref as TSSD_REF
 
@@ -101,6 +103,21 @@ def test_flash_attention_ragged_lengths_match_reference(shape, causal,
                    causal=causal, window=window, impl="ref")
     got = TFA.flash_attention(T_(q), T_(k), T_(v), causal=causal,
                               window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("shape", FLASH_CROSS_SHAPES)
+def test_flash_attention_cross_plain_matches_reference(shape):
+    """Full attention with more queries than keys (cross-attention at the
+    card tests' ragged key counts): the plain version against the
+    reference's plain version, which computes it with the same (unread)
+    negative query offset."""
+    q, k, v = flash_case(shape, seed=shape[4])
+    want = jax.jit(lambda *a: j_flash_ref(*a, causal=False))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = TFA.flash_attention(T_(q), T_(k), T_(v), causal=False)
+    assert got.shape == q.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=2e-5)
 
@@ -389,10 +406,35 @@ def test_self_attention_matches_reference_dense_path():
 
 
 def test_unported_family_raises():
-    cfg = dataclasses.replace(t_smoke("llama32_1b"), family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
-        TF.model_specs(cfg)
-    with pytest.raises(NotImplementedError, match="still to port"):
-        t_prefill(cfg, device=CPU)
+    """Every family is ported: an unknown family raises ``ValueError``, as
+    the reference's router does, and every reference architecture's smoke
+    config builds, prefills and serves on the CPU."""
+    from repro.configs import ARCH_IDS as J_IDS
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.serve.decode import build_serve_step, init_serve_state
+    cfg = dataclasses.replace(t_smoke("llama32_1b"), family="retnet")
+    for fn in (TF.model_specs, lambda c: t_prefill(c, device=CPU),
+               lambda c: TF.make_model(c, device=CPU)):
+        with pytest.raises(ValueError, match="unknown family"):
+            fn(cfg)
     with pytest.raises(ValueError, match="make_model"):
         TF.HybridLM(t_smoke("llama32_1b"), device=CPU)
+    tcfg = TieringConfig(n_tenants=2, page_tokens=4)
+    for arch in J_IDS:
+        cfg = t_smoke(arch)
+        model = TF.make_model(cfg, device=CPU)
+        toks = torch.as_tensor(_tokens(cfg, 2, 8, seed=1))
+        batch = {"tokens": toks}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros(2, cfg.encoder_seq, cfg.d_model)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.zeros(2, cfg.num_image_tokens,
+                                                cfg.d_model)
+        logits = t_prefill(cfg, device=CPU)(model, batch)
+        assert logits.shape == (2, cfg.vocab_size), arch
+        assert bool(torch.isfinite(logits).all()), arch
+        state = init_serve_state(cfg, tcfg, 2, 8, device=CPU)
+        step = build_serve_step(cfg, tcfg, 2, 8, device=CPU)
+        with torch.no_grad():
+            lg, state = step(model, state, toks[:, :1])
+        assert lg.shape == (2, 1, cfg.vocab_size), arch
