@@ -157,6 +157,33 @@ one line each, each with its duration:
      32,768) and the encoder's 1,500 x 1,500, non-causal, bf16: time,
      plain (where its scores fit), non-causal SDPA, bound
 
+ 35. K7 and K8 under autograd (``FlashAttention``, ``SSDScan``: the
+     kernel's forward, the plain version's gradient): q, k and v's (x, a,
+     b and c's) gradients against autograd of the plain version on the
+     same inputs, the incoming gradient out + g so the forward's error
+     shows: K7 at Llama 3.2 1B's GQA (B=2, S=4,096, bf16), Zamba2's D=112,
+     h2o-danube's D=120 in f32, a 4,096 window at S=6,144, whisper's
+     encoder 1,500 x 1,500 and its cross Sq=4,096 > Skv=1,500; K8 at
+     mamba2-130m's widths (B=8, S=4,096); forward + backward ms beside the
+     plain version's and SDPA's
+ 36. training Llama 3.2 1B at full width and depth (16 layers, f32
+     masters, bf16 compute, train_4k's S=4,096 at B=2, remat "block"):
+     cuda vs ref loss and gradient norm from the same state beside a
+     one-ulp witness; six steps on one batch through ``TrainDriver``
+     (loss falling, every .grad finite, K7 twice a layer a step); step
+     ms, tokens/s, model FLOP/s share, peak memory; one profiled step
+     with the plain attention backward and AdamW timed by CUDA events;
+     cuda vs ref at depth 2 in f32, every gradient leaf
+ 37. mamba2-130m at full width and depth (B=8, S=4,096) through
+     ``TrainDriver`` with a checkpoint every 2 steps and a RuntimeError
+     injected at step 3 (restored and retried once), a fresh driver
+     resuming bitwise; cuda vs ref in bf16 and f32; one f32 step each of
+     Zamba2-7B at depth 6, granite-moe at depth 4 (aux loss, capacity
+     drops) and whisper-tiny at full depth, cuda vs ref every gradient
+     leaf (whisper's loss end to end, its gradients block by block), with
+     the cross-entropy's gradient at the logits from both forwards;
+     ``launch/dryrun.py``'s bytes of every train_4k cell
+
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 Exits non-zero without a result when no CUDA device is present or the
@@ -258,6 +285,17 @@ DEVICE_KERNELS = {
                  "ssd_chunk_out_kernel"),
 }
 KERNEL_TAG = {"flash_attention": "K7", "ssd_scan": "K8"}
+
+
+def ssd_ops(B: int, S: int, H: int, P: int, N: int, G: int, Q: int) -> int:
+    """The operations K8's function needs: per chunk, C B^T once per group
+    (2 tri N), and per head its masked product with x (2 tri P) and the
+    chunk state and its readout (4 Q P N)."""
+    tri = Q * (Q + 1) // 2
+    return B * (S // Q) * (G * 2 * tri * N
+                           + H * (2 * tri * P + 4 * Q * P * N))
+
+
 PREFILL_B, PREFILL_S = 2, 4096           # cuda vs ref at full width
 # bf16: phase 9's bound, relative to max |logit|; f32: float32 sums in
 # another order through 16 or 81 layers
@@ -3344,6 +3382,855 @@ def record_cross(rows: list, res: dict, prefill_rows: dict,
                             + [r["err"] for r in res["k7"]])
 
 
+# ------------------------------------------------------ phases 35-37 ----
+TRAIN_ARCH, SSM_TRAIN_ARCH = "llama32_1b", "mamba2_130m"
+TRAIN_B, SSM_TRAIN_B = 2, 8         # train_4k's global batch of 256, cut
+TRAIN_S = 4096                      # train_4k's sequence length
+TRAIN_STEPS = 6                     # on one repeated batch
+TRAIN_LR = 1e-3
+FT_EVERY, FT_FAIL_AT = 2, 3         # phase 37: checkpoint period, failure
+# phase 37's one-step families: (arch, depth (0: full), batch, sequence)
+SIDE_TRAIN = (("zamba2_7b", 6, 1, 2048),
+              ("granite_moe_3b_a800m", 4, 1, 2048),
+              ("whisper_tiny", 0, 2, 4096))
+# phase 35: each gradient through the Function (K7/K8 forward, the plain
+# backward) vs autograd of the plain version, relative to its max |value|,
+# by the gradient's dtype; the loss 0.5 |out|^2 + <out, g> makes the
+# incoming gradient depend on the forward, so the forward's error shows
+GRAD35_TOL = {"torch.float32": 1e-3, "torch.bfloat16": 2e-2}
+# cuda vs ref, one step's loss and gradients from the same state: float32
+# (loss relative; every gradient leaf relative to its max |value|) and bf16
+# (loss and global gradient norm, relative). Fixed from the readings of
+# NVIDIA H100 80GB HBM3 runs (PERF.md, PR 22): Llama 3.2 1B at depth 2
+# worst leaf 9.7e-4, mamba2-130m 1.4e-5, Zamba2-7B 4.8e-5, held at 1e-2;
+# granite-moe's worst 0.0862 (an expert weight; gradient norm 0.019) with
+# every capacity pick the same in both runs, its leaves held at
+# TRAIN_LEAF_TOL. Why (``logit_grad_diff``, same runs): its forward's
+# logits part by 2.2e-5 of their scale at the median token but by up to
+# 2.8e-3 on 17 of 2,048 tokens, and its cross-entropy is nearly one-hot
+# (median top probability 0.998), so the gradient at the logits swings by
+# up to 0.028 of a token's (above 1e-3 on 114 tokens); a few tokens'
+# swings are a share of each leaf's sum over 2,048 tokens, and more of an
+# expert weight's, which sums only the tokens routed to it. The one-ulp
+# witness, printed beside, moves the same leaves by 3.39.
+# whisper-tiny's gradients, which the witness moves by O(1), are held
+# block by block; its loss end to end at ENCDEC_LOSS_TOL (read 3.24e-5)
+TRAIN_F32_TOL = {"loss": 1e-5, "grad": 1e-2}
+TRAIN_LEAF_TOL = {"moe": 0.15}
+ENCDEC_LOSS_TOL = 1e-4
+TRAIN_BF16_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
+K7_TRAIN_SHAPES = (   # (label, B, H, K, Sq, Skv, D, dtype, causal, window)
+    ("llama32_1b", 2, 32, 8, 4096, 4096, 64, "bfloat16", True, None),
+    ("zamba2 D=112", 1, 32, 32, 4096, 4096, 112, "bfloat16", True, None),
+    ("danube D=120 f32", 1, 32, 8, 4096, 4096, 120, "float32", True, 4096),
+    ("window 4096", 1, 32, 8, 6144, 6144, 64, "bfloat16", True, 4096),
+    ("whisper encoder", 2, 6, 6, 1500, 1500, 64, "bfloat16", False, None),
+    ("whisper cross", 2, 6, 6, 4096, 1500, 64, "bfloat16", False, None))
+
+
+def grad_readings(torch, got: list, want: list, names: str) -> dict:
+    """{name: max |got - want| / max |want|} of each gradient."""
+    out = {}
+    for n, g, w in zip(names, got, want):
+        out[n] = float((g.float() - w.float()).abs().max()
+                       / w.float().abs().max().clamp_min(1e-30))
+        require(bool(torch.isfinite(g).all()), f"gradient {n} not finite")
+        require(out[n] <= GRAD35_TOL[str(g.dtype)],
+                f"gradient {n}: {out[n]:.3g} of its scale")
+    return out
+
+
+def fwd_bwd_ms(torch, fn, ins: list, grads) -> float:
+    """Device ms of one forward and backward of ``fn`` on ``ins`` against
+    the incoming ``grads``."""
+    def run():
+        out = fn(*ins)
+        torch.autograd.grad(out, ins, grads)
+    return device_ms(run, n=3)
+
+
+def k7_grad_case(torch, F, FA, FA_REF, case) -> dict:
+    label, B, H, K, Sq, Skv, D, dt, causal, window = case
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device="cuda").manual_seed(35)
+    base = [torch.randn(s, generator=g, device="cuda").to(dtype)
+            for s in ((B, H, Sq, D), (B, K, Skv, D), (B, K, Skv, D))]
+    do = torch.randn((B, H, Sq, D), generator=g, device="cuda").to(dtype)
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        out = fn(*ins, causal=causal, window=window)
+        of = out.float()
+        ((of * do.float()).sum() + 0.5 * (of * of).sum()).backward()
+        return out.detach(), [t.grad for t in ins]
+
+    out, got = run(FA.flash_attention)
+    want, wgrads = run(FA_REF.flash_attention_ref)
+    err = float((out.float() - want.float()).abs().max())
+    require(err <= K7_TOL[dt] * max(1.0, float(want.float().abs().max())),
+            f"35 K7 {label}: forward max err {err}")
+    rel = grad_readings(torch, got, wgrads, "qkv")
+    del got, wgrads, want
+    ins = [t.clone().requires_grad_(True) for t in base]
+    kw = dict(causal=causal, window=window)
+    ms = fwd_bwd_ms(torch, lambda *a: FA.flash_attention(*a, **kw), ins, do)
+    plain = fwd_bwd_ms(torch, lambda *a: FA_REF.flash_attention_ref(
+        *a, **kw), ins, do)
+    lib = None
+    if window is None:
+        lib = fwd_bwd_ms(torch, lambda *a: F.scaled_dot_product_attention(
+            *a, is_causal=causal, enable_gqa=H != K), ins, do)
+    pairs = (Sq * Skv if not causal else
+             (lambda w: w * (w + 1) // 2 + (Sq - w) * w)(
+                 Sq if window is None else min(window, Sq)))
+    return dict(label=label, shape=f"B={B} H={H} K={K} Sq={Sq} Skv={Skv} "
+                f"D={D} {dt} causal={causal} window={window}", err=err,
+                grad_rel=rel, fwd_bwd_ms=ms, plain_fwd_bwd_ms=plain,
+                library_fwd_bwd_ms=lib, B=B, H=H, K=K, S=Sq, D=D,
+                pairs=pairs, base=base if label == TRAIN_ARCH else None)
+
+
+def k8_grad_case(torch, F, SSD, SSD_REF, cfg, B: int, S: int) -> dict:
+    s = cfg.ssm
+    H, P, N, G, Q = (s.expand * cfg.d_model // s.head_dim, s.head_dim,
+                     s.state_dim, s.ngroups, s.chunk_size)
+    g = torch.Generator(device="cuda").manual_seed(36)
+    base = [torch.randn((B, S, H, P), generator=g, device="cuda") * 0.5,
+            -F.softplus(torch.randn((B, S, H), generator=g, device="cuda")
+                        * 1.2)]
+    base += [(torch.randn((B, S, G, N), generator=g, device="cuda") * 0.5
+              ).to(torch.bfloat16) for _ in range(2)]
+    gy = torch.randn((B, S, H, P), generator=g, device="cuda")
+    gh = torch.randn((B, H, P, N), generator=g, device="cuda")
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        y, h = fn(*ins)
+        ((y * gy).sum() + 0.5 * (y * y).sum() + (h * gh).sum()).backward()
+        return y.detach(), [t.grad for t in ins]
+
+    y, got = run(lambda *a: SSD.ssd_scan(*a, chunk=Q))
+    yr, wgrads = run(lambda *a: SSD_REF.ssd_scan_ref(*a, Q))
+    err = float((y - yr).abs().max())
+    require(err <= 1e-3 * float(yr.abs().max()), f"35 K8: forward {err}")
+    rel = grad_readings(torch, got, wgrads, "xabc")
+    del got, wgrads
+    ins = [t.clone().requires_grad_(True) for t in base]
+    ms = fwd_bwd_ms(torch, lambda *a: SSD.ssd_scan(*a, chunk=Q), ins,
+                    (gy, gh))
+    plain = fwd_bwd_ms(torch, lambda *a: SSD_REF.ssd_scan_ref(*a, Q), ins,
+                       (gy, gh))
+    return dict(label=cfg.name, shape=f"B={B} S={S} H={H} P={P} N={N} "
+                f"G={G} chunk {Q}", err=err, grad_rel=rel, fwd_bwd_ms=ms,
+                plain_fwd_bwd_ms=plain, library_fwd_bwd_ms=None, B=B, S=S,
+                H=H, P=P, N=N, G=G, Q=Q, base=base)
+
+
+def route_capture(torch, LAYERS, routes: list):
+    """A ``patched`` maker for ``layers.moe_block`` that appends each call's
+    routing (``moe_routes``: the membership mask and each expert's kept
+    tokens), taken before the call, then runs the block."""
+    def wrap(f):
+        def run(p, x, cfg):
+            with torch.no_grad():
+                routes.extend(moe_routes(torch, LAYERS, cfg, [(p, x, True)]))
+            return f(p, x, cfg)
+        return run
+    return wrap
+
+
+def expert_agreement(torch, a: list, b: list):
+    """[L, E]: the experts whose membership and kept tokens are the same
+    in two runs' ``route_capture`` records."""
+    return torch.stack([((ma == mb).all(dim=(0, 1))
+                         & (ka == kb).all(dim=(0, 2)))
+                        for ([ma, ka], _), ([mb, kb], _) in zip(a, b)])
+
+
+def grads_at(torch, STEP, model, tc, batch, impl: str, keep: bool,
+             step=None) -> dict:
+    """One loss and backward of ``model`` on ``batch``: {"loss", "aux",
+    "norm" (the global gradient norm), "grads" (clones, with ``keep``)}.
+    With ``step`` (a ``make_train_step`` step) the train step runs, its
+    update included, and the gradients read are its own; else the
+    parameters' ``.grad`` are cleared after."""
+    from repro_torch.optim.adamw import global_norm, init_opt_state
+    model.requires_grad_(True)
+    if step is not None:
+        _, metrics = step(model, init_opt_state(model), batch)
+        loss, aux = metrics["loss"], metrics["moe_aux"]
+    else:
+        for p in model.parameters():
+            p.grad = None
+        loss, ex = STEP.make_loss_fn(model.cfg, tc, impl=impl)(model, batch)
+        loss.backward()
+        aux = ex["moe_aux"]
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    out = {"loss": float(loss.detach()), "aux": float(aux.detach()),
+           "norm": float(global_norm(grads)),
+           "grads": {n: g.clone() for n, g in grads.items()} if keep
+           else None}
+    if step is None:
+        for p in model.parameters():
+            p.grad = None
+    return out
+
+
+def ulp_witness(torch, model, fn):
+    """``fn()`` with every embedding value one unit in the last place of
+    the compute dtype off (the weights restored after)."""
+    from repro_torch.models.params import dtype_of
+    tok = model.embed["tok"]
+    saved = tok.detach().clone()
+    with torch.no_grad():
+        tok.copy_(one_ulp(torch, tok.to(dtype_of(model.cfg.dtype))))
+    try:
+        return fn()
+    finally:
+        with torch.no_grad():
+            tok.copy_(saved)
+
+
+EXPERT_LEAVES = ("moe.wg", "moe.wu", "moe.wd")
+
+
+def leaf_bound(family: str) -> float:
+    """The float32 bound of a gradient leaf, relative to its scale."""
+    return TRAIN_LEAF_TOL.get(family, TRAIN_F32_TOL["grad"])
+
+
+def step_diff(a: dict, b: dict, agree=None) -> dict:
+    """Loss and gradient-norm differences of two ``grads_at`` results,
+    relative to ``b``'s, and, where both kept their gradients, each leaf's
+    worst difference relative to its max |value| (``errs``) and the worst
+    leaf. ``agree`` ([L, E] bool: the experts whose capacity picks are the
+    same in both runs) limits the experts' weights to the agreeing
+    experts' slices; the others' worst is reported as "split"."""
+    out = {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+           "norm": abs(a["norm"] - b["norm"]) / b["norm"]}
+    if a["grads"] is None or b["grads"] is None:
+        return out
+    errs, split = {}, 0.0
+    for n, g in a["grads"].items():
+        w = b["grads"][n]
+        err = (g - w).abs() / w.abs().max().clamp_min(1e-30)
+        if agree is not None and n.endswith(EXPERT_LEAVES):
+            per = err.flatten(2).amax(2)                       # [L, E]
+            if bool((~agree).any()):
+                split = max(split, float(per[~agree].max()))
+            errs[n] = float(per[agree].max()) if bool(agree.any()) else 0.0
+        else:
+            errs[n] = float(err.max())
+    out["errs"] = errs
+    out["grad"], out["leaf"] = max((e, n) for n, e in errs.items())
+    if agree is not None:
+        out["split"] = split
+    return out
+
+
+def format_diff(d: dict) -> str:
+    s = f"loss {d['loss']:.3g}, grad norm {d['norm']:.3g}"
+    if "grad" in d:
+        s += f", worst leaf {d['grad']:.3g} ({d['leaf']})"
+    if "split" in d:
+        s += f", experts whose picks differ {d['split']:.3g}"
+    return s
+
+
+def format_bounds(family: str) -> str:
+    return f"loss {TRAIN_F32_TOL['loss']}, leaf {leaf_bound(family)}"
+
+
+def hold_step(tag: str, d: dict, f32: bool, family: str = "") -> None:
+    """cuda vs ref (``d``): float32 holds the loss (``TRAIN_F32_TOL``) and
+    every leaf (``leaf_bound``); bf16 the loss and the gradient norm
+    (``TRAIN_BF16_TOL``)."""
+    if f32:
+        over = [n for n, e in d["errs"].items() if e > leaf_bound(family)]
+        require(d["loss"] <= TRAIN_F32_TOL["loss"] and not over,
+                f"{tag}: cuda vs ref {format_diff(d)}; leaves over their "
+                f"bound {over}")
+    else:
+        require(d["loss"] <= TRAIN_BF16_TOL["loss"]
+                and d["norm"] <= TRAIN_BF16_TOL["grad_norm"],
+                f"{tag}: cuda vs ref {format_diff(d)}")
+
+
+def logit_grad_diff(torch, TF, model, batch) -> str:
+    """Where the cuda and the ref forward part, token by token: each
+    token's logits relative to the ref's max |logit|, and the
+    cross-entropy's gradient at the logits (softmax minus one-hot): the
+    tokens whose largest logit moved and the largest swing of one token's
+    gradient. A few tokens far apart and the rest at float32 rounding
+    is a saturated softmax (or argmax) swapping its peak on those tokens."""
+    with torch.no_grad():
+        c, r = (TF.model_forward(model, batch, impl=i).float()
+                for i in ("cuda", "ref"))
+        tok = ((c - r).abs().amax(-1) / r.abs().amax()).flatten()
+        swing = (c.softmax(-1) - r.softmax(-1)).abs().amax(-1).flatten()
+        moved = int((c.argmax(-1) != r.argmax(-1)).sum())
+        top = float(r.softmax(-1).amax(-1).median())
+    del c, r
+    return (f"; cuda vs ref forward per token of {tok.numel()}: logits "
+            f"median {float(tok.median()):.3g}, worst {float(tok.max()):.3g}"
+            f", {int((tok > 1e-3).sum())} above 1e-3; the loss's gradient "
+            f"at the logits: {moved} tokens' largest logit moved, largest "
+            f"swing {float(swing.max()):.3g}, {int((swing > 1e-3).sum())} "
+            f"above 1e-3 (median top probability {top:.3g})")
+
+
+def cuda_vs_ref(torch, STEP, model, tc, batch, tag: str, f32: bool) -> dict:
+    """Phase 36/37's comparison: the cuda and ref steps' loss and gradients
+    from the same state, beside the ref step with the embedding one ulp
+    off; float32 holds every leaf, bf16 the loss and the gradient norm."""
+    c = grads_at(torch, STEP, model, tc, batch, "cuda", keep=f32)
+    r = grads_at(torch, STEP, model, tc, batch, "ref", keep=f32)
+    w = ulp_witness(torch, model, lambda: grads_at(
+        torch, STEP, model, tc, batch, "ref", keep=f32))
+    d, wd = step_diff(c, r), step_diff(w, r)
+    hold_step(tag, d, f32, model.cfg.family)
+    bounds = (format_bounds(model.cfg.family) if f32
+              else str(TRAIN_BF16_TOL))
+    phase(tag, f"{model.cfg.name} depth {model.cfg.num_layers} "
+          f"{model.cfg.dtype}: cuda vs ref {format_diff(d)} (bounds "
+          f"{bounds}); one-ulp witness {format_diff(wd)}; loss cuda "
+          f"{c['loss']:.6f} ref {r['loss']:.6f}")
+    return {"diff": d, "witness": wd, "loss": c["loss"]}
+
+
+def require_grads(torch, model, tag: str) -> None:
+    for n, p in model.named_parameters():
+        require(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                f"{tag}: {n} has no finite gradient")
+
+
+def profile_train_step(torch, STEP, fn_cls, step, model, opt, batch, tag,
+                       cls_name, cls_keys, what) -> dict:
+    """One more train step under torch.profiler, with ``fn_cls``'s backward
+    (the plain version's recompute and gradient) and the AdamW update
+    bracketed by CUDA events: {"span_ms": {"backward", "adamw"},
+    "profile": busy, wall, idle share, device ms by class}."""
+    spans: dict = {"backward": [], "adamw": []}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans[key].append((s, e))
+            return out
+        return run
+
+    bwd = fn_cls.backward
+    fn_cls.backward = staticmethod(timed("backward", bwd))
+    try:
+        with patched(STEP, "adamw_update", lambda f: timed("adamw", f)):
+            prof = profile_fn(torch, lambda: step(model, opt, batch))
+    finally:
+        fn_cls.backward = staticmethod(bwd)
+    span_ms = {k: sum(s.elapsed_time(e) for s, e in v)
+               for k, v in spans.items()}
+    out = {"span_ms": span_ms}
+    if prof is None:
+        phase(tag, "device time not measured: the profiler saw no device "
+                   "event")
+        return out
+    n_dev, busy, top, wall = prof
+    by_cls = class_ms(top, ((cls_name, cls_keys),
+                            ("matmul bf16", ("bf16",)),
+                            ("matmul f32", ("gemm", "cutlass", "xmma",
+                                            "sm90_", "sgemm"))))
+    out["profile"] = dict(busy_ms=busy, wall_ms=wall, idle=1 - busy / wall,
+                          by_class={k: v[0] for k, v in by_cls.items()})
+    phase(tag, f"one step: {n_dev} device events, busy {busy:.1f} of "
+          f"{wall:.1f} ms wall (idle share {1 - busy / wall:.4f}); {what} "
+          f"{span_ms['backward']:.1f} ms, AdamW {span_ms['adamw']:.1f} ms "
+          f"(CUDA events); device ms by class: {format_classes(by_cls)}; "
+          "top: " + "; ".join(f"{nm[:48]} {t:.1f} ms x{cnt}"
+                              for nm, t, cnt in top[:8]))
+    return out
+
+
+BLOCK_GRAD_RTOL = 1e-3    # a block's gradients fed the ref run's input
+
+
+def encdec_block_grads(torch, TF, LAYERS, STEP, model, tc, batch) -> dict:
+    """Whisper's gradients block by block: the ref run (remat "none")
+    records each encoder and decoder block's input, the encoder's output
+    and the gradient arriving at each block's output; then every block
+    runs forward and backward again from that input against that
+    gradient with impl "cuda" and "ref", and each of its gradients (its
+    parameters', its input's and, for a decoder block, the encoder
+    output's) is held within ``BLOCK_GRAD_RTOL`` of the ref one's max
+    |value|. {"worst": (err, where), "blocks": n}."""
+    import dataclasses
+    cfg = model.cfg
+    names = ("encoder_block", "encdec_dec_block")
+    origs = {n: getattr(TF, n) for n in names}
+    orig_enc = TF.encode_frames
+    rec, g_out, enc_box = [], {}, []
+
+    def capture(name):
+        def block(p, x, *args, **kwargs):
+            out = origs[name](p, x, *args, **kwargs)
+            j = len(rec)
+            rec.append((name, sum(r[0] == name for r in rec),
+                        x.detach().clone()))
+            out.register_hook(lambda g, j=j: g_out.__setitem__(
+                j, g.detach().clone()))
+            return out
+        return block
+
+    def encode(*a, **kw):
+        out = orig_enc(*a, **kw)
+        enc_box.append(out.detach().clone())
+        return out
+
+    for n in names:
+        setattr(TF, n, capture(n))
+    TF.encode_frames = encode
+    try:
+        model.requires_grad_(True)
+        for p in model.parameters():
+            p.grad = None
+        loss, _ = STEP.make_loss_fn(cfg, dataclasses.replace(
+            tc, remat_policy="none"), impl="ref")(model, batch)
+        loss.backward()
+    finally:
+        for n, f in origs.items():
+            setattr(TF, n, f)
+        TF.encode_frames = orig_enc
+        for p in model.parameters():
+            p.grad = None
+    enc = enc_box[0]
+    B, S = batch["tokens"].shape
+    positions = torch.arange(S, device=enc.device).expand(B, S)
+
+    def leaves_of(tree, path, out):
+        res = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                res[k] = leaves_of(v, f"{path}{k}.", out)
+            else:
+                t = v.detach().clone().requires_grad_(True)
+                out.append((f"{path}{k}", t))
+                res[k] = t
+        return res
+
+    def run(name, i, x, g, impl):
+        leaves = []
+        src = (model.encoder_layer(i) if name == "encoder_block"
+               else model.layer(i))
+        p = leaves_of(src, "", leaves)
+        xin = x.clone().requires_grad_(True)
+        leaves.append(("x", xin))
+        if name == "encoder_block":
+            out = origs[name](p, xin, cfg, impl)
+        else:
+            e = enc.clone().requires_grad_(True)
+            leaves.append(("enc", e))
+            out = origs[name](
+                p, xin, cfg,
+                lambda pp, a: LAYERS.self_attention(
+                    pp, a, cfg, positions, causal=True, impl=impl),
+                lambda pp, a: LAYERS.cross_attention(pp, a, e, cfg,
+                                                     impl=impl))
+        grads = torch.autograd.grad(out, [t for _, t in leaves], g)
+        return {n: gr for (n, _), gr in zip(leaves, grads)}
+
+    worst = (0.0, "")
+    for j, (name, i, x) in enumerate(rec):
+        c = run(name, i, x, g_out[j], "cuda")
+        r = run(name, i, x, g_out[j], "ref")
+        for n, w in r.items():
+            err = float((c[n] - w).abs().max()
+                        / w.abs().max().clamp_min(1e-30))
+            worst = max(worst, (err, f"{name} {i} {n}"))
+    require(worst[0] <= BLOCK_GRAD_RTOL,
+            f"37 whisper blocks: worst gradient {worst}")
+    return {"worst": worst, "blocks": len(rec)}
+
+
+def train_phases(torch, np, env: dict) -> dict:
+    """Phases 35-37: K7's and K8's gradients; Llama 3.2 1B trained at full
+    width and depth; mamba2-130m trained under the fault-tolerant driver;
+    one step each of Zamba2-7B, granite-moe and whisper-tiny. Returns the
+    numbers for the kernels' record."""
+    import dataclasses
+    import itertools
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import sharded as CKPT
+    from repro_torch.configs import get_config, reduced_depth_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticLoader, synthetic_batch
+    from repro_torch.ft.driver import FTConfig, TrainDriver
+    from repro_torch.launch.dryrun import cell_bytes, format_cell
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train import step as STEP
+    F, FA, FA_REF = env["F"], env["FA"], env["FA_REF"]
+    SSD, SSD_REF, LAYERS = env["SSD"], env["SSD_REF"], env["LAYERS"]
+    make_model = env["make_model"]
+    res: dict = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # ---- 35. K7 and K8 gradients ------------------------------------------
+    free()
+    k7 = []
+    for case in K7_TRAIN_SHAPES:
+        r = k7_grad_case(torch, F, FA, FA_REF, case)
+        k7.append(r)
+        lib = ("none" if r["library_fwd_bwd_ms"] is None
+               else f"{r['library_fwd_bwd_ms']:.3f}")
+        phase("35-k7-grad", f"{r['label']} [{r['shape']}]: forward max abs "
+              f"err {r['err']:.3g}; gradients vs plain autograd, relative "
+              f"to each one's max: " + ", ".join(
+                  f"d{k} {v:.3g}" for k, v in r["grad_rel"].items())
+              + f"; forward + backward {r['fwd_bwd_ms']:.3f} ms (plain "
+              f"{r['plain_fwd_bwd_ms']:.3f}, SDPA {lib})")
+        free()
+    scfg = get_config(SSM_TRAIN_ARCH)
+    k8 = k8_grad_case(torch, F, SSD, SSD_REF, scfg, SSM_TRAIN_B, TRAIN_S)
+    phase("35-k8-grad", f"{k8['label']} [{k8['shape']}, b/c bf16]: forward "
+          f"max abs err {k8['err']:.3g}; gradients vs plain autograd: "
+          + ", ".join(f"d{k} {v:.3g}" for k, v in k8["grad_rel"].items())
+          + f"; forward + backward {k8['fwd_bwd_ms']:.3f} ms (plain "
+          f"{k8['plain_fwd_bwd_ms']:.3f})")
+    # the train shapes' forwards alone, for the kernels' rows
+    q, k, v = k7[0].pop("base")
+    k7[0].update(ms=device_ms(lambda: FA.flash_attention(q, k, v), n=10),
+                 plain_ms=device_ms(lambda: FA_REF.flash_attention_ref(
+                     q, k, v), n=3),
+                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True, enable_gqa=True), n=10))
+    x, a, b, c = k8.pop("base")
+    k8.update(ms=device_ms(lambda: SSD.ssd_scan(x, a, b, c, chunk=k8["Q"]),
+                           n=10),
+              plain_ms=device_ms(lambda: SSD_REF.ssd_scan_ref(
+                  x, a, b, c, k8["Q"]), n=3), library_ms=None)
+    for r in k7:
+        r.pop("base", None)
+    res["k7"], res["k8"] = k7, k8
+    del q, k, v, x, a, b, c
+    free()
+
+    # ---- 36. Llama 3.2 1B at full width and depth -------------------------
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=1, total_steps=20,
+                     remat_policy="block")
+    model = make_model(cfg, seed=0, device="cuda")
+    n_params = n_parameters(model)
+    batch = next(SyntheticLoader(cfg, TRAIN_B, TRAIN_S, seed=0,
+                                 device="cuda"))
+    res["llama_bf16"] = cuda_vs_ref(torch, STEP, model, tc, batch,
+                                    "36-train-cmp", f32=False)
+    opt = init_opt_state(model)
+    step = STEP.make_train_step(cfg, tc, device="cuda")
+    times: list = []
+
+    def step_fn(state, b):
+        m, o = state
+        t0 = time.perf_counter()
+        o, metrics = step(m, o, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return (m, o), metrics
+
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        FA.flash_attention.launches = 0
+        SSD.ssd_scan.launches = 0
+        drv = TrainDriver(step_fn, FTConfig(checkpoint_dir=ckdir,
+                                            checkpoint_every=10 ** 9))
+        (model, opt), logs = drv.run((model, opt), itertools.repeat(batch),
+                                     num_steps=TRAIN_STEPS)
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "ssd_scan": SSD.ssd_scan.launches}
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["loss"]) for m in logs]
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"36: loss not falling {losses}")
+    require_grads(torch, model, "36")
+    want = {"flash_attention": 2 * cfg.num_layers * TRAIN_STEPS,
+            "ssd_scan": 0}
+    require(launches == want, f"36: launches {launches}, want {want}")
+    step_s = float(np.median(times[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    attn = 3 * cfg.num_layers * 4 * TRAIN_B * cfg.num_heads * \
+        cfg.resolved_head_dim * TRAIN_S * (TRAIN_S + 1) // 2
+    flops = 6 * n_params * tokens + attn
+    mfu = flops / step_s / BF16_OPS_PER_S
+    res["llama"] = dict(losses=losses, step_ms=step_s * 1e3,
+                        tokens_per_s=tokens / step_s, mfu=mfu,
+                        model_flops=flops, peak_bytes=peak,
+                        launches=launches, params=n_params,
+                        steps_ms=[t * 1e3 for t in times])
+    phase("36-train", f"{cfg.name}: {cfg.num_layers} layers, {n_params:,} "
+          f"parameters (f32 masters, bf16 compute), B={TRAIN_B} "
+          f"S={TRAIN_S}, remat block, {TRAIN_STEPS} steps on one batch "
+          f"through TrainDriver: loss " + " ".join(f"{x:.4f}" for x in
+                                                   losses)
+          + f"; step ms {' '.join(f'{t * 1e3:.1f}' for t in times)} "
+          f"(median after the first {step_s * 1e3:.1f}); "
+          f"{tokens / step_s:.0f} tokens/s; model FLOP/s "
+          f"{flops / step_s / 1e12:.1f} T = {mfu:.4f} of the bf16 dense "
+          f"peak (6 N tokens + attention, {flops / 1e12:.2f} TFLOP a step); "
+          f"peak memory {peak / 2**30:.2f} GiB; launches {launches} "
+          f"(K7 {launches['flash_attention'] // TRAIN_STEPS} a step)")
+
+    # one more step, profiled, with the plain attention backward and the
+    # AdamW update bracketed by CUDA events
+    res["llama"].update(profile_train_step(
+        torch, STEP, FA.FlashAttention, step, model, opt, batch,
+        "36-train-profile", "K7 flash_attention", ("flash_attention",),
+        f"the plain attention backward ({cfg.num_layers} recompute + grad "
+        "calls)"))
+    del model, opt, batch, logs, step
+    free()
+
+    # float32 at full width, depth 2: every gradient leaf
+    cfg2 = dataclasses.replace(reduced_depth_config(TRAIN_ARCH, 2),
+                               dtype="float32")
+    model = make_model(cfg2, seed=0, device="cuda")
+    res["llama_f32"] = cuda_vs_ref(
+        torch, STEP, model, tc, synthetic_batch(cfg2, TRAIN_B, TRAIN_S,
+                                                seed=0, device="cuda"),
+        "36-train-cmp", f32=True)
+    del model
+    free()
+
+    # ---- 37. mamba2-130m under the fault-tolerant driver ------------------
+    model = make_model(scfg, seed=0, device="cuda")
+    batch = next(SyntheticLoader(scfg, SSM_TRAIN_B, TRAIN_S, seed=0,
+                                 device="cuda"))
+    opt = init_opt_state(model)
+    step = STEP.make_train_step(scfg, tc, device="cuda")
+    times.clear()
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ft_")
+    restores: list = []
+    try:
+        fail = {"armed": True}
+
+        def inject(i):
+            if i == FT_FAIL_AT and fail["armed"]:
+                fail["armed"] = False
+                drv.ckpt.wait()        # the failure strikes once step 1's
+                raise RuntimeError("injected failure")  # checkpoint is in
+
+        drv = TrainDriver(step_fn, FTConfig(checkpoint_dir=ckdir,
+                                            checkpoint_every=FT_EVERY),
+                          failure_injector=inject)
+
+        def counted(f):
+            def run(*a, **kw):
+                restores.append(a[1])
+                return f(*a, **kw)
+            return run
+
+        FA.flash_attention.launches = 0
+        SSD.ssd_scan.launches = 0
+        with patched(CKPT, "restore", counted):
+            (model, opt), logs = drv.run((model, opt),
+                                         itertools.repeat(batch),
+                                         num_steps=TRAIN_STEPS)
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "ssd_scan": SSD.ssd_scan.launches}
+        want = {"flash_attention": 0,
+                "ssd_scan": 2 * scfg.num_layers * TRAIN_STEPS}
+        require(launches == want, f"37: launches {launches}, want {want}")
+        require(drv.stats.retries == 1 and restores == [FT_FAIL_AT - 2],
+                f"37: retries {drv.stats.retries}, restores {restores}")
+        losses = [float(m["loss"]) for m in logs]
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"37: loss not falling {losses}")
+        require_grads(torch, model, "37")
+        last = CKPT.latest_step(ckdir)
+        fresh = make_model(scfg, seed=1, device="cuda")
+        drv2 = TrainDriver(step_fn, FTConfig(checkpoint_dir=ckdir,
+                                             checkpoint_every=FT_EVERY))
+        (fm, fo), start = drv2.maybe_restore((fresh, init_opt_state(fresh)))
+        require(start == TRAIN_STEPS and last == TRAIN_STEPS - 1,
+                f"37: resumed at {start}, latest checkpoint {last}")
+        live = CKPT._flatten((model, opt))
+        got = CKPT._flatten((fm, fo))
+        require(sorted(live) == sorted(got), "37: restored tree differs")
+        for key, t in live.items():
+            require(torch.equal(got[key], t), f"37: {key} not bitwise")
+        step_s = float(np.median(times[1:]))
+        res["mamba"] = dict(losses=losses, step_ms=step_s * 1e3,
+                            tokens_per_s=SSM_TRAIN_B * TRAIN_S / step_s,
+                            launches=launches, leaves=len(live))
+        phase("37-train-ssm", f"{scfg.name}: {scfg.num_layers} layers, "
+              f"{n_parameters(model):,} parameters, B={SSM_TRAIN_B} "
+              f"S={TRAIN_S} chunk {scfg.ssm.chunk_size}, {TRAIN_STEPS} steps "
+              f"through TrainDriver (checkpoint every {FT_EVERY}, a "
+              f"RuntimeError injected at step {FT_FAIL_AT}): loss "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; retries {drv.stats.retries}, restored step "
+              f"{restores}; step ms {step_s * 1e3:.1f} (median after the "
+              f"first), {SSM_TRAIN_B * TRAIN_S / step_s:.0f} tokens/s; "
+              f"launches {launches}; a fresh driver resumed at step {start}"
+              f" with all {len(live)} leaves bitwise the saved state")
+        del fresh, fm, fo, drv, drv2
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    res["mamba"].update(profile_train_step(
+        torch, STEP, SSD.SSDScan, step, model, opt, batch,
+        "37-train-profile", "K8 ssd_scan", DEVICE_KERNELS["ssd_scan"],
+        f"the plain SSD backward ({scfg.num_layers} recompute + grad "
+        "calls)"))
+    del model, opt, step, logs
+    free()
+    model = make_model(scfg, seed=0, device="cuda")
+    res["mamba_bf16"] = cuda_vs_ref(torch, STEP, model, tc, batch,
+                                    "37-train-cmp", f32=False)
+    del model
+    free()
+    s32 = dataclasses.replace(scfg, dtype="float32")
+    model = make_model(s32, seed=0, device="cuda")
+    res["mamba_f32"] = cuda_vs_ref(
+        torch, STEP, model, tc, synthetic_batch(s32, SSM_TRAIN_B, TRAIN_S,
+                                                seed=0, device="cuda"),
+        "37-train-cmp", f32=True)
+    del model, batch
+    free()
+
+    # ---- 37. one step each: the hybrid, the moe, the encdec ---------------
+    res["side"] = {}
+    for arch, depth, B, S in SIDE_TRAIN:
+        c = dataclasses.replace(
+            reduced_depth_config(arch, depth) if depth else get_config(arch),
+            dtype="float32")
+        model = make_model(c, seed=0, device="cuda")
+        n_open = open_gates(torch, np, model, seed=37)
+        batch = synthetic_batch(c, B, S, seed=37, device="cuda")
+        routes = {"ref": [], "cuda": [], "witness": []}
+
+        def run(key, fn):
+            with patched(LAYERS, "moe_block",
+                         route_capture(torch, LAYERS, routes[key])):
+                return fn()
+
+        r = run("ref", lambda: grads_at(torch, STEP, model, tc, batch, "ref",
+                                        keep=True))
+        w = run("witness", lambda: ulp_witness(torch, model, lambda: grads_at(
+            torch, STEP, model, tc, batch, "ref", keep=True)))
+        # before the cuda step updates the parameters
+        logits = logit_grad_diff(torch, env["TF"], model, batch)
+        FA.flash_attention.launches = 0
+        SSD.ssd_scan.launches = 0
+        cu = run("cuda", lambda: grads_at(
+            torch, STEP, model, tc, batch, "cuda", keep=True,
+            step=STEP.make_train_step(c, tc, device="cuda")))
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "ssd_scan": SSD.ssd_scan.launches}
+        require(sum(launches.values()) > 0, f"37 {arch}: no kernel launched")
+        require_grads(torch, model, f"37 {arch}")
+        agree, extra = None, ""
+        if routes["ref"]:
+            # the forward's calls (the recomputation repeats them)
+            L = c.num_layers
+            fwd = {k: v[:L] for k, v in routes.items()}
+            agree = expert_agreement(torch, fwd["cuda"], fwd["ref"])
+            wagree = expert_agreement(torch, fwd["witness"], fwd["ref"])
+            member = sum(int(m.sum()) for (m, _), _ in fwd["cuda"])
+            kept = sum(int(m.transpose(1, 2).gather(2, k).sum())
+                       for (m, k), _ in fwd["cuda"])
+            extra = (f"; aux {cu['aux']:.5f}; capacity drops "
+                     f"{member - kept} of {member} token-expert choices; "
+                     f"experts whose picks differ from ref: cuda "
+                     f"{int((~agree).sum())}, witness "
+                     f"{int((~wagree).sum())} of {agree.numel()}")
+        d = step_diff(cu, r, agree)
+        wd = step_diff(w, r, None if agree is None else wagree)
+        if c.family == "encdec":
+            # whisper's random model parts its gradients by O(1) of a
+            # leaf's scale on a last-bit change of the input (the
+            # witness): they are held block by block, and end to end its
+            # loss (ENCDEC_LOSS_TOL), its gradients printed beside the
+            # witness
+            blocks = encdec_block_grads(torch, env["TF"], LAYERS, STEP,
+                                        model, tc, batch)
+            extra += (f"; held block by block ({blocks['blocks']} blocks "
+                      f"fed the ref run's input and output gradient): "
+                      f"worst gradient {blocks['worst'][0]:.3g} "
+                      f"({blocks['worst'][1]}), bound {BLOCK_GRAD_RTOL}")
+            require(d["loss"] <= ENCDEC_LOSS_TOL,
+                    f"37 {arch}: cuda vs ref loss {d['loss']:.3g} > "
+                    f"{ENCDEC_LOSS_TOL}")
+            bounds = f"loss {ENCDEC_LOSS_TOL}, leaves block by block"
+        else:
+            hold_step(f"37 {arch}", d, f32=True, family=c.family)
+            bounds = format_bounds(c.family)
+        extra += logits
+        res["side"][arch] = dict(diff=d, witness=wd, launches=launches,
+                                 depth=c.num_layers)
+        phase("37-train-family", f"{c.name} depth {c.num_layers} f32 "
+              f"B={B} S={S}" + (f" ({n_open:,} gate/bias values opened)"
+                                if n_open else "")
+              + f": one train step, every .grad present and finite; cuda "
+              f"vs ref {format_diff(d)} (bounds {bounds}); one-ulp witness "
+              f"{format_diff(wd)}; launches {launches}{extra}")
+        del model, batch, r, w, cu, routes, logits
+        free()
+    # what does not fit one card: the train_4k cells, by launch/dryrun.py
+    for arch in ARCH_IDS:
+        phase("37-dryrun", format_cell(cell_bytes(arch, "train_4k")))
+    return res
+
+
+def record_train(rows: list, res: dict) -> None:
+    """The train-step rows of K7 and K8: their forward at the training
+    shapes (Llama 3.2 1B's B=2 S=4,096; mamba2-130m's B=8 S=4,096) with
+    the launches of phases 36 and 37, and the forward + backward times."""
+    k7, k8 = res["k7"][0], res["k8"]
+    nbytes = 2 * (2 * k7["B"] * k7["H"] * k7["S"] * k7["D"]
+                  + 2 * k7["B"] * k7["K"] * k7["S"] * k7["D"])
+    nops = 4 * k7["B"] * k7["H"] * k7["D"] * k7["pairs"]
+    t7 = (nbytes / HBM_BYTES_PER_S * 1e3, nops / BF16_OPS_PER_S * 1e3)
+    B, S, H, P, N, G, Q = (k8[x] for x in "B S H P N G Q".split())
+    ops8 = ssd_ops(B, S, H, P, N, G, Q)
+    bytes8 = (4 * B * S * H * P * 2 + 4 * B * S * H + 2 * 2 * B * S * G * N
+              + 4 * B * H * P * N)
+    t8 = (bytes8 / HBM_BYTES_PER_S * 1e3, ops8 / F32_OPS_PER_S * 1e3)
+    for name, r, t, n, per_step, extra in (
+            ("flash_attention_train", k7, t7, res["llama"]["launches"][
+                "flash_attention"], res["llama"]["launches"][
+                    "flash_attention"] / TRAIN_STEPS,
+             {"backward_ms_per_step": res["llama"]["span_ms"][
+                 "backward"]}),
+            ("ssd_scan_train", k8, t8, res["mamba"]["launches"]["ssd_scan"],
+             res["mamba"]["launches"]["ssd_scan"] / TRAIN_STEPS,
+             {"backward_ms_per_step": res["mamba"]["span_ms"][
+                 "backward"]})):
+        kernel = name.removesuffix("_train")
+        rows.append({
+            "name": name, "kernel": kernel, "route": "cuda",
+            "source": PREFILL_SOURCE, "replaces": PREFILL_REPLACES[kernel],
+            "launches": n, "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": max(t),
+            "bound_by": "bytes" if t[0] >= t[1] else "operations",
+            "library_ms": r["library_ms"], "width": r["shape"],
+            "launches_per_step": per_step, "fwd_bwd_ms": r["fwd_bwd_ms"],
+            "plain_fwd_bwd_ms": r["plain_fwd_bwd_ms"],
+            "library_fwd_bwd_ms": r["library_fwd_bwd_ms"],
+            "grad_rel_err": r["grad_rel"], **extra})
+        phase("35-37-train-kernel", f"{name}: forward {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.4f}, library {r['library_ms']}, "
+              f"bound {max(t):.5f}), forward + backward "
+              f"{r['fwd_bwd_ms']:.3f} ms, {n} launches in the training run "
+              f"({per_step:g} a step)")
+
+
 # ---------------------------------------------------------- phase 18 ----
 KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
                   ("K8 ssd_scan", DEVICE_KERNELS["ssd_scan"]),
@@ -4107,8 +4994,7 @@ def main() -> int:
              ).to(torch.bfloat16)
         c = (torch.randn((B, S, G, N), generator=g, device="cuda") * 0.5
              ).to(torch.bfloat16)
-        tri = Q * (Q + 1) // 2
-        nops = B * H * (S // Q) * (2 * tri * (N + P) + 4 * Q * P * N)
+        nops = ssd_ops(B, S, H, P, N, G, Q)
         nbytes = (4 * B * S * H * P * 2 + 4 * B * S * H + 2 * 2 * B * S * G
                   * N + 4 * B * H * P * N)
         return dict(
@@ -4204,12 +5090,14 @@ def main() -> int:
         FA_REF=FA_REF, swrap=swrap, pwrap=pwrap, full_load=full_load,
         fused_mul_add=fused_mul_add, make_model=make_model,
         prefill_cell=prefill_cell, ssm_lm_forward=ssm_lm_forward,
-        TieringConfig=TieringConfig)
+        TieringConfig=TieringConfig, SSD=SSD, SSD_REF=SSD_REF)
     fam = family_phases(torch, np, fam_env)
     record_families(rows, fam, prefill_rows, path_checks[n_checks:])
     n_checks = len(path_checks)
     cross = cross_phases(torch, np, fam_env)
     record_cross(rows, cross, prefill_rows, path_checks[n_checks:])
+    train = train_phases(torch, np, fam_env)
+    record_train(rows, train)
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

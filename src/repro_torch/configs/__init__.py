@@ -14,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig
 
 ARCH_IDS = ["mixtral_8x22b", "granite_moe_3b_a800m", "qwen3_32b",
             "codeqwen15_7b", "h2o_danube_3_4b", "llama32_1b", "mamba2_130m",
@@ -58,3 +58,14 @@ def reduced_depth_config(arch: str, n: int) -> ModelConfig:
         n = max(cfg.hybrid_attn_every, (n // cfg.hybrid_attn_every)
                 * cfg.hybrid_attn_every)
     return dataclasses.replace(cfg, num_layers=n)
+
+
+def shape_cells(arch: str):
+    """The assigned (shape) cells for one arch, with principled skips."""
+    cfg = get_config(arch)
+    cells = []
+    for name, sh in SHAPES.items():
+        if name == "long_500k" and not cfg.has_subquadratic_path:
+            continue  # pure full-attention archs skip long-context decode
+        cells.append(sh)
+    return cells

@@ -1,8 +1,14 @@
 """Configuration for the port (a copy of the reference's ``configs/base.py``).
 
 A ``ModelConfig`` fully describes one architecture (with its ``MoEConfig``
-or ``SSMConfig``; the port runs the dense, moe, ssm and hybrid families);
-``TieringConfig`` carries the Equilibria fairness parameters (paper §IV).
+or ``SSMConfig``); ``ShapeConfig`` is one assigned input-shape cell
+(``SHAPES``); ``TieringConfig`` carries the Equilibria fairness parameters
+(paper §IV); ``TrainConfig`` the optimizer, schedule, remat and checkpoint
+settings of the training step.
+
+The reference's ``MeshConfig`` (the 16 x 16 and 2 x 16 x 16 TPU meshes)
+has no counterpart: the port trains and serves on one card, where every
+logical axis maps to that card and the mesh is nothing.
 """
 from __future__ import annotations
 
@@ -136,6 +142,27 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class TieringConfig:
     """Equilibria fairness parameters (paper §IV). Page sizes are in 'pages'."""
     n_tenants: int = 4
@@ -177,3 +204,21 @@ class TieringConfig:
 
     def with_(self, **kw) -> "TieringConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatches: int = 1             # gradient accumulation
+    remat_policy: str = "block"       # none | block | dots_saveable | full
+    grad_compression: bool = False    # int8 error-feedback DP all-reduce
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    seed: int = 0

@@ -10,7 +10,11 @@ Every function reads a reference tree whose leaves were made numpy arrays
   router and [L, E, d, f] experts, the ssm LM's Mamba2 stack, the hybrid's
   ``shared`` block, the encdec's ``encoder``/``decoder`` stacks and
   ``enc_ln``, the vlm's ``units.self`` with its two stacked axes and
-  ``units.cross`` with its scalar gates);
+  ``units.cross`` with its scalar gates); ``params_to_numpy``, its
+  inverse;
+* ``opt_state_from_numpy`` / ``opt_state_to_numpy``: the optimizer's
+  ``OptState`` (nested ``m``/``v`` trees there, dicts keyed by dotted
+  parameter name here);
 * ``cache_from_numpy`` / ``cache_to_numpy``: the serving path's
   ``TieredKVCache``;
 * ``mamba_cache_from_numpy`` / ``mamba_cache_to_numpy``: the serving
@@ -31,6 +35,7 @@ from repro_torch.obs.attribution import AttributionState
 from repro_torch.obs.stats import TierStats
 from repro_torch.obs.streaming import DetectorState
 from repro_torch.obs.trace import MigrationRing
+from repro_torch.optim.adamw import OptState, flat_params
 
 
 def _t(x, device) -> torch.Tensor:
@@ -131,6 +136,56 @@ def params_from_numpy(tree, cfg, device="cuda"):
     if missing:
         raise KeyError(f"reference tree lacks {missing}")
     return model
+
+
+def _nest(flat: dict, leaf) -> dict:
+    """A flat dict keyed by dotted name as the reference's nested tree,
+    each value through ``leaf``."""
+    tree: dict = {}
+    for name, v in flat.items():
+        *path, last = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf(v)
+    return tree
+
+
+def _f32_host(x: torch.Tensor) -> np.ndarray:
+    """float32 numpy copy of a tensor (bf16 widens exactly)."""
+    return x.detach().to(torch.float32).cpu().numpy().copy()
+
+
+def params_to_numpy(model) -> dict:
+    """The reference's nested parameter tree of a port model, float32
+    numpy leaves (the inverse of ``params_from_numpy``)."""
+    return _nest(flat_params(model), _f32_host)
+
+
+def opt_state_from_numpy(tree, device="cuda") -> OptState:
+    """The port's ``OptState`` from a reference ``OptState`` (or a dict with
+    its fields) whose leaves were made numpy arrays: the nested ``m`` and
+    ``v`` trees become float32 dicts keyed by dotted name, ``step`` an
+    int32 scalar tensor."""
+    device = resolve_device(device)
+
+    def field(f):
+        return tree[f] if isinstance(tree, dict) else getattr(tree, f)
+
+    def flat(t):
+        return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+                for k, v in flat_params(t).items()}
+
+    return OptState(m=flat(field("m")), v=flat(field("v")),
+                    step=torch.as_tensor(np.array(field("step"), np.int32),
+                                         device=device))
+
+
+def opt_state_to_numpy(opt: OptState) -> dict:
+    """{"m", "v": the reference's nested trees of float32 arrays, "step":
+    an int32 scalar array}."""
+    return {"m": _nest(opt.m, _f32_host), "v": _nest(opt.v, _f32_host),
+            "step": np.array(opt.step.cpu().numpy(), np.int32)}
 
 
 def _tensor_from_numpy(x, device) -> torch.Tensor:

@@ -3,6 +3,15 @@
 ``flash_attention`` sends CUDA tensors to the hand-written kernel and CPU
 tensors to the plain version; ``impl="ref"`` calls the plain version on
 any device. Launches are counted in ``flash_attention.launches``.
+
+On a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
+(``FlashAttention``), and nowhere else: its forward launches the kernel;
+its backward is the gradient of the plain version (``flash_attention_ref``,
+recomputed from the saved q, k and v under ``torch.enable_grad``, then
+``torch.autograd.grad`` against the incoming gradient). The reference
+never differentiates its Pallas kernel: its training forward is plain
+``jnp`` attention, so the plain version's gradient is the reference's own
+backward, not a fallback.
 """
 from __future__ import annotations
 
@@ -16,6 +25,29 @@ from repro_torch.kernels.flash_attention import ref as R
 IMPLS = ("cuda", "ref")
 
 
+class FlashAttention(torch.autograd.Function):
+    """K7 forward, the plain version's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        flash_attention.launches += 1
+        return K.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wrt = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = R.flash_attention_ref(*inputs, causal=ctx.causal,
+                                        window=ctx.window)
+            got = iter(torch.autograd.grad(out, wrt, grad))
+        return (*(next(got) if t.requires_grad else None for t in inputs),
+                None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     impl: str = "cuda") -> torch.Tensor:
@@ -25,8 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
     if impl == "cuda" and q.is_cuda:
-        flash_attention.launches += 1
-        return K.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return FlashAttention.apply(q, k, v, causal, window)
     return R.flash_attention_ref(q, k, v, causal=causal, window=window)
 
 

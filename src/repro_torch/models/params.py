@@ -10,7 +10,10 @@ ones, ``embed`` (std 1), ``small`` (std 0.02), else normal with std
 ``scale / sqrt(fan_in)``, where fan_in is the spec's first dimension — for
 a stacked spec that is the layer count, exactly as the reference computes
 it. Weights in a narrower ``param_dtype`` than float32 are drawn in float32
-blocks of leading rows and rounded once. The streams differ from
+blocks of leading rows and rounded once. ``abstract_params`` is the tree as
+tensors on the ``meta`` device (shapes and dtypes, no storage: the
+reference's ``ShapeDtypeStruct`` tree); ``param_count`` and ``param_bytes``
+size a spec tree. The streams differ from
 ``jax.random``'s, so the tests hand the reference's weights over through
 ``convert.params_from_numpy``.
 """
@@ -91,3 +94,27 @@ def empty_params(specs: Dict, device: torch.device,
     return {k: (empty_params(v, device, dtype) if isinstance(v, dict)
                 else torch.empty(v.shape, dtype=dtype, device=device))
             for k, v in specs.items()}
+
+
+def _leaves(specs: Dict):
+    for v in specs.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def abstract_params(specs: Dict, dtype: torch.dtype = torch.float32) -> Dict:
+    """The parameter tree as ``meta`` tensors of ``dtype``: shapes and
+    dtypes without storage."""
+    return empty_params(specs, torch.device("meta"), dtype)
+
+
+def param_count(specs: Dict) -> int:
+    return int(sum(math.prod(s.shape) for s in _leaves(specs)))
+
+
+def param_bytes(specs: Dict, dtype: torch.dtype = torch.float32) -> int:
+    """Bytes of the parameters at ``dtype`` (the config's ``param_dtype``;
+    a spec carries no dtype of its own here)."""
+    return param_count(specs) * dtype.itemsize

@@ -21,17 +21,27 @@ every self- and cross-attention goes through the ``flash_attention`` op
 (K7) and every Mamba2 block through the ``ssd_scan`` op (K8), or straight
 to their plain versions with ``impl="ref"``. The reference scans its
 stacks (``models/unroll.py`` picks scan or unroll); here every stack is a
-Python loop over layers, so that module has no counterpart. The decode
-blocks take an ``attend`` callback so the serving path
+Python loop over layers, so that module has no counterpart. Each layer body
+is rematerialised by ``remat`` as the reference's ``make_remat`` does it
+(``torch.utils.checkpoint`` in place of ``jax.checkpoint``), when autograd
+records. The decode blocks take an ``attend`` callback so the serving path
 (``serve/decode.py``) owns the tiered paged cache.
+
+Parameters are registered frozen (``requires_grad=False``): serving and the
+prefill record no graph, and the training step (``train/step.py``) turns
+them trainable. ``cast_params`` is the model's interface over its
+parameters cast to the compute dtype, the reference's ``loss_fn`` cast.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -160,6 +170,43 @@ def model_specs(cfg: ModelConfig) -> Dict:
     return _SPECS[cfg.family](cfg)
 
 
+# the matmuls without batch dimensions: the outputs that ``"dots"`` saves
+# (the reference's ``dots_with_no_batch_dims_saveable``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def make_remat(body: Callable, policy: str) -> Callable:
+    """The reference's ``make_remat`` for one layer body: ``"none"`` keeps
+    every activation; ``"dots"`` recomputes all but the weight matmuls'
+    outputs (a selective checkpoint); any other policy (``"block"``, and
+    the ``"dots_saveable"`` and ``"full"`` that ``TrainConfig`` names, as
+    the reference falls through to it) recomputes the whole body in the
+    backward. Nothing is recomputed while autograd does not record."""
+    if policy == "none":
+        return body
+    kw = ({"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)}
+        if policy == "dots" else {})
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        return checkpoint(body, *args, use_reentrant=False, **kw)
+
+    return run
+
+
+def _tree_of(module: nn.Module) -> Dict:
+    out = dict(module._parameters)
+    out.update({k: m.tree() for k, m in module._modules.items()})
+    return out
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module tree: parameter names are the
     reference's tree paths joined by dots; ``tree["wq"]`` reads a child."""
@@ -178,9 +225,7 @@ class ParamTree(nn.Module):
 
     def tree(self) -> Dict:
         """The parameters as a nested dict of tensors."""
-        out = dict(self._parameters)
-        out.update({k: m.tree() for k, m in self._modules.items()})
-        return out
+        return _tree_of(self)
 
     def index(self, i: int) -> Dict:
         """Entry ``i`` of the leading axis of every tensor, as a nested dict
@@ -231,6 +276,11 @@ class _LM(nn.Module):
     def layer(self, i: int) -> Dict:
         return self.layers.index(i)
 
+    def tree(self) -> Dict:
+        """The parameters as a nested dict of tensors (the reference's
+        parameter tree)."""
+        return _tree_of(self)
+
     def forward(self, tokens: torch.Tensor, **inputs) -> torch.Tensor:
         """Logits of ``tokens``; ``inputs`` are the batch's ``frames``
         (encdec) or ``image_embeds`` (vlm)."""
@@ -279,6 +329,64 @@ class VisionLM(_LM):
 
     def unit(self, u: int) -> Dict:
         return self.units.index(u)
+
+
+class TreeView:
+    """Read access to a nested dict of tensors as a ``ParamTree`` gives it:
+    ``view["wq"]`` or ``view.attn``, ``tree()`` and ``index(i)``."""
+
+    def __init__(self, tree: Dict):
+        self._tree = tree
+
+    def __getitem__(self, key: str):
+        v = self._tree[key]
+        return TreeView(v) if isinstance(v, dict) else v
+
+    def __getattr__(self, key: str):
+        if key.startswith("_"):
+            raise AttributeError(key)
+        try:
+            return self[key]
+        except KeyError:
+            raise AttributeError(key) from None
+
+    def tree(self) -> Dict:
+        return self._tree
+
+    def index(self, i: int) -> Dict:
+        return index_tree(self._tree, i)
+
+
+class ModelView(TreeView):
+    """A model's interface (``cfg``, ``layer``, ``unit``,
+    ``encoder_layer`` and its subtrees) over another tree of its
+    parameters, for the forwards of this module."""
+
+    def __init__(self, model: "_LM", tree: Dict):
+        super().__init__(tree)
+        self.cfg = model.cfg
+        self._cls = type(model)
+
+    def layer(self, i: int) -> Dict:
+        return self._cls.layer(self, i)
+
+    def encoder_layer(self, i: int) -> Dict:
+        return self._cls.encoder_layer(self, i)
+
+    def unit(self, u: int) -> Dict:
+        return self._cls.unit(self, u)
+
+
+def cast_params(model: "_LM", dtype: torch.dtype) -> ModelView:
+    """``model`` over its float32 parameters cast to ``dtype`` once, up
+    front, as the reference's ``loss_fn`` casts its masters to the compute
+    dtype (so every weight, norm scales included, is rounded to it); the
+    gradients flow back through the casts to the float32 masters."""
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        return t.to(dtype) if t.dtype == torch.float32 else t
+    return ModelView(model, cast(model.tree()))
 
 
 _CLASSES = {"dense": DenseLM, "moe": MoELM, "ssm": SSMLM, "hybrid": HybridLM,
@@ -345,8 +453,22 @@ def _logits(model: _LM, x: torch.Tensor, last_only: bool) -> torch.Tensor:
     return lm_logits(model, x[:, -1:] if last_only else x, model.cfg)
 
 
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _out(model, x, last_only: bool, return_aux: bool, aux=None):
+    """The logits, with the aux loss (0 outside the moe family) when
+    ``return_aux``."""
+    logits = _logits(model, x, last_only)
+    if not return_aux:
+        return logits
+    return logits, _zero(x) if aux is None else aux
+
+
 def lm_forward(model: _LM, tokens: torch.Tensor, *, impl: str = "cuda",
-               last_only: bool = False, return_aux: bool = False):
+               last_only: bool = False, return_aux: bool = False,
+               remat: str = "block"):
     """Dense or moe LM: tokens [B,S] -> logits [B,S,V] ([B,1,V] with
     ``last_only``: the logits are row-wise, so the last position's need no
     other row); with ``return_aux``, (logits, the MoE aux loss summed over
@@ -354,24 +476,27 @@ def lm_forward(model: _LM, tokens: torch.Tensor, *, impl: str = "cuda",
     cfg = model.cfg
     x = embed_tokens(model, tokens, cfg)
     positions = _positions(tokens)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    body = make_remat(lambda p, x: decoder_block(p, x, cfg, positions, impl),
+                      remat)
+    aux = _zero(x)
     for i in range(cfg.num_layers):
-        x, a = decoder_block(model.layer(i), x, cfg, positions, impl)
+        x, a = body(model.layer(i), x)
         aux = aux + a
-    logits = _logits(model, x, last_only)
-    return (logits, aux) if return_aux else logits
+    return _out(model, x, last_only, return_aux, aux)
 
 
 def ssm_lm_forward(model: SSMLM, tokens: torch.Tensor, *,
-                   impl: str = "cuda", last_only: bool = False
-                   ) -> torch.Tensor:
+                   impl: str = "cuda", last_only: bool = False,
+                   return_aux: bool = False, remat: str = "block"):
     """Mamba2 LM: tokens [B,S] -> logits [B,S,V] ([B,1,V] with
     ``last_only``); every block's scan through K8."""
     cfg = model.cfg
     x = embed_tokens(model, tokens, cfg)
+    body = make_remat(lambda p, x: S.mamba_block(p, x, cfg, impl=impl)[0],
+                      remat)
     for i in range(cfg.num_layers):
-        x, _ = S.mamba_block(model.layer(i), x, cfg, impl=impl)
-    return _logits(model, x, last_only)
+        x = body(model.layer(i), x)
+    return _out(model, x, last_only, return_aux)
 
 
 def shared_attn_block(sp, x: torch.Tensor, emb0: torch.Tensor,
@@ -398,12 +523,13 @@ def cached_attention(cfg: ModelConfig, positions: torch.Tensor,
 
 
 def hybrid_forward(model: HybridLM, tokens: torch.Tensor, *,
-                   impl: str = "cuda", last_only: bool = False
-                   ) -> torch.Tensor:
+                   impl: str = "cuda", last_only: bool = False,
+                   return_aux: bool = False, remat: str = "block"):
     """Zamba2-style: Mamba2 backbone, one *shared* attention block applied
     before every ``hybrid_attn_every``-th layer on concat(hidden,
     embeddings). The reference's ``lax.cond(idx % every == 0)`` is a branch
-    on the host layer index."""
+    on the host layer index, inside the layer body that ``remat`` covers;
+    the shared block's gradient sums over its applications."""
     cfg = model.cfg
     x = embed_tokens(model, tokens, cfg)
     emb0 = x
@@ -414,11 +540,15 @@ def hybrid_forward(model: HybridLM, tokens: torch.Tensor, *,
         return L.self_attention(p, a, cfg, positions, causal=True,
                                 window=cfg.sliding_window, impl=impl)
 
-    for i in range(cfg.num_layers):
-        if i % cfg.hybrid_attn_every == 0:
+    def body(p, x, shared: bool):
+        if shared:
             x = shared_attn_block(sp, x, emb0, cfg, attention)
-        x, _ = S.mamba_block(model.layer(i), x, cfg, impl=impl)
-    return _logits(model, x, last_only)
+        return S.mamba_block(p, x, cfg, impl=impl)[0]
+
+    body = make_remat(body, remat)
+    for i in range(cfg.num_layers):
+        x = body(model.layer(i), x, i % cfg.hybrid_attn_every == 0)
+    return _out(model, x, last_only, return_aux)
 
 
 def cross_block(cp, x: torch.Tensor, cfg: ModelConfig,
@@ -438,11 +568,13 @@ def cross_block(cp, x: torch.Tensor, cfg: ModelConfig,
 
 def vlm_forward(model: VisionLM, tokens: torch.Tensor,
                 image_embeds: torch.Tensor, *, impl: str = "cuda",
-                last_only: bool = False) -> torch.Tensor:
+                last_only: bool = False, return_aux: bool = False,
+                remat: str = "block"):
     """tokens [B,S]; image_embeds [B, n_img, d] (the stub frontend's patch
     embeddings) -> logits [B,S,V] ([B,1,V] with ``last_only``). Each unit:
     its self blocks (causal K7), then the gated cross block (non-causal K7
-    against every image position)."""
+    against every image position). ``remat`` covers the self blocks, as
+    the reference's covers its ``self_body``."""
     cfg = model.cfg
     x = embed_tokens(model, tokens, cfg)
     positions = _positions(tokens)
@@ -451,13 +583,16 @@ def vlm_forward(model: VisionLM, tokens: torch.Tensor,
     def attention(p, a):
         return L.cross_attention(p, a, enc, cfg, impl=impl)
 
+    body = make_remat(lambda p, x: decoder_block(p, x, cfg, positions, impl),
+                      remat)
+    aux = _zero(x)
     for u in range(cfg.num_layers // cfg.cross_attn_every):
         up = model.unit(u)
         for j in range(cfg.cross_attn_every - 1):
-            x, _ = decoder_block(index_tree(up["self"], j), x, cfg,
-                                 positions, impl)
+            x, a = body(index_tree(up["self"], j), x)
+            aux = aux + a
         x = cross_block(up["cross"], x, cfg, attention)
-    return _logits(model, x, last_only)
+    return _out(model, x, last_only, return_aux, aux)
 
 
 def _sinusoid(seq: int, d: int) -> torch.Tensor:
@@ -472,7 +607,7 @@ def _sinusoid(seq: int, d: int) -> torch.Tensor:
 
 
 def encode_frames(model: EncDecLM, frames: torch.Tensor, *,
-                  impl: str = "cuda") -> torch.Tensor:
+                  impl: str = "cuda", remat: str = "block") -> torch.Tensor:
     """frames [B, T_enc, d] (the stub conv frontend's frame embeddings) ->
     the encoder's output [B, T_enc, d]: its blocks (``encoder_block``),
     then ``enc_ln``."""
@@ -480,8 +615,9 @@ def encode_frames(model: EncDecLM, frames: torch.Tensor, *,
     dt = dtype_of(cfg.dtype)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model).to(
         device=frames.device, dtype=dt)
+    body = make_remat(lambda p, x: encoder_block(p, x, cfg, impl), remat)
     for i in range(cfg.encoder_layers):
-        x = encoder_block(model.encoder_layer(i), x, cfg, impl)
+        x = body(model.encoder_layer(i), x)
     return L.rms_norm(x, model.enc_ln, cfg.rms_eps)
 
 
@@ -513,12 +649,13 @@ def encdec_dec_block(p, x: torch.Tensor, cfg: ModelConfig,
 
 def encdec_forward(model: EncDecLM, tokens: torch.Tensor,
                    frames: torch.Tensor, *, impl: str = "cuda",
-                   last_only: bool = False) -> torch.Tensor:
+                   last_only: bool = False, return_aux: bool = False,
+                   remat: str = "block"):
     """tokens [B,S]; frames [B, T_enc, d] -> logits [B,S,V] ([B,1,V] with
     ``last_only``: the encoder and the cross K/V still cover every
-    position)."""
+    position). ``remat`` covers each encoder and each decoder block."""
     cfg = model.cfg
-    enc = encode_frames(model, frames, impl=impl)
+    enc = encode_frames(model, frames, impl=impl, remat=remat)
     x = embed_tokens(model, tokens, cfg)
     positions = _positions(tokens)
 
@@ -529,22 +666,29 @@ def encdec_forward(model: EncDecLM, tokens: torch.Tensor,
     def cross_attention(p, a):
         return L.cross_attention(p, a, enc, cfg, impl=impl)
 
+    body = make_remat(lambda p, x: encdec_dec_block(
+        p, x, cfg, self_attention, cross_attention), remat)
     for i in range(cfg.num_layers):
-        x = encdec_dec_block(model.layer(i), x, cfg, self_attention,
-                             cross_attention)
-    return _logits(model, x, last_only)
+        x = body(model.layer(i), x)
+    return _out(model, x, last_only, return_aux)
 
 
 def model_forward(model: _LM, batch: Dict[str, torch.Tensor], *,
-                  impl: str = "cuda", last_only: bool = False
-                  ) -> torch.Tensor:
+                  impl: str = "cuda", last_only: bool = False,
+                  return_aux: bool = False, remat: str = "block"):
     """Unified full-sequence forward. batch: {"tokens": [B,S]}, plus
     ``frames`` [B, T_enc, d] (encdec) or ``image_embeds`` [B, n_img, d]
-    (vlm). Returns logits [B,S,V] ([B,1,V] with ``last_only``)."""
+    (vlm). Returns logits [B,S,V] ([B,1,V] with ``last_only``); with
+    ``return_aux``, (logits, aux) for every family, as the reference's
+    ``model_forward`` returns them (aux is the MoE load-balancing loss, 0
+    outside the moe family). ``remat`` is the reference's layer-body
+    rematerialisation policy (``make_remat``). ``model`` is a model or a
+    ``ModelView`` of one."""
     cfg = model.cfg
     _require_family(cfg)
     tokens = batch["tokens"]
-    kw = dict(impl=impl, last_only=last_only)
+    kw = dict(impl=impl, last_only=last_only, return_aux=return_aux,
+              remat=remat)
     if cfg.family == "vlm":
         return vlm_forward(model, tokens, batch["image_embeds"], **kw)
     if cfg.family == "encdec":

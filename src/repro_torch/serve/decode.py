@@ -114,7 +114,8 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 
     impl "cuda" (the default on a card) runs the attention and the page
     moves through the hand-written kernels' wrappers; "ref" (the default on
-    the CPU) calls their plain versions directly, on any device."""
+    the CPU) calls their plain versions directly, on any device. The step
+    runs under ``torch.no_grad``."""
     TF.model_specs(cfg)                  # raises for an unknown family
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
@@ -136,6 +137,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
         return x
 
     if cfg.family == "ssm":
+        @torch.no_grad()
         def serve_step(model: TF.SSMLM, state, tokens: torch.Tensor):
             """The reference's ssm branch: no paged KV (its fast budget is
             0) and no tiering step; no kernel runs (the decode step is the
@@ -183,6 +185,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                                   mode=mode, impl=impl)
 
     if cfg.family in ("dense", "moe"):
+        @torch.no_grad()
         def serve_step(model: TF._LM, state, tokens: torch.Tensor):
             """Dense and moe (``moe_block_decode`` in place of the MLP)."""
             kv, lpage, masses, x = begin(state, model, tokens)
@@ -201,6 +204,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
         return lambda p, a: cross_attend(p, a, ck, cv, cfg)
 
     if cfg.family == "encdec":
+        @torch.no_grad()
         def serve_step(model: TF.EncDecLM, state, tokens: torch.Tensor):
             """The reference's encdec branch: each decoder layer attends
             over its tiered KV layer (K5), then over the precomputed cross
@@ -220,6 +224,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     if cfg.family == "vlm":
         n_self = cfg.cross_attn_every - 1
 
+        @torch.no_grad()
         def serve_step(model: TF.VisionLM, state, tokens: torch.Tensor):
             """The reference's vlm branch: self layer j of unit u uses KV
             layer ``u * (every - 1) + j`` (the reference's reshape of the
@@ -242,6 +247,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 
     every = cfg.hybrid_attn_every
 
+    @torch.no_grad()
     def serve_step(model: TF.HybridLM, state, tokens: torch.Tensor):
         """The reference's hybrid branch: before every ``every``-th Mamba2
         layer the shared block attends over KV layer ``idx // every`` (a

@@ -900,3 +900,152 @@ def test_family_prefill_cuda_equals_ref_on_card(arch, cuda):
     want = make_prefill_step(cfg, impl="ref", device=cuda)(model, toks)
     rel = float((got - want).abs().max() / want.abs().max())
     assert rel < 1e-4, rel
+
+
+# ------------------------------------- K7 and K8 under autograd (train) ----
+# (b, h, kh, sq, skv, d, dtype, causal, window): phase 35's shapes at B=1
+# (Llama 3.2 1B's GQA, Zamba2's D=112, h2o-danube's D=120 in float32, a
+# 4,096 window past its length, whisper's encoder 1,500 x 1,500 and a cross
+# Sq > Skv), then an odd S and head dims 16 and 128
+GRAD_SHAPES = [
+    (1, 32, 8, 4096, 4096, 64, torch.bfloat16, True, None),
+    (1, 32, 32, 2048, 2048, 112, torch.bfloat16, True, None),
+    (1, 32, 8, 2048, 2048, 120, torch.float32, True, None),
+    (1, 8, 2, 5000, 5000, 64, torch.bfloat16, True, 4096),
+    (1, 6, 6, 1500, 1500, 64, torch.bfloat16, False, None),
+    (1, 6, 6, 4096, 1500, 64, torch.bfloat16, False, None),
+    (2, 4, 2, 201, 201, 16, torch.float32, True, None),
+    (1, 4, 1, 333, 333, 128, torch.bfloat16, True, 100),
+]
+# the backward is the plain version's gradient at the same inputs and the
+# same incoming gradient: it may differ from autograd of the plain version
+# only where the library picks another product algorithm
+FN_GRAD_RTOL = 1e-5
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GRAD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s[:6])) + (
+                             f"-{str(s[6])[6:]}-c{int(s[7])}-w{s[8]}"))
+def test_flash_attention_gradients_match_plain_autograd_on_card(shape,
+                                                                 cuda):
+    """q, k and v's gradients through ``FlashAttention`` (K7 forward) equal
+    ``torch.autograd`` of the plain version on the same inputs and the
+    same incoming gradient; the forward is K7's, held within the kernel
+    tolerance; only the Function's forward launches."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    b, h, kh, sq, skv, d, dt, causal, window = shape
+    g = torch.Generator(device=cuda).manual_seed(35)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt)
+               for s in ((b, h, sq, d), (b, kh, skv, d), (b, kh, skv, d)))
+    do = torch.randn((b, h, sq, d), generator=g, device=cuda).to(dt)
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = FA.flash_attention.launches
+    out = FA.flash_attention(*ins, causal=causal, window=window)
+    assert FA.flash_attention.launches == n0 + 1
+    assert out.grad_fn is not None
+    out.backward(do)
+    assert FA.flash_attention.launches == n0 + 1
+    want = FA_REF.flash_attention_ref(*ref_ins, causal=causal, window=window)
+    want.backward(do)
+    tol = 2e-5 if dt == torch.float32 else 2e-2
+    assert _rel_err(out, want) < tol
+    for name, a, r in zip("qkv", ins, ref_ins):
+        assert a.grad.dtype == dt and torch.isfinite(a.grad).all(), name
+        assert _rel_err(a.grad, r.grad) <= FN_GRAD_RTOL, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES + [(1, 4096, 32, 48, 128, 256,
+                                                 1)])
+@pytest.mark.parametrize("use_h", [True, False])
+def test_ssd_scan_gradients_match_plain_autograd_on_card(shape, use_h, cuda):
+    """x, a, b and c's gradients through ``SSDScan`` (K8 forward) equal
+    ``torch.autograd`` of the plain version, with h_final's gradient used
+    and unused (then materialised as zeros); the last shape is
+    mamba2-130m's (H=32, P=48, N=128, chunk 256) at S=4,096."""
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    from repro_torch.kernels.ssd_scan import ref as SSD_REF
+    chunk = shape[5]
+    arrs = [torch.as_tensor(a, device=cuda)
+            for a in ssd_case(shape, decay="init")]
+    ins = [t.clone().requires_grad_(True) for t in arrs]
+    ref_ins = [t.clone().requires_grad_(True) for t in arrs]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    y, h = SSD.ssd_scan(*ins, chunk=chunk)
+    gy = torch.randn(y.shape, generator=g, device=cuda)
+    gh = torch.randn(h.shape, generator=g, device=cuda)
+    yr, hr = SSD_REF.ssd_scan_ref(*ref_ins, chunk)
+    if use_h:
+        torch.autograd.backward((y, h), (gy, gh))
+        torch.autograd.backward((yr, hr), (gy, gh))
+    else:
+        y.backward(gy)
+        yr.backward(gy)
+    assert _rel_err(y, yr) < 1e-4
+    for name, a, r in zip("xabc", ins, ref_ins):
+        assert torch.isfinite(a.grad).all(), name
+        assert _rel_err(a.grad, r.grad) <= FN_GRAD_RTOL, name
+
+
+TRAIN_ARCHS = ("llama32_1b", "mamba2_130m", "zamba2_7b",
+               "granite_moe_3b_a800m", "whisper_tiny")
+# cuda vs ref after one step from the same weights: K7's and K8's float32
+# forwards differ from the plain versions in the last bits, which the
+# backward carries into every gradient
+TRAIN_GRAD_RTOL = 1e-3
+
+
+def _train_once(arch, impl, remat, cuda):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models.transformer import make_model
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    model = make_model(cfg, seed=0, device=cuda)
+    step = make_train_step(cfg, TrainConfig(remat_policy=remat), impl=impl,
+                           device=cuda)
+    batch = synthetic_batch(cfg, 2, 64, seed=3, device=cuda)
+    _, metrics = step(model, init_opt_state(model), batch)
+    return model, metrics
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_cuda_matches_ref_on_card(arch, cuda):
+    """One ``impl="cuda"`` training step of a smoke model in float32: every
+    parameter's ``.grad`` present and finite, and within
+    ``TRAIN_GRAD_RTOL`` of each leaf's scale of the ``impl="ref"`` step's;
+    the loss within 1e-5."""
+    mc, m_c = _train_once(arch, "cuda", "block", cuda)
+    mr, m_r = _train_once(arch, "ref", "block", cuda)
+    assert abs(float(m_c["loss"]) - float(m_r["loss"])) <= 1e-5 * abs(
+        float(m_r["loss"]))
+    ref = dict(mr.named_parameters())
+    for name, p in mc.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert _rel_err(p.grad, ref[name].grad) <= TRAIN_GRAD_RTOL, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat,per_layer", [("block", 2), ("none", 1)])
+def test_train_step_launches_per_layer_on_card(remat, per_layer, cuda):
+    """K7 (dense) and K8 (ssm) launch once per layer in the forward, and
+    once more in each layer's recomputation with block remat."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.ssd_scan import ops as SSD
+    for arch, op in (("llama32_1b", FA.flash_attention),
+                     ("mamba2_130m", SSD.ssd_scan)):
+        n0 = op.launches
+        model, _ = _train_once(arch, "cuda", remat, cuda)
+        assert op.launches - n0 == per_layer * model.cfg.num_layers, arch

@@ -14,6 +14,7 @@ import ast
 import dataclasses
 import importlib
 import pathlib
+import tempfile
 
 import numpy as np
 import pytest
@@ -157,7 +158,10 @@ def _constructors(**dev):
     from repro_torch.obs import (attribution, counterfactual, dashboard,
                                  fleet, sketch, stats, streaming, trace)
     from repro_torch.serve import decode
-    from repro_torch.train.step import make_prefill_step
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.step import make_prefill_step, make_train_step
     cfg = TieringConfig(n_tenants=2, n_fast_pages=8, n_slow_pages=16,
                         page_tokens=4)
     owner = np.repeat(np.arange(2, dtype=np.int32), 4)
@@ -284,7 +288,27 @@ def _constructors(**dev):
             ["--arch", "granite_moe_3b_a800m"] + cli),
         "launch.serve[ssm]": lambda: launch_serve.main(
             ["--arch", "mamba2_130m"] + cli),
+        "make_train_step": lambda: make_train_step(mcfg, TrainConfig(),
+                                                   **dev),
+        "synthetic_batch": lambda: pipeline.synthetic_batch(mcfg, 2, 8,
+                                                            **dev),
+        "SyntheticLoader": lambda: next(pipeline.SyntheticLoader(
+            mcfg, 2, 8, **dev)),
+        "opt_state_from_numpy": lambda: convert.opt_state_from_numpy(
+            {"m": {"w": np.zeros(2)}, "v": {"w": np.zeros(2)},
+             "step": np.int32(0)}, **dev),
+        # no step reaches --ckpt-every: the CLI writes no checkpoint, and
+        # a fresh --ckpt-dir holds none to resume from
+        "launch.train": lambda: _train_cli(launch_train, dev),
     }
+
+
+def _train_cli(launch_train, dev: dict):
+    with tempfile.TemporaryDirectory() as ckpt:
+        return launch_train.main(
+            ["--smoke", "--steps", "2", "--batch", "2", "--seq", "8",
+             "--ckpt-every", "1000", "--ckpt-dir", ckpt]
+            + (["--device", dev["device"]] if dev else []))
 
 
 CONSTRUCTORS = sorted(_constructors())
