@@ -122,14 +122,19 @@ one line each, each with its duration:
  29. the dense configs h2o-danube-3-4b (window 4,096, head dim 120),
      codeqwen1.5-7b and qwen3-32b (bf16 weights at full depth 64,
      qk-norm): the prefill as in phase 28 (qwen3 compared at B=1) and
-     32 x 64 serving, cuda vs ref held as in phase 9
+     32 x 64 serving, cuda vs ref held as in phase 9; danube's timed
+     prefill (P5) profiled by class. Every timed bf16 prefill (phases 14,
+     28-30, 32-33) counts K7's launches by the route the launcher reports
+     and requires all of them on the wgmma kernel (P5: 24 of 24)
  30. mamba2-130m: the prefill through K8 (24 op calls), 64 x 256 serving
      (cuda == ref bitwise; no kernel on the decode path) and decode ==
      forward in f32 over 4 x 64 steps
  31. K5 at each new (H, K, D) over random pools of 4,000-6,000 tokens
      (past a 4,096 window), bf16 and f32; K6 bitwise at each new page
      size; K7 at each new head shape, causal and window 4,096, S = 4,096
-     and 32,768: time, plain, the faster SDPA form, bound
+     and 32,768: time, plain, the faster SDPA form, bound, the route the
+     launcher reports; K7's f32 route (the CUDA cores) at danube's heads,
+     S=4,096, beside f32 SDPA
 
  32. encdec: whisper-tiny at full width and depth (4 + 4 layers, f32
      weights), its biases opened (seeded, nonzero): 64 x 256 serving under
@@ -1193,19 +1198,38 @@ def profile_serve_step(torch, step, model, snap, tok):
 
 
 # ---------------------------------------------------------- phase 13 ----
+def k7_routes(FA, fn):
+    """(fn's result, the K7 launches it made by route, as the launcher
+    reports them: "wgmma" or "cuda_cores")."""
+    before = dict(FA.flash_attention.routes)
+    out = fn()
+    return out, {r: n - before[r] for r, n in FA.flash_attention.routes.items()}
+
+
+def one_route(counts: dict, what: str) -> str:
+    """The route of a single K7 launch, from ``k7_routes``' counts."""
+    require(sum(counts.values()) == 1, f"{what}: K7 launches {counts}")
+    return next(r for r, n in counts.items() if n)
+
+
 def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
     """K7 and K8 wrappers vs their plain versions on the card at the prefill
-    path's widths. Returns (max abs error, cases) per kernel."""
+    path's widths. Returns (max abs error, cases) per kernel; cases also
+    holds K7's launches by route ("k7_routes")."""
     rng = np.random.default_rng(13)
     err = {k: 0.0 for k in PREFILL_REPLACES}
     cases = {k: 0 for k in PREFILL_REPLACES}
-    # (H, K, D): zamba2's heads (G=1, D=112), llama's (G=4, D=64), then
-    # D=128 at G=1 and G=4. (B, Sq, Skv, v scale): 200 and 300/333 are not
+    cases["k7_routes"] = {"wgmma": 0, "cuda_cores": 0}
+    # (H, K, D): zamba2's heads (G=1, D=112), llama's (G=4, D=64), D=128 at
+    # G=1 and G=4, then h2o-danube's (G=4, D=120: 8 k-steps, the last half
+    # the TMA's zeros). (B, Sq, Skv, v scale): 200 and 300/333 are not
     # multiples of the 128-row tiles, 256/1024 and 300/333 have Sq < Skv;
     # v x 64 holds the tensor-core kernel's P V to the plain version's
     # float32 where |v| is large, as on the Llama path. Each case runs again
-    # on strided [B, S, H, D] views and must read the same.
-    for H, K, D in ((32, 32, 112), (32, 8, 64), (8, 8, 128), (16, 4, 128)):
+    # on strided [B, S, H, D] views and must read the same. bf16 must take
+    # the wgmma kernel, f32 the CUDA cores (the route the launcher reports).
+    for H, K, D in ((32, 32, 112), (32, 8, 64), (8, 8, 128), (16, 4, 128),
+                    (32, 8, 120)):
         for B, Sq, Skv, vs in ((2, 1024, 1024, 1.0), (1, 200, 200, 1.0),
                                (2, 256, 1024, 1.0), (1, 300, 333, 1.0),
                                (2, 1024, 1024, 64.0)):
@@ -1221,8 +1245,13 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
                          for x in (q, k, v)]
                 for causal, window in ((True, None), (True, 64),
                                        (False, None)):
-                    got = FA.flash_attention(q, k, v, causal=causal,
-                                             window=window)
+                    got, rc = k7_routes(FA, lambda: FA.flash_attention(
+                        q, k, v, causal=causal, window=window))
+                    route = one_route(rc, f"K7 H={H} D={D} {dtype}")
+                    require(route == ("wgmma" if dtype == torch.bfloat16
+                                      else "cuda_cores"),
+                            f"K7 H={H} K={K} D={D} {dtype}: route {route}")
+                    cases["k7_routes"][route] += 1
                     want = FA_REF.flash_attention_ref(q, k, v, causal=causal,
                                                       window=window)
                     require(got.dtype == dtype and bool(
@@ -2066,6 +2095,7 @@ def fleet_phases(torch, np, wrappers: dict) -> dict:
 GRANITE, MIXTRAL, MAMBA2 = "granite_moe_3b_a800m", "mixtral_8x22b", \
     "mamba2_130m"
 DENSE_ARCHS = ("h2o_danube_3_4b", "codeqwen15_7b", "qwen3_32b")
+DANUBE = DENSE_ARCHS[0]                  # head dim 120: P5
 # Mixtral 8x22B's 141B parameters fit no single card in any dtype: its
 # full width at 8 of its 56 layers, bf16 weights (20.4B parameters)
 MIXTRAL_DEPTH = 8
@@ -2495,7 +2525,11 @@ def k7_shape_numbers(torch, F, FA, FA_REF, H, K, D, S, window) -> dict:
     g = torch.Generator(device="cuda").manual_seed(31)
     q, k, v = (torch.randn((1, h, S, D), generator=g, device="cuda").to(
         torch.bfloat16) for h in (H, K, K))
-    out = FA.flash_attention(q, k, v, window=window)
+    out, rc = k7_routes(FA, lambda: FA.flash_attention(q, k, v,
+                                                       window=window))
+    route = one_route(rc, f"K7 H={H} K={K} D={D} S={S}")
+    require(route == "wgmma", f"K7 H={H} K={K} D={D} S={S} bf16: route "
+                              f"{route}, want wgmma")
     tail = min(S, PATH_SCORES // (H * S))
     want = FA_REF.flash_attention_ref(q[:, :, -tail:], k, v, window=window)
     err = float((out[:, :, -tail:].float() - want.float()).abs().max())
@@ -2523,7 +2557,45 @@ def k7_shape_numbers(torch, F, FA, FA_REF, H, K, D, S, window) -> dict:
                 library_ms=lib[0], library_form=lib[1],
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                wgmma=D % 16 == 0)
+                route=route)
+
+
+def k7_f32_numbers(torch, F, FA, FA_REF, H, K, D, S) -> dict:
+    """K7's f32 route (the CUDA-core kernel) at one head shape, B=1,
+    causal, S <= 4,096: the route the launcher reports, agreement with the
+    plain version, its time beside the plain version's and f32 SDPA's (the
+    faster of ``enable_gqa`` and K/V expanded to the query heads, causal,
+    TF32 off), SDPA's own distance from the plain version, and the bound
+    (f32 operations outside the tensor cores)."""
+    g = torch.Generator(device="cuda").manual_seed(34)
+    q, k, v = (torch.randn((1, h, S, D), generator=g, device="cuda")
+               for h in (H, K, K))
+    out, rc = k7_routes(FA, lambda: FA.flash_attention(q, k, v))
+    route = one_route(rc, f"K7 f32 H={H} D={D} S={S}")
+    require(route == "cuda_cores", f"K7 f32 H={H} D={D}: route {route}")
+    want = FA_REF.flash_attention_ref(q, k, v)
+    err = float((out - want).abs().max())
+    require(torch.allclose(out, want, atol=K7_TOL["float32"],
+                           rtol=K7_TOL["float32"]),
+            f"K7 f32 H={H} K={K} D={D} S={S}: max err {err}")
+    ke, ve = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
+    forms = {"enable_gqa": lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=True, enable_gqa=True),
+             "expanded K/V": lambda: F.scaled_dot_product_attention(
+                 q, ke, ve, is_causal=True)}
+    lib = min((device_ms(f, n=10), form) for form, f in forms.items())
+    lib_err = float((forms[lib[1]]() - want).abs().max())
+    del want, ke, ve, forms
+    pairs = S * (S + 1) // 2
+    t_bytes = 4 * (2 * H * S * D + 2 * K * S * D) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * H * D * pairs / F32_OPS_PER_S * 1e3
+    return dict(H=H, K=K, D=D, S=S, route=route, err=err,
+                ms=device_ms(lambda: FA.flash_attention(q, k, v), n=10),
+                plain_ms=device_ms(lambda: FA_REF.flash_attention_ref(
+                    q, k, v), n=3),
+                library_ms=lib[0], library_form=lib[1], library_err=lib_err,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def sdpa_band(torch, F, q, k, v, window: int, n: int):
@@ -2701,8 +2773,11 @@ def family_phases(torch, np, env: dict) -> dict:
             cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
             batch = 1        # plain K7's [B, 64, S, S] float32 scores
         model = make_model(cfg, seed=0, device="cuda")
-        prefill_cell(model, arch, tag="29-dense-prefill", batch=batch,
-                     tail=path_tail(cfg))
+        step, toks = prefill_cell(model, arch, tag="29-dense-prefill",
+                                  batch=batch, tail=path_tail(cfg))
+        if arch == DANUBE:
+            profile_prefill(torch, step, model, toks, "29-danube-p5")
+        del step, toks
         res["prefill"].append(arch)
         b, steps = get_serve_load(arch)
         res["serve"][f"S6 {arch}"] = serve_cell(
@@ -2766,16 +2841,45 @@ def family_phases(torch, np, env: dict) -> dict:
                 lib = ("none" if r["library_ms"] is None
                        else f"{r['library_ms']:.4f}")
                 phase("31-k7", f"flash_attention [{arch} H={H} K={K} D={D}"
-                      f"{'' if r['wgmma'] else ' (CUDA cores: D % 16)'}, "
-                      f"B=1 S={S}, bf16, causal, window {window}]: "
+                      f", B=1 S={S}, bf16, causal, window {window}; route "
+                      f"{r['route']} (counted)]: "
                       f"{r['ms']:.4f} ms (plain {plain}, library "
                       f"{lib} (SDPA, {r['library_form']}), "
                       f"bound {r['bound_ms']:.5f} ({r['bound_by']})); max "
                       f"abs err {r['err']:.3g} over the last {r['tail']} "
                       "query rows")
                 free()
-    res.update(k5_err=k5_err, k5_times=k5_times, k7=k7)
+    # the last CUDA-core route: f32 at danube's heads (phase 35's shape)
+    H, K, D, _ = shapes[DANUBE]
+    k7_f32 = k7_f32_numbers(torch, F, FA, FA_REF, H, K, D, PREFILL_S)
+    phase("31-k7-f32", f"flash_attention [{DANUBE} H={H} K={K} D={D}, B=1 "
+          f"S={PREFILL_S}, f32, causal; route {k7_f32['route']} (counted)]:"
+          f" {k7_f32['ms']:.4f} ms (plain {k7_f32['plain_ms']:.4f}, library"
+          f" {k7_f32['library_ms']:.4f} (f32 SDPA, causal, "
+          f"{k7_f32['library_form']}, max abs err "
+          f"{k7_f32['library_err']:.3g} from plain), bound "
+          f"{k7_f32['bound_ms']:.5f} ({k7_f32['bound_by']}, f32 67 TFLOP/s));"
+          f" max abs err {k7_f32['err']:.3g}")
+    free()
+    res.update(k5_err=k5_err, k5_times=k5_times, k7=k7, k7_f32=k7_f32)
     return res
+
+
+def profile_prefill(torch, step, model, toks, tag: str) -> None:
+    """One more prefill of ``toks`` (``step`` from ``run_prefill_cell``,
+    which timed it and held K7's routes), profiled by kernel class."""
+    cfg = model.cfg
+    prof = profile_fn(torch, lambda: step(model, {"tokens": toks}))
+    if prof is None:
+        phase(tag, "device time not measured: the profiler saw no device "
+                   "event")
+        return
+    n_dev, busy, top, wall = prof
+    phase(tag, f"{cfg.name} B={toks.shape[0]} S={toks.shape[1]} {cfg.dtype}"
+          f" profiled: {n_dev} device events, busy {busy:.1f} of {wall:.1f} "
+          f"ms wall (idle share {1 - busy / wall:.4f}); device ms by class: "
+          f"{format_classes(class_ms(top))}; top: " + "; ".join(
+              f"{nm[:60]} {t:.1f} ms x{c}" for nm, t, c in top[:6]))
 
 
 def k7_kind(q, k, v, *, causal=True, window=None, impl="cuda") -> str:
@@ -2843,11 +2947,19 @@ def run_prefill_cell(torch, np, env: dict, model, label, tag="14-prefill",
     torch.cuda.synchronize()
     for w in pwrap.values():
         w.launches = 0
-    warm_ms, ms, peak = time_prefill(torch, step, model, toks, timed_extra)
+    (warm_ms, ms, peak), routes = k7_routes(env["FA"], lambda: time_prefill(
+        torch, step, model, toks, timed_extra))
     n = {k: w.launches // 2 for k, w in pwrap.items()}
+    routes = {r: c // 2 for r, c in routes.items()}
+    # every K7 launch of a bf16 prefill on the wgmma kernel, as its
+    # launcher reports (its activations' strides and bases suit the TMA)
+    require(cfg_m.dtype != "bfloat16" or routes == {
+        "wgmma": n["flash_attention"], "cuda_cores": 0},
+        f"{label}: K7 launches by route {routes}, want all "
+        f"{n['flash_attention']} on wgmma")
     env["rows"][label] = dict(ms=ms, peak=peak, launches=n,
                               layers=cfg_m.num_layers,
-                              ssm=cfg_m.family == "ssm")
+                              ssm=cfg_m.family == "ssm", k7_routes=routes)
     if layers is not None:
         env["rows"][label]["blocks"] = layers
     def agreement(dt):
@@ -2869,7 +2981,7 @@ def run_prefill_cell(torch, np, env: dict, model, label, tag="14-prefill",
           f"S={TIMED_S} bf16 (impl=cuda, CUDA events): {ms:.1f} ms "
           f"(warm-up {warm_ms:.1f}), {TIMED_B * TIMED_S / (ms / 1e3):.1f}"
           f" tokens/s, peak memory {peak:.2f} GiB; launches per prefill "
-          f"{n}")
+          f"{n}, K7's by route {routes}")
     env["rows"][label]["routed"] = routed
     return step, toks
 
@@ -2916,6 +3028,7 @@ def record_families(rows: list, fam: dict, prefill_rows: dict,
     by_name["pool_attention_partial"]["max_abs_err"] = max(
         by_name["pool_attention_partial"]["max_abs_err"], fam["k5_err"])
     by_name["flash_attention"]["family_shapes"] = fam["k7"]
+    by_name["flash_attention"]["f32_route"] = fam["k7_f32"]
     by_name["flash_attention"]["max_abs_err"] = max(
         [by_name["flash_attention"]["max_abs_err"]]
         + [r["err"] for r in fam["k7"]])
@@ -4234,7 +4347,8 @@ def record_train(rows: list, res: dict) -> None:
 # ---------------------------------------------------------- phase 18 ----
 KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
                   ("K8 ssd_scan", DEVICE_KERNELS["ssd_scan"]),
-                  ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_")),
+                  ("matmul", ("gemm", "cutlass", "xmma", "cublas", "sm90_",
+                              "nvjet")),
                   ("cast/copy", ("copy_kernel", "direct_copy", "to_copy")),
                   ("elementwise", ("elementwise", "vectorized")),
                   ("reduction", ("reduce",)))
@@ -4768,10 +4882,13 @@ def main() -> int:
     phase("13-prefill-kernels", f"flash_attention within {K7_TOL} of plain "
           f"(max abs err {pre_err['flash_attention']:.3g}) over "
           f"{pre_cases['flash_attention']} cases (zamba2 H=K=32 D=112 and "
-          "llama H=32 K=8 D=64, D=128 at H=K=8 and H=16 K=4; S=1024, S=200, "
+          "llama H=32 K=8 D=64, D=128 at H=K=8 and H=16 K=4, danube H=32 "
+          "K=8 D=120; S=1024, S=200, "
           "Sq=256 < Skv=1024, Sq=300 < Skv=333; causal, window 64, "
           "non-causal; f32 and bf16; bf16 with v x 64; each again on "
-          "strided [B,S,H,D] views, equal); ssd_scan "
+          "strided [B,S,H,D] views, equal; launches by route "
+          f"{pre_cases['k7_routes']}: bf16 all wgmma, f32 all CUDA cores); "
+          "ssd_scan "
           f"within atol {K8_ATOL} rtol {K8_RTOL} (max abs err {pre_err['ssd_scan']:.3g})"
           f" over {pre_cases['ssd_scan']} cases (zamba2 H=112 P=64 N=64 and "
           "mamba2-130m H=32 P=48 N=128, Q=256, S=1024; init and strong "

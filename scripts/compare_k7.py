@@ -7,9 +7,11 @@ another revision, in one process on one card.
 
 Both sources are built with the same ``nvcc`` flags (the old one through
 ``kernels/build.py`` ``build_variant``) and called through the same C
-launcher (``flash_attention_launch``, whose signature both keep) on the
-same bf16 inputs at B=1, S=4,096, causal: zamba2's heads (H=K=32, D=112)
-and llama's (H=32, K=8, D=64), the shapes of ``chip_smoke.py``'s phase 17.
+launcher (``flash_attention_launch``; a revision from before the launcher
+reported its route is called without the route pointer) on the same bf16
+inputs at B=1, S=4,096, causal: zamba2's heads (H=K=32, D=112) and
+llama's (H=32, K=8, D=64), the shapes of ``chip_smoke.py``'s phase 17,
+and h2o-danube's (H=32, K=8, D=120), the shape of its phase 31.
 Each pair is timed in turns (old, new, new, old; each turn the median of
 CUDA-event times over 20 back-to-back launches, ``chip_smoke.device_ms``)
 and checked against the plain version within the bf16 bound 2e-2. A line
@@ -29,24 +31,29 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT))
 
-SHAPES = {"zamba2": (32, 32, 112), "llama": (32, 8, 64)}   # H, K, D
+SHAPES = {"zamba2": (32, 32, 112), "llama": (32, 8, 64),
+          "danube": (32, 8, 120)}                           # H, K, D
 B, S = 1, 4096
+ROUTE_PTR = ctypes.POINTER(ctypes.c_int)
+ROUTES = ("cuda_cores", "wgmma")
 
 
-def launch(lib, q, k, v):
+def launch(lib, q, k, v, route=None):
     """q [B,H,S,D], k/v [B,K,S,D] bf16 -> causal attention, through ``lib``'s
     ``flash_attention_launch`` (the arguments ``flash_attention_cuda``
-    passes)."""
+    passes; ``route``, a ``ctypes.c_int``, only where the launcher takes
+    it)."""
     import torch
     from repro_torch.kernels.build import stream_of
     b, h, sq, d = q.shape
     kh, skv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    extra = () if route is None else (ctypes.byref(route),)
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kh,
         sq, skv, d, *strides, 1, 0, 0, ctypes.c_float(1.0 / math.sqrt(d)), 1,
-        stream_of(q))
+        *extra, stream_of(q))
     if err != 0:
         raise RuntimeError(f"flash_attention_launch: CUDA error {err}")
     return out
@@ -68,6 +75,12 @@ def main() -> int:
                          text=True).stdout.strip(), flush=True)
     libs = {"old": build_variant("prefill", args.old_source),
             "new": load_library("prefill").lib}
+    routes = {"old": None, "new": ctypes.c_int(-1)}
+    if b"int* route" in args.old_source.read_bytes():
+        routes["old"] = ctypes.c_int(-1)
+    else:
+        fn = libs["old"].flash_attention_launch
+        fn.argtypes = [t for t in fn.argtypes if t is not ROUTE_PTR]
     g = torch.Generator(device="cuda").manual_seed(17)
     for name, (H, K, D) in SHAPES.items():
         q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
@@ -76,7 +89,7 @@ def main() -> int:
         want = flash_attention_ref(q, k, v).float()
         errs = {}
         for which, lib in libs.items():
-            got = launch(lib, q, k, v).float()
+            got = launch(lib, q, k, v, routes[which]).float()
             errs[which] = float((got - want).abs().max())
             if not torch.allclose(got, want, atol=2e-2, rtol=2e-2):
                 raise AssertionError(f"{which} K7 off the plain version: "
@@ -84,11 +97,13 @@ def main() -> int:
         times = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             times[which].append(device_ms(
-                lambda: launch(libs[which], q, k, v), n=20))
+                lambda: launch(libs[which], q, k, v, routes[which]), n=20))
+        route = {w: "route not reported" if r is None
+                 else f"route {ROUTES[r.value]}" for w, r in routes.items()}
         print(f"K7 [{name} H={H} K={K} D={D}, B={B} S={S}, causal, bf16]: "
               + ", ".join(f"{w} {min(t):.4f} ms (turns "
                           + " ".join(f"{x:.4f}" for x in t)
-                          + f", max abs err {errs[w]:.3g})"
+                          + f", max abs err {errs[w]:.3g}, {route[w]})"
                           for w, t in times.items())
               + f"; new/old {min(times['new']) / min(times['old']):.3f}",
               flush=True)

@@ -33,6 +33,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _LL = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the launchers, by source
 _SIGNATURES = {
     "selection": {
@@ -51,9 +52,11 @@ _SIGNATURES = {
                                  _I, _LL, _P),
     },
     "prefill": {
-        # three strides of each of four tensors, as long long
+        # three strides of each of four tensors, as long long; the route
+        # taken comes back through the int pointer
         "flash_attention_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                   *(_LL,) * 12, _I, _I, _I, _F, _I, _P),
+                                   *(_LL,) * 12, _I, _I, _I, _F, _I, _IP,
+                                   _P),
         "ssd_scan_launch": (*(_P,) * 8, *(_I,) * 7, *(_LL,) * 12, _I, _P),
     },
 }

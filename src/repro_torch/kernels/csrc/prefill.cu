@@ -10,11 +10,13 @@
 // right-aligned queries (q_offset = Skv - Sq), float32 online softmax.
 // Long prefills are bound by operations (the products Q K^T and P V). Two
 // kernels, by input:
-//   * bf16 with a head dim that is a multiple of 16 and 16-byte strides
-//     (the prefill's case): `flash_attention_wgmma_kernel`, Hopper's
-//     warpgroup products fed by TMA (below);
-//   * f32 inputs, and other head dims: `flash_attention_kernel`, on the
-//     CUDA cores in float32, so f32 inputs keep f32 accuracy. One block of
+//   * bf16 with any head dim up to 128, strides that are multiples of 8
+//     elements and 16-byte aligned bases (the prefill's case):
+//     `flash_attention_wgmma_kernel`, Hopper's warpgroup products fed by
+//     TMA (below);
+//   * f32 inputs, and bf16 whose strides or bases TMA cannot take:
+//     `flash_attention_kernel`, on the CUDA cores in float32, so f32
+//     inputs keep f32 accuracy. One block of
 //     128 threads per (batch, head, 64-query tile) keeps the scaled query
 //     tile, one 64-key K tile and V tile and the tile's scores in shared
 //     memory (float32, converted on load from bf16 or f32) and (m, l, acc)
@@ -276,9 +278,9 @@ __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& top,
   rest = pack_bf16(lo - __low2float(t), hi - __high2float(t));
 }
 
-// bf16 flash attention on Hopper's tensor cores: `wgmma` fed by TMA, for a
-// head dim D that is a multiple of 16 (up to 128), strides that are
-// multiples of 8 elements and 16-byte aligned bases. One block of 384
+// bf16 flash attention on Hopper's tensor cores: `wgmma` fed by TMA, for any
+// head dim D up to 128, strides that are multiples of 8 elements and
+// 16-byte aligned bases. One block of 384
 // threads per (batch, head, 128-query tile): two consumer warpgroups of 64
 // query rows each, and a producer warpgroup that hands most of its registers
 // to them (`setmaxnreg`) and whose first thread starts the TMA loads of the
@@ -287,9 +289,15 @@ __device__ __forceinline__ void split_bf16(float lo, float hi, uint32_t& top,
 // lands) and an empty barrier per stage that all 256 consumer threads arrive
 // on. Tiles sit in shared memory in the 128-byte swizzle, as boxes of 64
 // head-dim columns (128 bytes) by 128 rows; a head dim above 64 takes a
-// second box, whose columns past D the TMA zero-fills (as it does rows past
-// Sq or Skv), so zamba2's D = 112 runs Q K^T over 7 k-steps and P V at N =
-// 112. S = Q K^T is `wgmma` m64n128k16 with Q and K from shared memory, both
+// second box, and the TMA zero-fills every column past D (as it does rows
+// past Sq or Skv). Q K^T runs ceil(D / 16) k-steps: a last k-step that
+// reaches past D reads zeros in both Q and K and adds exactly 0 to every
+// score, as the TPU wrapper's padding of D to 128 lanes does. P V runs at
+// N = DP, the width of the template: 64 (D <= 64), 112 (zamba2), 120
+// (h2o-danube) or 128; output columns past D are not written. So zamba2's
+// D = 112 runs 7 k-steps and N = 112, danube's D = 120 8 k-steps (columns
+// 120-127 zero) and N = 120, and a D of 40 3 k-steps and N = 64. S = Q K^T
+// is `wgmma` m64n128k16 with Q and K from shared memory, both
 // K-major. P stays in registers: the S accumulator's layout is the A
 // operand's (two column blocks of 8 make one k-step of 16). V is [keys][D],
 // MN-major for the B operand, read through the transpose bit. The TPU kernel
@@ -390,9 +398,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-#define FW_D8(i)                                                      \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),            \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FW_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define FW_D8(i) FW_D4(i), FW_D4(i + 4)
 
 // d[64] (+)= A[64 x 16] B[16 x 128]: A and B from shared memory, both
 // K-major; scale_d = 0 overwrites d
@@ -449,6 +456,26 @@ __device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n120(float (&d)[60],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59"
+      "}, {%60, %61, %62, %63}, %64, p, 1, 1, 1;\n}\n"
+      : FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24), FW_D8(32), FW_D8(40),
+        FW_D8(48), FW_D4(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
@@ -475,12 +502,13 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2],
                                         const uint32_t (&a)[4], uint64_t db) {
   if constexpr (DP == 64) wgmma_rs_n64(d, a, db);
   else if constexpr (DP == 112) wgmma_rs_n112(d, a, db);
+  else if constexpr (DP == 120) wgmma_rs_n120(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
 // Shared memory, from a 1,024-byte aligned base: Q (NB boxes), the K ring
 // (stages x NB boxes), the V ring, then the barriers. DP is the width of
-// P V: 64 (D <= 64), 112 or 128.
+// P V: 64 (D <= 64), 112 (D <= 112), 120 (D <= 120) or 128.
 template <int DP>
 __global__ void __launch_bounds__(kFwThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -564,7 +592,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int r0 = wg * 64 + (warp & 3) * 16 + g;
     const int qpos0 = q_lo + r0;
     const int wq_lo = q_lo + wg * 64, wq_hi = wq_lo + 63;
-    const int nks = D / 16;
+    const int nks = (D + 15) / 16;    // k-steps of Q K^T; past D, zeros
     float oacc[DP / 2], sacc[kFwBN / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
@@ -579,7 +607,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(&k_full[sj], (j / kFwStages) & 1);
       const uint8_t* kt = k_s + sj * NB * kFwBoxBytes;
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < (DP + 15) / 16; ++kk) {
         if (kk < nks) {
           const int off = (kk / 4) * kFwBoxBytes + (kk % 4) * 32;
           wgmma_ss_n128(sacc, sw128_desc(q_wg + off, 16, 1024),
@@ -717,10 +745,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
         const int col = 8 * j + 2 * t4;
-        if (col < D)
-          *reinterpret_cast<uint32_t*>(ob + row * oss + col) =
+        __nv_bfloat16* dst = ob + row * oss + col;
+        if (col + 1 < D)
+          *reinterpret_cast<uint32_t*>(dst) =
               pack_bf16(oacc[4 * j + 2 * rr] * inv_l,
                         oacc[4 * j + 2 * rr + 1] * inv_l);
+        else if (col < D)              // an odd D's last column
+          *dst = __float2bfloat16(oacc[4 * j + 2 * rr] * inv_l);
       }
     }
   }
@@ -1245,6 +1276,8 @@ const char* prefill_error_string(int err) {
 
 // q [B,H,Sq,D], k/v [B,K,Skv,D], o [B,H,Sq,D], each through its (batch,
 // head, sequence) strides in elements; the last dimension is contiguous.
+// *route is set to the kernel taken: 1 the wgmma kernel, 0 the CUDA-core
+// kernel (-1 if the arguments are refused).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int K, int Sq, int Skv,
                            int D, long long qsb, long long qsh, long long qss,
@@ -1252,7 +1285,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long vsb, long long vsh, long long vss,
                            long long osb, long long osh, long long oss,
                            int causal, int use_window, int window, float scale,
-                           int is_bf16, cudaStream_t stream) {
+                           int is_bf16, int* route,
+                           cudaStream_t stream) {
+  *route = -1;
   // Sq > Skv only for full attention (cross-attention): q_offset = Skv - Sq
   // is read by the causal and window masks alone
   if (B <= 0 || H <= 0 || Sq <= 0 || K <= 0 || Skv <= 0 || H % K != 0 ||
@@ -1265,13 +1300,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const dim3 grid((unsigned)((Sq + kFaBQ - 1) / kFaBQ), (unsigned)(B * H));
   const int G = H / K;
   cudaError_t e;
-  // the wgmma kernel loads through TMA: D % 16 == 0, strides that are
-  // multiples of 8 elements (16 bytes) and 16-byte aligned bases
+  // the wgmma kernel loads through TMA: strides that are multiples of 8
+  // elements (16 bytes) and 16-byte aligned bases, any D (the TMA fills the
+  // columns past D with zeros). It returns its own errors: no fallback.
   const long long strides = qsb | qsh | qss | ksb | ksh | kss | vsb | vsh |
                             vss | osb | osh | oss;
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                           (uintptr_t)o;
-  if (is_bf16 && D % 16 == 0 && (strides & 7) == 0 && (bases & 15) == 0) {
+  if (is_bf16 && (strides & 7) == 0 && (bases & 15) == 0) {
+    *route = 1;
     CUtensorMap tq, tk, tv;
     if ((e = tensor_map_bhsd(&tq, q, B, H, Sq, D, qsb, qsh, qss)) !=
             cudaSuccess ||
@@ -1287,8 +1324,12 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
       e = launch_fw<64>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
                         osh, oss, causal, use_window, window, scale_log2,
                         mask_all);
-    else if (D == 112)
+    else if (D <= 112)
       e = launch_fw<112>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
+                         osh, oss, causal, use_window, window, scale_log2,
+                         mask_all);
+    else if (D <= 120)
+      e = launch_fw<120>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
                          osh, oss, causal, use_window, window, scale_log2,
                          mask_all);
     else
@@ -1297,6 +1338,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                          mask_all);
     if (e != cudaSuccess) return (int)e;
   } else if (is_bf16) {
+    *route = 0;
     auto kern = flash_attention_kernel<__nv_bfloat16>;
     if ((e = set_smem(kern, smem)) != cudaSuccess) return (int)e;
     kern<<<grid, kFaThreads, smem, stream>>>(
@@ -1305,6 +1347,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
         qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal,
         use_window, window, scale);
   } else {
+    *route = 0;
     auto kern = flash_attention_kernel<float>;
     if ((e = set_smem(kern, smem)) != cudaSuccess) return (int)e;
     kern<<<grid, kFaThreads, smem, stream>>>(

@@ -13,16 +13,24 @@ read only by the causal and window masks), and any head dim up to 128
 through their strides, so [B, S, H, D] activations viewed as [B, H, S, D]
 need no copy.
 
-* bf16 inputs whose head dim is a multiple of 16, with strides that are
-  multiples of 8 elements (the prefill's case), run on Hopper's warpgroup
-  products (``wgmma``) fed by TMA: one block per (batch, head, 128-query
-  tile), two consumer warpgroups and a producer warp that streams 128-key
-  K and V tiles through a two-stage ring. P V takes p as a bf16 high part
-  plus the bf16 of its remainder, two products into one float32
+* bf16 inputs with any head dim up to 128, strides that are multiples of
+  8 elements and 16-byte aligned bases (the prefill's case), run on
+  Hopper's warpgroup products (``wgmma``) fed by TMA: one block per (batch,
+  head, 128-query tile), two consumer warpgroups and a producer warp that
+  streams 128-key K and V tiles through a two-stage ring. The TMA fills
+  the head-dim columns past D with zeros, so a D that is not a multiple of
+  16 (h2o-danube's 120) reads the zero-padded tiles the TPU wrapper builds
+  by padding D to 128 lanes, without a copy. P V takes p as a bf16 high
+  part plus the bf16 of its remainder, two products into one float32
   accumulator, so p stays near float32 as in the TPU kernel, which widens
   v and takes P V in float32.
-* f32 inputs, and other head dims, run on the CUDA cores in float32: one
-  block per (batch, head, 64-query tile), 64-key tiles.
+* f32 inputs, and bf16 inputs whose strides or bases the TMA cannot take,
+  run on the CUDA cores in float32: one block per (batch, head, 64-query
+  tile), 64-key tiles.
+
+The launcher reports the kernel it took; ``flash_attention_cuda.routes``
+counts launches by route (``"wgmma"``, ``"cuda_cores"``). A failed launch
+raises: neither kernel stands in for the other.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.kernels.build import check_strided, load_library, stream_of
 
 MAX_HEAD_DIM = 128
 DTYPES = (torch.bfloat16, torch.float32)
+ROUTES = ("cuda_cores", "wgmma")        # by the launcher's route code
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -60,11 +69,16 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     out = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     strides = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         load_library("prefill").call(
             "flash_attention_launch", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, H, K, Sq, Skv, D, *strides,
             int(causal), int(window is not None), int(window or 0),
             ctypes.c_float(scale), int(q.dtype == torch.bfloat16),
-            stream_of(q))
+            ctypes.byref(route), stream_of(q))
+    flash_attention_cuda.routes[ROUTES[route.value]] += 1
     return out
+
+
+flash_attention_cuda.routes = {"wgmma": 0, "cuda_cores": 0}

@@ -2,7 +2,9 @@
 
 ``flash_attention`` sends CUDA tensors to the hand-written kernel and CPU
 tensors to the plain version; ``impl="ref"`` calls the plain version on
-any device. Launches are counted in ``flash_attention.launches``.
+any device. Launches are counted in ``flash_attention.launches``, and by
+the kernel they took in ``flash_attention.routes`` (``"wgmma"``,
+``"cuda_cores"``; the launcher's own count, reset in place).
 
 On a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
 (``FlashAttention``), and nowhere else: its forward launches the kernel;
@@ -62,3 +64,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.routes = K.flash_attention_cuda.routes

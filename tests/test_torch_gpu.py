@@ -426,12 +426,14 @@ def test_migrate_pages_matches_plain_on_card(shape, dtype, offset, cuda):
 # --------------------------------------------- prefill kernels (K7, K8) ----
 # (b, h, kh, sq, skv, d): the reference's tests/test_kernels.py shapes, then
 # the port's widths (zamba2's head dim 112; lengths not a multiple of the
-# 64-row tiles, queries shorter than keys; a head dim of 40, not a multiple
-# of 16, which bf16 runs on the CUDA cores)
+# 64-row tiles, queries shorter than keys; head dims of 40 and h2o-danube's
+# 120, not multiples of 16, which bf16 runs on the wgmma kernel with a last
+# k-step that reads the TMA's zeros past D)
 FLASH_SHAPES = [(2, 4, 2, 128, 128, 64), (1, 8, 8, 64, 64, 32),
                 (2, 2, 1, 64, 256, 64), (1, 4, 2, 256, 256, 48),
                 (1, 4, 4, 128, 128, 112), (1, 4, 2, 200, 200, 112),
-                (2, 4, 2, 72, 200, 64), (1, 4, 2, 96, 96, 40)]
+                (2, 4, 2, 72, 200, 64), (1, 4, 2, 96, 96, 40),
+                (1, 4, 2, 200, 200, 120)]
 FLASH_MASKS = [(True, None), (True, 64), (False, None)]
 
 
@@ -513,11 +515,12 @@ def test_flash_attention_keeps_p_exact_with_large_values_on_card(
     torch.cuda.synchronize()
 
 
-# the tensor-core kernel's grid: head dims 64, 112 (two TMA boxes, the
-# second clipped) and 128; groups of 1 and 4 query heads per kv head;
+# the tensor-core kernel's grid: head dims 64, 112 and 120 (two TMA boxes,
+# the second clipped; 120 takes 8 k-steps, the last half zeros) and 128;
+# groups of 1 and 4 query heads per kv head;
 # lengths that are not multiples of its 128-row tiles, queries shorter than
 # keys; v scaled by 64 (|v| in the tens, as in a prefill's first layer)
-WGMMA_DIMS = [64, 112, 128]
+WGMMA_DIMS = [64, 112, 120, 128]
 WGMMA_LENGTHS = [(200, 200), (72, 333), (256, 256)]
 
 
@@ -549,10 +552,66 @@ def test_flash_attention_wgmma_grid_matches_plain_on_card(
     torch.cuda.synchronize()
 
 
+def _routed(FA, fn):
+    """(fn's result, the K7 launches it made by route)."""
+    before = dict(FA.flash_attention.routes)
+    out = fn()
+    return out, {r: n - before[r] for r, n in FA.flash_attention.routes.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_d120_takes_wgmma_on_card(causal, window, cuda):
+    """h2o-danube's heads (H=32, K=8, D=120) at S=1,024 in bf16, read as
+    [B, H, S, D] views of its [B, S, H, D] activations: the launcher
+    reports the wgmma kernel, the output is within 2e-2 of the plain
+    version and equal to the contiguous inputs' result."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16)
+               for x in flash_case((1, 32, 8, 1024, 1024, 120), seed=120))
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    assert views[0].stride() == (1024 * 32 * 120, 120, 32 * 120, 1)
+    got, routes = _routed(FA, lambda: FA.flash_attention(
+        *views, causal=causal, window=window))
+    assert routes == {"wgmma": 1, "cuda_cores": 0}
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(FA.flash_attention(q, k, v, causal=causal,
+                                          window=window), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_unaligned_bf16_takes_cuda_cores_on_card(
+        causal, window, cuda):
+    """bf16 views whose bases are not 16-byte aligned (columns 1-40 of a
+    D=48 tensor) are refused by the TMA: the launcher reports the CUDA-core
+    kernel, whose output is within 2e-2 of the plain version."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16)[..., 1:41]
+               for x in flash_case((1, 4, 2, 200, 200, 48), seed=48))
+    assert q.data_ptr() % 16 == 2 and q.stride(-1) == 1
+    got, routes = _routed(FA, lambda: FA.flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert routes == {"wgmma": 0, "cuda_cores": 1}
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.cuda.synchronize()
+
+
 # cross-attention: full (neither causal nor windowed) attention with more
 # queries than keys, at the encoder's and the image's ragged key counts
 # (1,500 frames, 1,600 image tokens): whisper's heads (H = K = 6, D = 64)
-# and the vlm's (G = 8, D = 128), then a head dim off the wgmma path
+# and the vlm's (G = 8, D = 128), then a head dim of 40, not a multiple of
+# 16 (bf16 on the wgmma kernel, its last k-step half the TMA's zeros)
 FLASH_CROSS_SHAPES = [(2, 6, 6, 2048, 1500, 64), (1, 16, 2, 2100, 1600, 128),
                       (1, 4, 2, 1700, 1500, 40)]
 
@@ -607,7 +666,7 @@ def test_flash_attention_refuses_masked_sq_over_skv_on_card(causal, window,
             v.data_ptr(), out.data_ptr(), 1, 4, 2, 300, 200, 64, *strides,
             int(causal), int(window is not None), int(window or 0),
             ctypes.c_float(0.125), int(dtype == torch.bfloat16),
-            stream_of(q))
+            ctypes.byref(ctypes.c_int()), stream_of(q))
     torch.cuda.synchronize()
 
 

@@ -45,8 +45,10 @@ from repro_torch.kernels.ssd_scan import ref as TSSD_REF
 
 CPU = "cpu"
 FWD_RTOL = 1e-4
-# tests/test_kernels.py's flash-attention grid, plus the port's widths
-REF_FLASH = FLASH_SHAPES[:4] + [FLASH_SHAPES[4]]
+# tests/test_kernels.py's flash-attention grid, plus the port's widths:
+# zamba2's head dim 112 and h2o-danube's 120 (the reference's wrapper pads
+# it to 128 lanes of zeros, as the card's TMA fills the tiles past D)
+REF_FLASH = FLASH_SHAPES[:4] + [FLASH_SHAPES[4], (1, 4, 2, 128, 128, 120)]
 
 
 def T_(x):
@@ -54,11 +56,14 @@ def T_(x):
 
 
 @functools.lru_cache(maxsize=None)
-def _model(arch: str):
+def _model(arch: str, head_dim=None):
     """(reference params, port model, float32 configs) of ``arch``'s smoke
-    config."""
+    config (its head dim replaced by ``head_dim`` if given)."""
     cfg_j = dataclasses.replace(j_smoke(arch), dtype="float32")
     cfg_t = dataclasses.replace(t_smoke(arch), dtype="float32")
+    if head_dim is not None:
+        cfg_j = dataclasses.replace(cfg_j, head_dim=head_dim)
+        cfg_t = dataclasses.replace(cfg_t, head_dim=head_dim)
     params = j_init_params(jax.random.PRNGKey(0), j_specs(cfg_j))
     host = jax.tree_util.tree_map(np.asarray, params)
     return params, convert.params_from_numpy(host, cfg_t, device=CPU), \
@@ -384,6 +389,25 @@ def test_prefill_step_matches_reference(arch):
     with torch.no_grad():
         full = TF.model_forward(model, {"tokens": T_(toks)}, impl="ref")
     torch.testing.assert_close(got, full[:, -1], atol=1e-5, rtol=1e-5)
+
+
+def test_danube_head_dim_120_prefill_matches_reference():
+    """A narrow h2o-danube (2 layers, H=4, K=2, window 32) at its real head
+    dim of 120, which the smoke config's 16 does not reach: ``make_prefill_
+    step`` at S=64 (past the window) against the reference's jitted
+    prefill step; ``impl="ref"`` agrees."""
+    params, model, cfg_j, cfg_t = _model("h2o_danube_3_4b", head_dim=120)
+    assert (cfg_t.resolved_head_dim, cfg_t.num_layers, cfg_t.num_heads,
+            cfg_t.num_kv_heads, cfg_t.sliding_window) == (120, 2, 4, 2, 32)
+    toks = _tokens(cfg_j, 2, 64, seed=120)
+    want = jax.jit(j_prefill(cfg_j, TrainConfig(remat_policy="none")))(
+        params, {"tokens": jnp.asarray(toks)})
+    got = t_prefill(cfg_t, device=CPU)(model, {"tokens": T_(toks)})
+    assert got.shape == (2, cfg_t.vocab_size)
+    assert _rel(got.numpy(), want) < FWD_RTOL
+    ref = t_prefill(cfg_t, impl="ref", device=CPU)(model,
+                                                   {"tokens": T_(toks)})
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 def test_self_attention_matches_reference_dense_path():
