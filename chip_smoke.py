@@ -46,8 +46,11 @@ one line each, each with its duration:
      serving op's device launches per op call
  13. prefill kernels (K7 flash attention, K8 SSD scan) vs plain versions on
      the card: K7 at zamba2's and llama's heads, causal / window 64 /
-     non-causal, Sq < Skv and a ragged S=200, f32 and bf16; K8 at zamba2's
-     and mamba2-130m's widths under real-init and strong decays
+     non-causal, Sq < Skv and a ragged S=200, f32 and bf16, and bf16 views
+     2 bytes off alignment; every f32 and unaligned bf16 launch on the
+     tf32x3 kernel, every other bf16 launch on the wgmma kernel, as the
+     launcher reports; K8 at zamba2's and mamba2-130m's widths under
+     real-init and strong decays
  14. prefill at full width and depth (``make_prefill_step``), Llama 3.2 1B
      then Zamba2-7B (random weights from a seed; the Llama models are freed
      first): cuda vs ref at B=2, S=4096 in bf16 and f32; then one timed
@@ -133,8 +136,10 @@ one line each, each with its duration:
      (past a 4,096 window), bf16 and f32; K6 bitwise at each new page
      size; K7 at each new head shape, causal and window 4,096, S = 4,096
      and 32,768: time, plain, the faster SDPA form, bound, the route the
-     launcher reports; K7's f32 route (the CUDA cores) at danube's heads,
-     S=4,096, beside f32 SDPA
+     launcher reports; K7's f32 route (the tf32x3 kernel) at danube's
+     heads, S=4,096 (beside the plain version and f32 SDPA) and S=16,384
+     (beside f32 SDPA), with both bounds (three TF32 products on the tensor
+     cores, the kernels line's; the same work on the CUDA cores)
 
  32. encdec: whisper-tiny at full width and depth (4 + 4 layers, f32
      weights), its biases opened (seeded, nonzero): 64 x 256 serving under
@@ -178,14 +183,18 @@ one line each, each with its duration:
      (loss falling, every .grad finite, K7 twice a layer a step); step
      ms, tokens/s, model FLOP/s share, peak memory; one profiled step
      with the plain attention backward and AdamW timed by CUDA events;
-     cuda vs ref at depth 2 in f32, every gradient leaf
+     cuda vs ref at depth 2 in f32: the loss end to end, every gradient
+     leaf block by block (``block_grads``: each block fed the ref run's
+     input and output gradient)
  37. mamba2-130m at full width and depth (B=8, S=4,096) through
      ``TrainDriver`` with a checkpoint every 2 steps and a RuntimeError
      injected at step 3 (restored and retried once), a fresh driver
      resuming bitwise; cuda vs ref in bf16 and f32; one f32 step each of
-     Zamba2-7B at depth 6, granite-moe at depth 4 (aux loss, capacity
-     drops) and whisper-tiny at full depth, cuda vs ref every gradient
-     leaf (whisper's loss end to end, its gradients block by block), with
+     Zamba2-7B at depth 6, granite-moe at depth 4 (aux loss; the cuda step
+     takes the ref step's expert picks and gates, ``held_routing``) and
+     whisper-tiny at full depth, cuda vs ref every gradient leaf
+     (granite's and whisper's loss end to end, their gradients block by
+     block), with
      the cross-entropy's gradient at the logits from both forwards;
      ``launch/dryrun.py``'s bytes of every train_4k cell
 
@@ -216,6 +225,7 @@ MAIN_TICKS = 20
 STACKED_TICKS = 120
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory, published
 F32_OPS_PER_S = 67e12          # H100 SXM float32/int32 outside tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM dense TF32 tensor-core peak
 SOURCE = "src/repro_torch/kernels/csrc/selection.cu"
 SERVE_SOURCE = "src/repro_torch/kernels/csrc/serving.cu"
 REPLACES = {
@@ -302,6 +312,7 @@ def ssd_ops(B: int, S: int, H: int, P: int, N: int, G: int, Q: int) -> int:
 
 
 PREFILL_B, PREFILL_S = 2, 4096           # cuda vs ref at full width
+F32_LONG_S = 16384       # K7's f32 route also timed here (plain: no)
 # bf16: phase 9's bound, relative to max |logit|; f32: float32 sums in
 # another order through 16 or 81 layers
 PREFILL_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
@@ -1200,7 +1211,7 @@ def profile_serve_step(torch, step, model, snap, tok):
 # ---------------------------------------------------------- phase 13 ----
 def k7_routes(FA, fn):
     """(fn's result, the K7 launches it made by route, as the launcher
-    reports them: "wgmma" or "cuda_cores")."""
+    reports them: "wgmma" or "tf32x3")."""
     before = dict(FA.flash_attention.routes)
     out = fn()
     return out, {r: n - before[r] for r, n in FA.flash_attention.routes.items()}
@@ -1219,15 +1230,18 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
     rng = np.random.default_rng(13)
     err = {k: 0.0 for k in PREFILL_REPLACES}
     cases = {k: 0 for k in PREFILL_REPLACES}
-    cases["k7_routes"] = {"wgmma": 0, "cuda_cores": 0}
+    cases["k7_routes"] = {r: 0 for r in FA.flash_attention.routes}
     # (H, K, D): zamba2's heads (G=1, D=112), llama's (G=4, D=64), D=128 at
     # G=1 and G=4, then h2o-danube's (G=4, D=120: 8 k-steps, the last half
     # the TMA's zeros). (B, Sq, Skv, v scale): 200 and 300/333 are not
     # multiples of the 128-row tiles, 256/1024 and 300/333 have Sq < Skv;
-    # v x 64 holds the tensor-core kernel's P V to the plain version's
-    # float32 where |v| is large, as on the Llama path. Each case runs again
+    # v x 64 holds the tensor-core kernels' P V to the plain version's
+    # float32 where |v| is large, as on the Llama path (f32 at an atol of
+    # K7_TOL x 64, its rtol K7_TOL). Each case runs again
     # on strided [B, S, H, D] views and must read the same. bf16 must take
-    # the wgmma kernel, f32 the CUDA cores (the route the launcher reports).
+    # the wgmma kernel, f32 the tf32x3 kernel (the route the launcher
+    # reports); so must a bf16 view 2 bytes off 16-byte alignment, which the
+    # TMA refuses (once per head shape, the first lengths).
     for H, K, D in ((32, 32, 112), (32, 8, 64), (8, 8, 128), (16, 4, 128),
                     (32, 8, 120)):
         for B, Sq, Skv, vs in ((2, 1024, 1024, 1.0), (1, 200, 200, 1.0),
@@ -1238,8 +1252,6 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
                 ((B, H, Sq, D), (B, K, Skv, D), (B, K, Skv, D))]
             qkv[2] *= vs
             for dtype in (torch.float32, torch.bfloat16):
-                if vs != 1.0 and dtype == torch.float32:
-                    continue          # the case is for the bf16 kernel
                 q, k, v = (x.to(dtype) for x in qkv)
                 views = [x.transpose(1, 2).contiguous().transpose(1, 2)
                          for x in (q, k, v)]
@@ -1249,7 +1261,7 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
                         q, k, v, causal=causal, window=window))
                     route = one_route(rc, f"K7 H={H} D={D} {dtype}")
                     require(route == ("wgmma" if dtype == torch.bfloat16
-                                      else "cuda_cores"),
+                                      else "tf32x3"),
                             f"K7 H={H} K={K} D={D} {dtype}: route {route}")
                     cases["k7_routes"][route] += 1
                     want = FA_REF.flash_attention_ref(q, k, v, causal=causal,
@@ -1258,17 +1270,46 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
                         torch.isfinite(got).all()), "K7: dtype / finite")
                     d = float((got.float() - want.float()).abs().max())
                     tol = K7_TOL[str(dtype).removeprefix("torch.")]
+                    # f32: the absolute bound grows with |v| (3xTF32 keeps
+                    # 22 significant bits of p; one TF32 p misses it)
+                    atol = tol * vs if dtype == torch.float32 else tol
                     err["flash_attention"] = max(err["flash_attention"], d)
                     what = (f"K7 H={H} K={K} D={D} B={B} Sq={Sq} Skv={Skv} "
                             f"v x{vs} {dtype} causal={causal} window="
                             f"{window}")
                     require(torch.allclose(got.float(), want.float(),
-                                           atol=tol, rtol=tol),
+                                           atol=atol, rtol=tol),
                             f"{what}: max err {d}")
                     require(torch.equal(FA.flash_attention(
                         *views, causal=causal, window=window), got),
                         f"{what}: strided views read otherwise")
                     cases["flash_attention"] += 1
+        # bf16 read 2 bytes off alignment: columns 1 .. D of a D + 8 wide
+        # tensor (D of 112, 64, 128, 128, 120), refused by the TMA
+        B, Sq, Skv = 1, 200, 200
+        rng_u = np.random.default_rng(130 + D)
+        wide = [torch.as_tensor(rng_u.standard_normal(shape).astype(
+                    np.float32), device="cuda").to(torch.bfloat16)[..., 1:D + 1]
+                for shape in ((B, H, Sq, D + 8), (B, K, Skv, D + 8),
+                              (B, K, Skv, D + 8))]
+        require(wide[0].data_ptr() % 16 == 2, "K7: unaligned view")
+        for causal, window in ((True, None), (True, 64), (False, None)):
+            got, rc = k7_routes(FA, lambda: FA.flash_attention(
+                *wide, causal=causal, window=window))
+            route = one_route(rc, f"K7 H={H} D={D} unaligned bf16")
+            require(route == "tf32x3", f"K7 H={H} K={K} D={D} unaligned bf16:"
+                                       f" route {route}")
+            cases["k7_routes"][route] += 1
+            want = FA_REF.flash_attention_ref(*wide, causal=causal,
+                                              window=window)
+            d = float((got.float() - want.float()).abs().max())
+            err["flash_attention"] = max(err["flash_attention"], d)
+            require(torch.allclose(got.float(), want.float(),
+                                   atol=K7_TOL["bfloat16"],
+                                   rtol=K7_TOL["bfloat16"]),
+                    f"K7 H={H} K={K} D={D} unaligned bf16 causal={causal} "
+                    f"window={window}: max err {d}")
+            cases["flash_attention"] += 1
     # (H, P, N, G): zamba2's Mamba2 widths, then mamba2-130m's
     for H, P, N, G in ((112, 64, 64, 1), (32, 48, 128, 1)):
         B, S, Q = 1, 1024, 256
@@ -1299,10 +1340,12 @@ def check_prefill_kernels(torch, np, FA, FA_REF, SSD, SSD_REF):
 
 # ---------------------------------------------------------- phase 14 ----
 def reading(torch, what: str, got, want, atol: float, rtol: float) -> dict:
-    """Max abs error of ``got`` vs ``want`` and the largest share of the
-    allclose bound ``atol + rtol * |want|`` it uses (<= 1 passes)."""
-    d = (got.float() - want.float()).abs()
-    share = float((d / (atol + rtol * want.float().abs())).max())
+    """Max abs error of ``got`` vs ``want`` (in float32, or float64 when
+    ``want`` is) and the largest share of the allclose bound ``atol + rtol *
+    |want|`` it uses (<= 1 passes)."""
+    wide = torch.float64 if want.dtype == torch.float64 else torch.float32
+    d = (got.to(wide) - want.to(wide)).abs()
+    share = float((d / (atol + rtol * want.to(wide).abs())).max())
     return dict(what=what, err=float(d.max()), share=share, atol=atol,
                 rtol=rtol)
 
@@ -1311,22 +1354,63 @@ def _shape(t) -> str:
     return f"{tuple(t.shape)}/{t.stride()} {str(t.dtype)[6:]}"
 
 
+def attention_f64(torch, q, k, v, *, causal=True, window=None):
+    """The plain version's attention (GQA, right-aligned queries, the finite
+    NEG_INF on masked scores) computed in float64, a few heads at a time."""
+    b, h, sq, d = q.shape
+    kh, skv = k.shape[1], k.shape[2]
+    qpos = torch.arange(sq, device=q.device) + (skv - sq)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None] > qpos[:, None] - window
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    step = max(1, (1 << 30) // (sq * skv * 8))          # 1 GiB of scores
+    for bi in range(b):
+        for h0 in range(0, h, step):
+            heads = torch.arange(h0, min(h, h0 + step), device=q.device)
+            kv = heads // (h // kh)
+            s = torch.einsum("hqd,hkd->hqk", q[bi, heads].double()
+                             / math.sqrt(d), k[bi, kv].double())
+            s = torch.where(mask, s, -1e30)
+            out[bi, heads] = torch.einsum("hqk,hkd->hqd", torch.softmax(
+                s, dim=-1), v[bi, kv].double())
+    return out
+
+
 def k7_vs_plain(torch, FA_REF, out, q, k, v, *, causal=True, window=None,
                 impl="cuda", tail=None, scaled=False) -> list:
     """K7's output on the path vs the plain version on the same views; with
     ``tail``, only the last ``tail`` query rows (right-aligned, they see the
     same keys). The bound is ``K7_TOL`` elementwise (atol and rtol), or with
-    ``scaled`` ``K7_TOL`` of the output's max |value| (phases 28-30)."""
+    ``scaled`` ``K7_TOL`` of the output's max |value| (phases 28-30).
+
+    In float32 the reference is the same attention in float64, and the
+    plain version's own largest distance from it is added to atol. On
+    random weights the path's float32 scores reach hundreds (Llama 3.2 1B's
+    layer 0: |s| up to 816), where one ulp of a score moves p by ~6e-5: the
+    plain version is then itself ~100x K7_TOL from the float64 value, and
+    any other float32 summation order (its own with the head dim reversed,
+    f32 SDPA) as far from it, so an elementwise bound against it holds only
+    a kernel that repeats its rounding order. Where the plain version is
+    near the float64 value, this is the elementwise bound."""
     if tail is not None and tail < q.shape[2]:
         q, out = q[:, :, -tail:], out[:, :, -tail:]
     want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = K7_TOL[str(q.dtype)[6:]]
+    what = (f"K7 q {_shape(q)} k {_shape(k)} causal={causal} window="
+            f"{window} max |v| {float(v.abs().max()):.3g}")
+    plain_err = 0.0
+    if q.dtype == torch.float32:
+        exact = attention_f64(torch, q, k, v, causal=causal, window=window)
+        plain_err = float((want.double() - exact).abs().max())
+        what += f" (vs float64; the plain version {plain_err:.3g} from it)"
+        want = exact
     atol, rtol = (tol * float(want.abs().max()), 0.0) if scaled else (tol,
                                                                       tol)
-    return [reading(torch, f"K7 q {_shape(q)} k {_shape(k)} causal={causal}"
-                           f" window={window} max |v| "
-                           f"{float(v.abs().max()):.3g}", out, want, atol,
-                    rtol)]
+    return [reading(torch, what, out, want, atol + plain_err, rtol)]
 
 
 def k8_vs_plain(torch, SSD_REF, out, x, a, b, c, *, chunk, impl="cuda"
@@ -2561,41 +2645,51 @@ def k7_shape_numbers(torch, F, FA, FA_REF, H, K, D, S, window) -> dict:
 
 
 def k7_f32_numbers(torch, F, FA, FA_REF, H, K, D, S) -> dict:
-    """K7's f32 route (the CUDA-core kernel) at one head shape, B=1,
-    causal, S <= 4,096: the route the launcher reports, agreement with the
-    plain version, its time beside the plain version's and f32 SDPA's (the
-    faster of ``enable_gqa`` and K/V expanded to the query heads, causal,
-    TF32 off), SDPA's own distance from the plain version, and the bound
-    (f32 operations outside the tensor cores)."""
+    """K7's f32 route (the tf32x3 kernel) at one head shape, B=1, causal:
+    the route the launcher reports, its time beside f32 SDPA's (the faster
+    of ``enable_gqa`` and K/V expanded to the query heads, causal, TF32 off)
+    and, at S <= 4,096 (where its [H, S, S] float32 scores fit), agreement
+    with the plain version, the plain version's time and SDPA's own
+    distance from it; and two bounds: float32-accurate products on the
+    tensor cores, three TF32 products per product (495 TFLOP/s,
+    ``bound_ms``), and the same work on the CUDA cores (67 TFLOP/s,
+    ``cuda_core_bound_ms``, a side field)."""
     g = torch.Generator(device="cuda").manual_seed(34)
     q, k, v = (torch.randn((1, h, S, D), generator=g, device="cuda")
                for h in (H, K, K))
     out, rc = k7_routes(FA, lambda: FA.flash_attention(q, k, v))
     route = one_route(rc, f"K7 f32 H={H} D={D} S={S}")
-    require(route == "cuda_cores", f"K7 f32 H={H} D={D}: route {route}")
-    want = FA_REF.flash_attention_ref(q, k, v)
-    err = float((out - want).abs().max())
-    require(torch.allclose(out, want, atol=K7_TOL["float32"],
-                           rtol=K7_TOL["float32"]),
-            f"K7 f32 H={H} K={K} D={D} S={S}: max err {err}")
+    require(route == "tf32x3", f"K7 f32 H={H} D={D}: route {route}")
+    require(bool(torch.isfinite(out).all()), f"K7 f32 S={S}: non-finite")
     ke, ve = (x.repeat_interleave(H // K, dim=1) for x in (k, v))
     forms = {"enable_gqa": lambda: F.scaled_dot_product_attention(
                  q, k, v, is_causal=True, enable_gqa=True),
              "expanded K/V": lambda: F.scaled_dot_product_attention(
                  q, ke, ve, is_causal=True)}
-    lib = min((device_ms(f, n=10), form) for form, f in forms.items())
-    lib_err = float((forms[lib[1]]() - want).abs().max())
-    del want, ke, ve, forms
+    n = 10 if S <= PREFILL_S else 3
+    lib = min((device_ms(f, n=n), form) for form, f in forms.items())
+    err = lib_err = plain_ms = None
+    if S <= PREFILL_S:
+        want = FA_REF.flash_attention_ref(q, k, v)
+        err = float((out - want).abs().max())
+        require(torch.allclose(out, want, atol=K7_TOL["float32"],
+                               rtol=K7_TOL["float32"]),
+                f"K7 f32 H={H} K={K} D={D} S={S}: max err {err}")
+        lib_err = float((forms[lib[1]]() - want).abs().max())
+        del want
+        plain_ms = device_ms(lambda: FA_REF.flash_attention_ref(q, k, v),
+                             n=3)
+    del ke, ve, forms
     pairs = S * (S + 1) // 2
     t_bytes = 4 * (2 * H * S * D + 2 * K * S * D) / HBM_BYTES_PER_S * 1e3
     t_ops = 4 * H * D * pairs / F32_OPS_PER_S * 1e3
+    t_tf32 = 3 * 4 * H * D * pairs / TF32_OPS_PER_S * 1e3
     return dict(H=H, K=K, D=D, S=S, route=route, err=err,
-                ms=device_ms(lambda: FA.flash_attention(q, k, v), n=10),
-                plain_ms=device_ms(lambda: FA_REF.flash_attention_ref(
-                    q, k, v), n=3),
-                library_ms=lib[0], library_form=lib[1], library_err=lib_err,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                ms=device_ms(lambda: FA.flash_attention(q, k, v), n=n),
+                plain_ms=plain_ms, library_ms=lib[0], library_form=lib[1],
+                library_err=lib_err, bound_ms=max(t_bytes, t_tf32),
+                bound_by="bytes" if t_bytes >= t_tf32 else "operations",
+                cuda_core_bound_ms=max(t_bytes, t_ops))
 
 
 def sdpa_band(torch, F, q, k, v, window: int, n: int):
@@ -2849,18 +2943,27 @@ def family_phases(torch, np, env: dict) -> dict:
                       f"abs err {r['err']:.3g} over the last {r['tail']} "
                       "query rows")
                 free()
-    # the last CUDA-core route: f32 at danube's heads (phase 35's shape)
+    # the f32 route (the tf32x3 kernel) at danube's heads: phase 35's shape,
+    # then S=16,384 (its plain version's scores do not fit)
     H, K, D, _ = shapes[DANUBE]
-    k7_f32 = k7_f32_numbers(torch, F, FA, FA_REF, H, K, D, PREFILL_S)
-    phase("31-k7-f32", f"flash_attention [{DANUBE} H={H} K={K} D={D}, B=1 "
-          f"S={PREFILL_S}, f32, causal; route {k7_f32['route']} (counted)]:"
-          f" {k7_f32['ms']:.4f} ms (plain {k7_f32['plain_ms']:.4f}, library"
-          f" {k7_f32['library_ms']:.4f} (f32 SDPA, causal, "
-          f"{k7_f32['library_form']}, max abs err "
-          f"{k7_f32['library_err']:.3g} from plain), bound "
-          f"{k7_f32['bound_ms']:.5f} ({k7_f32['bound_by']}, f32 67 TFLOP/s));"
-          f" max abs err {k7_f32['err']:.3g}")
-    free()
+    k7_f32 = []
+    for S in (PREFILL_S, F32_LONG_S):
+        r = k7_f32_numbers(torch, F, FA, FA_REF, H, K, D, S)
+        k7_f32.append(r)
+        plain = ("not measured (its [H, S, S] float32 scores)"
+                 if r["plain_ms"] is None else f"{r['plain_ms']:.4f}")
+        agree = ("" if r["err"] is None else
+                 f"; max abs err {r['err']:.3g}, SDPA's "
+                 f"{r['library_err']:.3g} from plain")
+        phase("31-k7-f32", f"flash_attention [{DANUBE} H={H} K={K} D={D}, "
+              f"B=1 S={S}, f32, causal; route {r['route']} (counted)]: "
+              f"{r['ms']:.4f} ms (plain {plain}, library "
+              f"{r['library_ms']:.4f} (f32 SDPA, causal, "
+              f"{r['library_form']}), bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}, three TF32 products, 495 TFLOP/s; on the "
+              f"CUDA cores at 67 TFLOP/s {r['cuda_core_bound_ms']:.5f}))"
+              f"{agree}")
+        free()
     res.update(k5_err=k5_err, k5_times=k5_times, k7=k7, k7_f32=k7_f32)
     return res
 
@@ -2954,7 +3057,7 @@ def run_prefill_cell(torch, np, env: dict, model, label, tag="14-prefill",
     # every K7 launch of a bf16 prefill on the wgmma kernel, as its
     # launcher reports (its activations' strides and bases suit the TMA)
     require(cfg_m.dtype != "bfloat16" or routes == {
-        "wgmma": n["flash_attention"], "cuda_cores": 0},
+        "wgmma": n["flash_attention"], "tf32x3": 0},
         f"{label}: K7 launches by route {routes}, want all "
         f"{n['flash_attention']} on wgmma")
     env["rows"][label] = dict(ms=ms, peak=peak, launches=n,
@@ -3514,22 +3617,24 @@ GRAD35_TOL = {"torch.float32": 1e-3, "torch.bfloat16": 2e-2}
 # cuda vs ref, one step's loss and gradients from the same state: float32
 # (loss relative; every gradient leaf relative to its max |value|) and bf16
 # (loss and global gradient norm, relative). Fixed from the readings of
-# NVIDIA H100 80GB HBM3 runs (PERF.md, PR 22): Llama 3.2 1B at depth 2
-# worst leaf 9.7e-4, mamba2-130m 1.4e-5, Zamba2-7B 4.8e-5, held at 1e-2;
-# granite-moe's worst 0.0862 (an expert weight; gradient norm 0.019) with
-# every capacity pick the same in both runs, its leaves held at
-# TRAIN_LEAF_TOL. Why (``logit_grad_diff``, same runs): its forward's
-# logits part by 2.2e-5 of their scale at the median token but by up to
-# 2.8e-3 on 17 of 2,048 tokens, and its cross-entropy is nearly one-hot
-# (median top probability 0.998), so the gradient at the logits swings by
-# up to 0.028 of a token's (above 1e-3 on 114 tokens); a few tokens'
-# swings are a share of each leaf's sum over 2,048 tokens, and more of an
-# expert weight's, which sums only the tokens routed to it. The one-ulp
-# witness, printed beside, moves the same leaves by 3.39.
-# whisper-tiny's gradients, which the witness moves by O(1), are held
-# block by block; its loss end to end at ENCDEC_LOSS_TOL (read 3.24e-5)
+# NVIDIA H100 80GB HBM3 runs (PERF.md §6): mamba2-130m 1.4e-5,
+# Zamba2-7B 4.8e-5, held at 1e-2. Those runs had K7's f32 route sum in the
+# plain version's order (a CUDA-core kernel); the tf32x3 kernel parts from
+# it at the last bit, which the random dense, moe and encdec models carry
+# as far as a one-ulp change of their input (the witness, printed beside):
+# on NVIDIA H100 80GB HBM3, 700 W (PERF.md §6) Llama 3.2 1B at depth
+# 2 reads a worst leaf of 0.0419 beside the witness's 0.0594, granite at
+# depth 4 3.4 beside 3.39 (its cross-entropy nearly one-hot: median top
+# probability 0.998), whisper 10.6 beside 1.38. End to end no bound tells
+# a wrong gradient from that, so these three hold their leaves block by
+# block (``block_grads``: each block fed the ref run's input and output
+# gradient, BLOCK_GRAD_RTOL; read 1.9e-4, 1.7e-4, 8.5e-4) and their loss
+# end to end: Llama's and granite's at TRAIN_F32_TOL (read 0 and 9.3e-6,
+# granite's cuda step taking the ref step's expert picks and gates,
+# ``held_routing``: its own picks part on near ties, 8.7e-5 free),
+# whisper's at ENCDEC_LOSS_TOL (read 3.24e-5 with the CUDA-core kernel,
+# 9.57e-5 with the tf32x3 kernel)
 TRAIN_F32_TOL = {"loss": 1e-5, "grad": 1e-2}
-TRAIN_LEAF_TOL = {"moe": 0.15}
 ENCDEC_LOSS_TOL = 1e-4
 TRAIN_BF16_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 K7_TRAIN_SHAPES = (   # (label, B, H, K, Sq, Skv, D, dtype, causal, window)
@@ -3639,25 +3744,40 @@ def k8_grad_case(torch, F, SSD, SSD_REF, cfg, B: int, S: int) -> dict:
                 H=H, P=P, N=N, G=G, Q=Q, base=base)
 
 
-def route_capture(torch, LAYERS, routes: list):
-    """A ``patched`` maker for ``layers.moe_block`` that appends each call's
-    routing (``moe_routes``: the membership mask and each expert's kept
-    tokens), taken before the call, then runs the block."""
-    def wrap(f):
-        def run(p, x, cfg):
+@contextlib.contextmanager
+def held_routing(torch, LAYERS, probs: list, top_k: int, mode: str,
+                 flips: list):
+    """While active, every ``layers._router`` call, in call order: with
+    ``mode`` "record", appends its probabilities to ``probs``; "hold",
+    returns the entry of ``probs`` of the same call in place of its own
+    value, its gradient still flowing through its own (the run takes the
+    recorded run's expert picks and gates); "count", keeps its own. "hold"
+    and "count" append to ``flips`` the tokens whose own top-``top_k``
+    experts differ from the recorded ones."""
+    n = [0]
+
+    def make(f):
+        def router(p, x):
+            pr = f(p, x)
+            if mode == "record":
+                probs.append(pr.detach())
+                return pr
+            require(n[0] < len(probs), "held_routing: more router calls "
+                                       "than the recorded run made")
+            want = probs[n[0]]
+            n[0] += 1
             with torch.no_grad():
-                routes.extend(moe_routes(torch, LAYERS, cfg, [(p, x, True)]))
-            return f(p, x, cfg)
-        return run
-    return wrap
+                own, rec = (t >= t.topk(top_k, dim=-1).values[..., -1:]
+                            for t in (pr, want))
+                flips.append(int((own != rec).any(-1).sum()))
+            return want + (pr - pr.detach()) if mode == "hold" else pr
+        return router
 
-
-def expert_agreement(torch, a: list, b: list):
-    """[L, E]: the experts whose membership and kept tokens are the same
-    in two runs' ``route_capture`` records."""
-    return torch.stack([((ma == mb).all(dim=(0, 1))
-                         & (ka == kb).all(dim=(0, 2)))
-                        for ([ma, ka], _), ([mb, kb], _) in zip(a, b)])
+    with patched(LAYERS, "_router", make):
+        yield
+    require(mode == "record" or n[0] == len(probs),
+            f"held_routing: {n[0]} router calls, the recorded run made "
+            f"{len(probs)}")
 
 
 def grads_at(torch, STEP, model, tc, batch, impl: str, keep: bool,
@@ -3704,40 +3824,17 @@ def ulp_witness(torch, model, fn):
             tok.copy_(saved)
 
 
-EXPERT_LEAVES = ("moe.wg", "moe.wu", "moe.wd")
-
-
-def leaf_bound(family: str) -> float:
-    """The float32 bound of a gradient leaf, relative to its scale."""
-    return TRAIN_LEAF_TOL.get(family, TRAIN_F32_TOL["grad"])
-
-
-def step_diff(a: dict, b: dict, agree=None) -> dict:
+def step_diff(a: dict, b: dict) -> dict:
     """Loss and gradient-norm differences of two ``grads_at`` results,
     relative to ``b``'s, and, where both kept their gradients, each leaf's
     worst difference relative to its max |value| (``errs``) and the worst
-    leaf. ``agree`` ([L, E] bool: the experts whose capacity picks are the
-    same in both runs) limits the experts' weights to the agreeing
-    experts' slices; the others' worst is reported as "split"."""
+    leaf."""
     out = {"loss": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
            "norm": abs(a["norm"] - b["norm"]) / b["norm"]}
     if a["grads"] is None or b["grads"] is None:
         return out
-    errs, split = {}, 0.0
-    for n, g in a["grads"].items():
-        w = b["grads"][n]
-        err = (g - w).abs() / w.abs().max().clamp_min(1e-30)
-        if agree is not None and n.endswith(EXPERT_LEAVES):
-            per = err.flatten(2).amax(2)                       # [L, E]
-            if bool((~agree).any()):
-                split = max(split, float(per[~agree].max()))
-            errs[n] = float(per[agree].max()) if bool(agree.any()) else 0.0
-        else:
-            errs[n] = float(err.max())
-    out["errs"] = errs
-    out["grad"], out["leaf"] = max((e, n) for n, e in errs.items())
-    if agree is not None:
-        out["split"] = split
+    out["errs"] = {n: _rel(g, b["grads"][n]) for n, g in a["grads"].items()}
+    out["grad"], out["leaf"] = max((e, n) for n, e in out["errs"].items())
     return out
 
 
@@ -3745,21 +3842,19 @@ def format_diff(d: dict) -> str:
     s = f"loss {d['loss']:.3g}, grad norm {d['norm']:.3g}"
     if "grad" in d:
         s += f", worst leaf {d['grad']:.3g} ({d['leaf']})"
-    if "split" in d:
-        s += f", experts whose picks differ {d['split']:.3g}"
     return s
 
 
-def format_bounds(family: str) -> str:
-    return f"loss {TRAIN_F32_TOL['loss']}, leaf {leaf_bound(family)}"
+def format_bounds() -> str:
+    return f"loss {TRAIN_F32_TOL['loss']}, leaf {TRAIN_F32_TOL['grad']}"
 
 
-def hold_step(tag: str, d: dict, f32: bool, family: str = "") -> None:
-    """cuda vs ref (``d``): float32 holds the loss (``TRAIN_F32_TOL``) and
-    every leaf (``leaf_bound``); bf16 the loss and the gradient norm
+def hold_step(tag: str, d: dict, f32: bool) -> None:
+    """cuda vs ref (``d``): float32 holds the loss and every leaf
+    (``TRAIN_F32_TOL``); bf16 the loss and the gradient norm
     (``TRAIN_BF16_TOL``)."""
     if f32:
-        over = [n for n, e in d["errs"].items() if e > leaf_bound(family)]
+        over = [n for n, e in d["errs"].items() if e > TRAIN_F32_TOL["grad"]]
         require(d["loss"] <= TRAIN_F32_TOL["loss"] and not over,
                 f"{tag}: cuda vs ref {format_diff(d)}; leaves over their "
                 f"bound {over}")
@@ -3792,22 +3887,34 @@ def logit_grad_diff(torch, TF, model, batch) -> str:
             f"above 1e-3 (median top probability {top:.3g})")
 
 
-def cuda_vs_ref(torch, STEP, model, tc, batch, tag: str, f32: bool) -> dict:
+def cuda_vs_ref(torch, STEP, model, tc, batch, tag: str, f32: bool,
+                blocks=None) -> dict:
     """Phase 36/37's comparison: the cuda and ref steps' loss and gradients
     from the same state, beside the ref step with the embedding one ulp
-    off; float32 holds every leaf, bf16 the loss and the gradient norm."""
+    off; float32 holds every leaf, bf16 the loss and the gradient norm.
+    With ``blocks`` (``block_grads``'s arguments after the model), a
+    float32 step's leaves are held block by block instead, its loss end to
+    end."""
     c = grads_at(torch, STEP, model, tc, batch, "cuda", keep=f32)
     r = grads_at(torch, STEP, model, tc, batch, "ref", keep=f32)
     w = ulp_witness(torch, model, lambda: grads_at(
         torch, STEP, model, tc, batch, "ref", keep=f32))
     d, wd = step_diff(c, r), step_diff(w, r)
-    hold_step(tag, d, f32, model.cfg.family)
-    bounds = (format_bounds(model.cfg.family) if f32
-              else str(TRAIN_BF16_TOL))
+    extra = ""
+    if blocks is None:
+        hold_step(tag, d, f32)
+        bounds = format_bounds() if f32 else str(TRAIN_BF16_TOL)
+    else:
+        bl = block_grads(torch, *blocks[:3], model, tc, batch, tag)
+        require(d["loss"] <= TRAIN_F32_TOL["loss"],
+                f"{tag}: cuda vs ref loss {d['loss']:.3g} > "
+                f"{TRAIN_F32_TOL['loss']}")
+        bounds = f"loss {TRAIN_F32_TOL['loss']}, leaves block by block"
+        extra = "; " + format_blocks(bl)
     phase(tag, f"{model.cfg.name} depth {model.cfg.num_layers} "
           f"{model.cfg.dtype}: cuda vs ref {format_diff(d)} (bounds "
           f"{bounds}); one-ulp witness {format_diff(wd)}; loss cuda "
-          f"{c['loss']:.6f} ref {r['loss']:.6f}")
+          f"{c['loss']:.6f} ref {r['loss']:.6f}{extra}")
     return {"diff": d, "witness": wd, "loss": c["loss"]}
 
 
@@ -3868,18 +3975,24 @@ def profile_train_step(torch, STEP, fn_cls, step, model, opt, batch, tag,
 BLOCK_GRAD_RTOL = 1e-3    # a block's gradients fed the ref run's input
 
 
-def encdec_block_grads(torch, TF, LAYERS, STEP, model, tc, batch) -> dict:
-    """Whisper's gradients block by block: the ref run (remat "none")
-    records each encoder and decoder block's input, the encoder's output
-    and the gradient arriving at each block's output; then every block
-    runs forward and backward again from that input against that
-    gradient with impl "cuda" and "ref", and each of its gradients (its
-    parameters', its input's and, for a decoder block, the encoder
-    output's) is held within ``BLOCK_GRAD_RTOL`` of the ref one's max
-    |value|. {"worst": (err, where), "blocks": n}."""
+def block_grads(torch, TF, LAYERS, STEP, model, tc, batch, tag) -> dict:
+    """A float32 step's gradients block by block: the ref run (remat
+    "none") records each block's input, the encoder's output (encdec) and
+    the gradients arriving at the block's outputs (a moe block's aux loss
+    too); then every block runs forward and backward again from that input
+    against those gradients with impl "cuda" and "ref", and each of its
+    gradients (its parameters', its input's and, for an encdec decoder
+    block, the encoder output's) is held within ``BLOCK_GRAD_RTOL`` of the
+    ref one's max |value|. A moe block's cuda run takes the ref run's
+    expert picks and gates (``held_routing``); the tokens whose own picks
+    differ are counted. A zeroed and a halved gradient of each block's
+    attention and expert weights are read as well, and must fail the bound.
+    {"worst": (err, where), "blocks": n, "flips": n, "planted": {...}}."""
     import dataclasses
     cfg = model.cfg
-    names = ("encoder_block", "encdec_dec_block")
+    names = (("encoder_block", "encdec_dec_block") if cfg.family == "encdec"
+             else ("decoder_block",))
+    k = cfg.moe.top_k if cfg.family == "moe" else 1
     origs = {n: getattr(TF, n) for n in names}
     orig_enc = TF.encode_frames
     rec, g_out, enc_box = [], {}, []
@@ -3890,8 +4003,10 @@ def encdec_block_grads(torch, TF, LAYERS, STEP, model, tc, batch) -> dict:
             j = len(rec)
             rec.append((name, sum(r[0] == name for r in rec),
                         x.detach().clone()))
-            out.register_hook(lambda g, j=j: g_out.__setitem__(
-                j, g.detach().clone()))
+            for m, t in enumerate(out if isinstance(out, tuple) else (out,)):
+                if t.requires_grad:
+                    t.register_hook(lambda g, j=j, m=m: g_out.__setitem__(
+                        (j, m), g.detach().clone()))
             return out
         return block
 
@@ -3916,22 +4031,21 @@ def encdec_block_grads(torch, TF, LAYERS, STEP, model, tc, batch) -> dict:
         TF.encode_frames = orig_enc
         for p in model.parameters():
             p.grad = None
-    enc = enc_box[0]
-    B, S = batch["tokens"].shape
-    positions = torch.arange(S, device=enc.device).expand(B, S)
+    positions = TF._positions(batch["tokens"])
 
     def leaves_of(tree, path, out):
         res = {}
-        for k, v in tree.items():
+        for key, v in tree.items():
             if isinstance(v, dict):
-                res[k] = leaves_of(v, f"{path}{k}.", out)
+                res[key] = leaves_of(v, f"{path}{key}.", out)
             else:
                 t = v.detach().clone().requires_grad_(True)
-                out.append((f"{path}{k}", t))
-                res[k] = t
+                out.append((f"{path}{key}", t))
+                res[key] = t
         return res
 
-    def run(name, i, x, g, impl):
+    def run(j, impl):
+        name, i, x = rec[j]
         leaves = []
         src = (model.encoder_layer(i) if name == "encoder_block"
                else model.layer(i))
@@ -3940,8 +4054,8 @@ def encdec_block_grads(torch, TF, LAYERS, STEP, model, tc, batch) -> dict:
         leaves.append(("x", xin))
         if name == "encoder_block":
             out = origs[name](p, xin, cfg, impl)
-        else:
-            e = enc.clone().requires_grad_(True)
+        elif name == "encdec_dec_block":
+            e = enc_box[0].clone().requires_grad_(True)
             leaves.append(("enc", e))
             out = origs[name](
                 p, xin, cfg,
@@ -3949,20 +4063,46 @@ def encdec_block_grads(torch, TF, LAYERS, STEP, model, tc, batch) -> dict:
                     pp, a, cfg, positions, causal=True, impl=impl),
                 lambda pp, a: LAYERS.cross_attention(pp, a, e, cfg,
                                                      impl=impl))
-        grads = torch.autograd.grad(out, [t for _, t in leaves], g)
-        return {n: gr for (n, _), gr in zip(leaves, grads)}
+        else:
+            out = origs[name](p, xin, cfg, positions, impl)
+        outs = out if isinstance(out, tuple) else (out,)
+        ms = [m for m in range(len(outs)) if (j, m) in g_out]
+        grads = torch.autograd.grad([outs[m] for m in ms],
+                                    [t for _, t in leaves],
+                                    [g_out[(j, m)] for m in ms])
+        return {n: g for (n, _), g in zip(leaves, grads)}
 
-    worst = (0.0, "")
-    for j, (name, i, x) in enumerate(rec):
-        c = run(name, i, x, g_out[j], "cuda")
-        r = run(name, i, x, g_out[j], "ref")
+    worst, flips, planted = (0.0, ""), [], {}
+    for j, (name, i, _) in enumerate(rec):
+        probs = []
+        with held_routing(torch, LAYERS, probs, k, "record", flips):
+            r = run(j, "ref")
+        with held_routing(torch, LAYERS, probs, k, "hold", flips):
+            c = run(j, "cuda")
         for n, w in r.items():
-            err = float((c[n] - w).abs().max()
-                        / w.abs().max().clamp_min(1e-30))
-            worst = max(worst, (err, f"{name} {i} {n}"))
+            worst = max(worst, (_rel(c[n], w), f"{name} {i} {n}"))
+            if n.endswith(("attn.wq", "moe.wu")):
+                for what, f in (("zeroed", 0.0), ("halved", 0.5)):
+                    err = _rel(c[n] * f, w)
+                    planted[f"{n} {what}"] = min(
+                        planted.get(f"{n} {what}", err), err)
     require(worst[0] <= BLOCK_GRAD_RTOL,
-            f"37 whisper blocks: worst gradient {worst}")
-    return {"worst": worst, "blocks": len(rec)}
+            f"{tag} {cfg.name} blocks: worst gradient {worst}")
+    require(planted and min(planted.values()) > BLOCK_GRAD_RTOL,
+            f"{tag} {cfg.name} blocks: a planted wrong gradient passes "
+            f"{planted}")
+    return {"worst": worst, "blocks": len(rec), "flips": sum(flips),
+            "moe": cfg.family == "moe", "planted": planted}
+
+
+def format_blocks(b: dict) -> str:
+    return (f"held block by block ({b['blocks']} blocks fed the ref run's "
+            f"input and output gradients"
+            + (f" and expert picks: {b['flips']} tokens' own picks differ"
+               if b["moe"] else "")
+            + f"): worst gradient {b['worst'][0]:.3g} ({b['worst'][1]}), "
+            f"bound {BLOCK_GRAD_RTOL}; planted wrong gradients read "
+            + ", ".join(f"{n} {e:.3g}" for n, e in b["planted"].items()))
 
 
 def train_phases(torch, np, env: dict) -> dict:
@@ -4117,7 +4257,7 @@ def train_phases(torch, np, env: dict) -> dict:
     res["llama_f32"] = cuda_vs_ref(
         torch, STEP, model, tc, synthetic_batch(cfg2, TRAIN_B, TRAIN_S,
                                                 seed=0, device="cuda"),
-        "36-train-cmp", f32=True)
+        "36-train-cmp", f32=True, blocks=(env["TF"], LAYERS, STEP))
     del model
     free()
 
@@ -4226,64 +4366,51 @@ def train_phases(torch, np, env: dict) -> dict:
         model = make_model(c, seed=0, device="cuda")
         n_open = open_gates(torch, np, model, seed=37)
         batch = synthetic_batch(c, B, S, seed=37, device="cuda")
-        routes = {"ref": [], "cuda": [], "witness": []}
-
-        def run(key, fn):
-            with patched(LAYERS, "moe_block",
-                         route_capture(torch, LAYERS, routes[key])):
-                return fn()
-
-        r = run("ref", lambda: grads_at(torch, STEP, model, tc, batch, "ref",
-                                        keep=True))
-        w = run("witness", lambda: ulp_witness(torch, model, lambda: grads_at(
-            torch, STEP, model, tc, batch, "ref", keep=True)))
+        # the cuda step takes the ref step's expert picks and gates; the
+        # witness keeps its own (both counted against the ref's)
+        k = c.moe.top_k if c.family == "moe" else 1
+        probs, flips = [], {"cuda": [], "witness": []}
+        with held_routing(torch, LAYERS, probs, k, "record", []):
+            r = grads_at(torch, STEP, model, tc, batch, "ref", keep=True)
+        with held_routing(torch, LAYERS, probs, k, "count",
+                          flips["witness"]):
+            w = ulp_witness(torch, model, lambda: grads_at(
+                torch, STEP, model, tc, batch, "ref", keep=True))
         # before the cuda step updates the parameters
         logits = logit_grad_diff(torch, env["TF"], model, batch)
         FA.flash_attention.launches = 0
         SSD.ssd_scan.launches = 0
-        cu = run("cuda", lambda: grads_at(
-            torch, STEP, model, tc, batch, "cuda", keep=True,
-            step=STEP.make_train_step(c, tc, device="cuda")))
+        with held_routing(torch, LAYERS, probs, k, "hold", flips["cuda"]):
+            cu = grads_at(torch, STEP, model, tc, batch, "cuda", keep=True,
+                          step=STEP.make_train_step(c, tc, device="cuda"))
         launches = {"flash_attention": FA.flash_attention.launches,
                     "ssd_scan": SSD.ssd_scan.launches}
         require(sum(launches.values()) > 0, f"37 {arch}: no kernel launched")
         require_grads(torch, model, f"37 {arch}")
-        agree, extra = None, ""
-        if routes["ref"]:
-            # the forward's calls (the recomputation repeats them)
-            L = c.num_layers
-            fwd = {k: v[:L] for k, v in routes.items()}
-            agree = expert_agreement(torch, fwd["cuda"], fwd["ref"])
-            wagree = expert_agreement(torch, fwd["witness"], fwd["ref"])
-            member = sum(int(m.sum()) for (m, _), _ in fwd["cuda"])
-            kept = sum(int(m.transpose(1, 2).gather(2, k).sum())
-                       for (m, k), _ in fwd["cuda"])
-            extra = (f"; aux {cu['aux']:.5f}; capacity drops "
-                     f"{member - kept} of {member} token-expert choices; "
-                     f"experts whose picks differ from ref: cuda "
-                     f"{int((~agree).sum())}, witness "
-                     f"{int((~wagree).sum())} of {agree.numel()}")
-        d = step_diff(cu, r, agree)
-        wd = step_diff(w, r, None if agree is None else wagree)
-        if c.family == "encdec":
-            # whisper's random model parts its gradients by O(1) of a
-            # leaf's scale on a last-bit change of the input (the
-            # witness): they are held block by block, and end to end its
-            # loss (ENCDEC_LOSS_TOL), its gradients printed beside the
-            # witness
-            blocks = encdec_block_grads(torch, env["TF"], LAYERS, STEP,
-                                        model, tc, batch)
-            extra += (f"; held block by block ({blocks['blocks']} blocks "
-                      f"fed the ref run's input and output gradient): "
-                      f"worst gradient {blocks['worst'][0]:.3g} "
-                      f"({blocks['worst'][1]}), bound {BLOCK_GRAD_RTOL}")
-            require(d["loss"] <= ENCDEC_LOSS_TOL,
-                    f"37 {arch}: cuda vs ref loss {d['loss']:.3g} > "
-                    f"{ENCDEC_LOSS_TOL}")
-            bounds = f"loss {ENCDEC_LOSS_TOL}, leaves block by block"
+        extra = ""
+        if probs:
+            extra = (f"; aux {cu['aux']:.5f}; the cuda step took the ref "
+                     f"step's expert picks and gates at its {len(probs)} "
+                     f"router calls (forward and recomputation): its own "
+                     f"differ on {sum(flips['cuda'])} token-calls, the "
+                     f"witness's on {sum(flips['witness'])}")
+        d, wd = step_diff(cu, r), step_diff(w, r)
+        if c.family in ("encdec", "moe"):
+            # whisper's and granite's random models part their gradients
+            # by O(1) of a leaf's scale on a last-bit change of the input
+            # (the witness): they are held block by block, and end to end
+            # their loss, their gradients printed beside the witness
+            extra += "; " + format_blocks(block_grads(
+                torch, env["TF"], LAYERS, STEP, model, tc, batch,
+                f"37 {arch}"))
+            loss_b = (ENCDEC_LOSS_TOL if c.family == "encdec"
+                      else TRAIN_F32_TOL["loss"])
+            require(d["loss"] <= loss_b, f"37 {arch}: cuda vs ref loss "
+                                         f"{d['loss']:.3g} > {loss_b}")
+            bounds = f"loss {loss_b}, leaves block by block"
         else:
-            hold_step(f"37 {arch}", d, f32=True, family=c.family)
-            bounds = format_bounds(c.family)
+            hold_step(f"37 {arch}", d, f32=True)
+            bounds = format_bounds()
         extra += logits
         res["side"][arch] = dict(diff=d, witness=wd, launches=launches,
                                  depth=c.num_layers)
@@ -4293,7 +4420,7 @@ def train_phases(torch, np, env: dict) -> dict:
               + f": one train step, every .grad present and finite; cuda "
               f"vs ref {format_diff(d)} (bounds {bounds}); one-ulp witness "
               f"{format_diff(wd)}; launches {launches}{extra}")
-        del model, batch, r, w, cu, routes, logits
+        del model, batch, r, w, cu, probs, logits
         free()
     # what does not fit one card: the train_4k cells, by launch/dryrun.py
     for arch in ARCH_IDS:
@@ -4885,9 +5012,10 @@ def main() -> int:
           "llama H=32 K=8 D=64, D=128 at H=K=8 and H=16 K=4, danube H=32 "
           "K=8 D=120; S=1024, S=200, "
           "Sq=256 < Skv=1024, Sq=300 < Skv=333; causal, window 64, "
-          "non-causal; f32 and bf16; bf16 with v x 64; each again on "
-          "strided [B,S,H,D] views, equal; launches by route "
-          f"{pre_cases['k7_routes']}: bf16 all wgmma, f32 all CUDA cores); "
+          "non-causal; f32 and bf16; with v x 64 (f32 at atol x 64); "
+          "each again on strided [B,S,H,D] views, equal; launches by route "
+          f"{pre_cases['k7_routes']}: bf16 all wgmma, f32 and unaligned "
+          "bf16 views all tf32x3); "
           "ssd_scan "
           f"within atol {K8_ATOL} rtol {K8_RTOL} (max abs err {pre_err['ssd_scan']:.3g})"
           f" over {pre_cases['ssd_scan']} cases (zamba2 H=112 P=64 N=64 and "

@@ -9,26 +9,25 @@
 // flash_attention: causal / sliding-window / full attention with GQA and
 // right-aligned queries (q_offset = Skv - Sq), float32 online softmax.
 // Long prefills are bound by operations (the products Q K^T and P V). Two
-// kernels, by input:
+// kernels, by input, both on Hopper's warpgroup products (`wgmma`):
 //   * bf16 with any head dim up to 128, strides that are multiples of 8
 //     elements and 16-byte aligned bases (the prefill's case):
-//     `flash_attention_wgmma_kernel`, Hopper's warpgroup products fed by
-//     TMA (below);
+//     `flash_attention_wgmma_kernel`, bf16 products fed by TMA (below);
 //   * f32 inputs, and bf16 whose strides or bases TMA cannot take:
-//     `flash_attention_kernel`, on the CUDA cores in float32, so f32
-//     inputs keep f32 accuracy. One block of
-//     128 threads per (batch, head, 64-query tile) keeps the scaled query
-//     tile, one 64-key K tile and V tile and the tile's scores in shared
-//     memory (float32, converted on load from bf16 or f32) and (m, l, acc)
-//     in float32: acc in registers, 4 rows x D/8 columns a thread.
+//     `flash_attention_tf32x3_kernel`, TF32 products with every float32
+//     operand split in a TF32 high part and the TF32 of its remainder, three
+//     products per product (3xTF32), so f32 inputs keep f32 accuracy. Its
+//     tiles are staged by a producer warpgroup through their strides (split,
+//     and V transposed, as TF32 products take K-major operands only) for a
+//     consumer warpgroup of 64 query rows (below).
 // Both walk only the key tiles inside the band, as the TPU kernel's
 // `visible` check does; masked scores inside a visible tile take the
 // reference's finite NEG_INF = -1e30, so a row wholly masked in one tile
 // gets p = exp(0) = 1 there and the first real key erases it through
 // corr = exp(-1e30 - m) = 0 (with -inf that step would be NaN). Keys past
 // Skv get p = 0. The KV head is h / (H / K): no expansion. Any Sq <= Skv
-// and any head dim up to 128; strided [B, H, S, D] views (last dimension
-// contiguous) are read in place.
+// (Sq > Skv for full attention) and any head dim up to 128; strided
+// [B, H, S, D] views (last dimension contiguous) are read in place.
 //
 // ssd_scan: the Mamba2 SSD chunked scan. The TPU kernel carries each
 // (batch, head)'s state h [P, N] from chunk to chunk in order; on this
@@ -81,189 +80,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // ------------------------------------------------------ flash attention
-constexpr int kFaThreads = 128;
-constexpr int kFaBQ = 64;              // query rows per block
-constexpr int kFaBK = 64;              // keys per tile
 constexpr int kFaMaxD = 128;
-constexpr int kFaDCols = kFaMaxD / 8;  // acc columns per thread
-
-// Shared memory (floats): q_s[BQ][D+1] (scaled), k_s[BK][D+1],
-// v_s[BK][D], p_s[BQ][BK+1], m_s[BQ], l_s[BQ], corr_s[BQ].
-template <typename T>
-__global__ void __launch_bounds__(kFaThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int G, int Sq, int Skv, int D, long long qsb,
-                       long long qsh, long long qss, long long ksb,
-                       long long ksh, long long kss, long long vsb,
-                       long long vsh, long long vss, long long osb,
-                       long long osh, long long oss, int causal,
-                       int use_window, int window, float scale) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* q_s = smem;
-  float* k_s = q_s + kFaBQ * DP;
-  float* v_s = k_s + kFaBK * DP;
-  float* p_s = v_s + kFaBK * D;
-  float* m_s = p_s + kFaBQ * (kFaBK + 1);
-  float* l_s = m_s + kFaBQ;
-  float* corr_s = l_s + kFaBQ;
-
-  const int iq = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H, kh = h / G;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 3, tx = tid & 7;      // 16 x 8 thread grid
-  const int q_offset = Skv - Sq;
-  const int q0 = iq * kFaBQ;
-  const int nq = min(kFaBQ, Sq - q0);         // valid rows of this tile
-  const int q_lo = q_offset + q0, q_hi = q_offset + q0 + nq - 1;
-
-  const T* qb = q + b * qsb + h * qsh + (long long)q0 * qss;
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
-  for (int i = tid; i < kFaBQ * D; i += kFaThreads) {
-    const int r = i / D, d = i - r * D;
-    q_s[r * DP + d] = r < nq ? to_f32(qb[r * qss + d]) * scale : 0.f;
-  }
-  for (int r = tid; r < kFaBQ; r += kFaThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-  }
-
-  float acc[4][kFaDCols];
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < kFaDCols; ++jj) acc[ii][jj] = 0.f;
-
-  // key tiles inside the band: causal ends at the last row's position, the
-  // window starts at the first row's oldest visible key
-  const int nk = (Skv + kFaBK - 1) / kFaBK;
-  int kt_hi = nk - 1;
-  if (causal) kt_hi = min(kt_hi, q_hi / kFaBK);
-  int kt_lo = 0;
-  if (use_window) {
-    const int lo_key = q_lo - window + 1;
-    kt_lo = lo_key > 0 ? lo_key / kFaBK : 0;
-  }
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kFaBK;
-    const int nkv = min(kFaBK, Skv - k0);
-    __syncthreads();   // previous tile's k_s / v_s / p_s reads are done
-    for (int i = tid; i < kFaBK * D; i += kFaThreads) {
-      const int r = i / D, d = i - r * D;
-      const bool ok = r < nkv;
-      const long long row = (long long)(k0 + r);
-      k_s[r * DP + d] = ok ? to_f32(kb[row * kss + d]) : 0.f;
-      v_s[r * D + d] = ok ? to_f32(vb[row * vss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores: rows ty + 16 ii, keys tx + 8 jj
-    float s[4][8];
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[ii][jj] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qr[4], kr[8];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) qr[ii] = q_s[(ty + 16 * ii) * DP + d];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) kr[jj] = k_s[(tx + 8 * jj) * DP + d];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) s[ii][jj] += qr[ii] * kr[jj];
-    }
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const int r = ty + 16 * ii;
-      const int qpos = q_lo + r;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int c = tx + 8 * jj;
-        const int kpos = k0 + c;
-        bool ok = true;
-        if (causal) ok = ok && kpos <= qpos;
-        if (use_window) ok = ok && kpos > qpos - window;
-        p_s[r * (kFaBK + 1) + c] = ok ? s[ii][jj] : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: two threads per row, 32 keys each
-    {
-      const int r = tid >> 1, half = tid & 1;
-      float* pr = p_s + r * (kFaBK + 1) + half * 32;
-      const int cmax = min(32, nkv - half * 32);    // keys < Skv
-      float mx = kNegInf;
-      for (int c = 0; c < cmax; ++c) mx = fmaxf(mx, pr[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int c = 0; c < 32; ++c) {
-        const float e = c < cmax ? expf(pr[c] - m_new) : 0.f;
-        pr[c] = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      __syncwarp();
-      if (half == 0) {
-        const float corr = expf(m_old - m_new);
-        corr_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p v: rows ty + 16 ii, columns tx + 8 jj
-#pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-      const float c = corr_s[ty + 16 * ii];
-#pragma unroll
-      for (int jj = 0; jj < kFaDCols; ++jj) acc[ii][jj] *= c;
-    }
-    for (int c = 0; c < kFaBK; ++c) {
-      float pr[4];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) pr[ii] = p_s[(ty + 16 * ii) * (kFaBK + 1) + c];
-#pragma unroll
-      for (int jj = 0; jj < kFaDCols; ++jj) {
-        const int d = tx + 8 * jj;
-        if (d < D) {
-          const float vv = v_s[c * D + d];
-#pragma unroll
-          for (int ii = 0; ii < 4; ++ii) acc[ii][jj] += pr[ii] * vv;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  T* ob = o + b * osb + h * osh + (long long)q0 * oss;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int r = ty + 16 * ii;
-    if (r >= nq) continue;
-    const float inv_l = 1.f / fmaxf(l_s[r], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < kFaDCols; ++jj) {
-      const int d = tx + 8 * jj;
-      if (d < D) store(ob + r * oss + d, acc[ii][jj] * inv_l);
-    }
-  }
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -752,6 +571,601 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         oacc[4 * j + 2 * rr + 1] * inv_l);
         else if (col < D)              // an odd D's last column
           *dst = __float2bfloat16(oacc[4 * j + 2 * rr] * inv_l);
+      }
+    }
+  }
+}
+
+// float32 flash attention on Hopper's tensor cores, 3xTF32. Replaces the
+// TPU kernel's float32 path (repro/kernels/flash_attention/kernel.py
+// flash_attention_tpu) for f32 inputs and for bf16 views the TMA refuses.
+// Bound by operations: the products Q K^T and P V, here three TF32
+// products each at 495 TFLOP/s (against 67 TFLOP/s of float32 on the CUDA
+// cores).
+//
+// Products. Every float32 operand is split as x = hi + lo, hi = TF32(x),
+// lo = TF32(x - hi) (TF32 rounding to nearest, ties away, as cvt.rna rounds
+// finite x, done with two integer operations), and a b ~ lo_a hi_b +
+// hi_a lo_b + hi_a hi_b (CUTLASS's OpMultiplyAddFastF32 split), the small
+// terms issued first: `wgmma` m64nNk8 TF32 products into float32
+// accumulators. The dropped lo_a lo_b is ~2^-22 of a b (one TF32 product
+// keeps ~2^-11 and misses the 2e-5 tolerance). Both products are split:
+// S = (scale Q) K^T, and P V with p split as well (the TPU kernel takes
+// P V in float32). bf16 inputs are exact in TF32: their lo parts are 0, so
+// Q K^T is one product and P V two (p's split is kept), and q is not
+// pre-scaled (the scale goes onto the scores) so that it stays exact.
+//
+// Accumulation. The tensor cores truncate as they add into an accumulator,
+// ~2^-23 of its size at every product, and the loss is one-signed: O
+// carried across all tiles in one accumulator read 1.6e-4 from the plain
+// version at v x 64 over 1,600 keys (tolerance 2e-5 + 2e-5 |o|). So P V of
+// each tile goes into a fresh accumulator that is added to O in float32
+// (o = o corr + pv, one FMA per element), and Q K^T into two accumulators
+// (k-step kk into kk % 2) added in float32. The softmax takes p =
+// exp(s - m) on the scores as the reference scales them: in the log2 domain
+// the rounding of s log2(e) alone costs ~1 ulp of |s| in every p.
+//
+// Layout. TF32 `wgmma` takes K-major operands only (no transpose bit for
+// 32-bit types), so every tile is written to shared memory by threads
+// rather than copied by the TMA: Q and K as [rows][D] (D is the
+// contraction), V transposed as V^T [D][keys], all in the 128-byte swizzle
+// (boxes of 32 floats by the tile's rows) that the descriptors name. P
+// comes from registers as operand A: the S accumulator gives this thread
+// keys 2 t4 and 2 t4 + 1 of each 8-key column block, where TF32's A fragment
+// holds columns t4 and t4 + 4 (PTX ISA, wgmma .m64nNk8 fragments; CUTLASS's
+// ALayout_64x8). Instead of shuffling p, V^T's keys are stored permuted in
+// each group of 8: key kappa at position (kappa & 1) * 4 + (kappa >> 1), so
+// that position c holds key 2 c (c < 4) or 2 (c - 4) + 1 and the S
+// registers feed A as they are.
+//
+// Blocks. One block of 256 threads per (batch, head, 64-query tile): a
+// consumer warpgroup (the 64 rows: products, online softmax) and a producer
+// warpgroup that loads each 64-key K and V tile through its strides (16-byte
+// loads for aligned f32, 8-byte for aligned bf16, element loads otherwise;
+// zeros past D and Skv), splits it, transposes V and writes hi and lo to
+// shared memory, with the next tile's loads in flight in its registers
+// while it waits. K and V have one buffer each, handed over through named
+// barriers (full and empty per buffer), so K of tile j + 1 is written under
+// the softmax and P V of tile j, and V of tile j + 1 under Q K^T of tile
+// j + 1. Budget at D = 128: Q hi + lo 64 KiB, K hi + lo 64 KiB, V^T hi + lo
+// 64 KiB, 192 KiB of the 227 KiB a block may have: one stage, and one
+// consumer warpgroup of 64 rows per block (a second warpgroup of rows would
+// need Q at 128 KiB; 32-key tiles would halve the width of Q K^T, whose A
+// operand is read from shared memory by every product). Q K^T runs
+// ceil(D / 8) k-steps over columns zero-filled past D; P V runs at N = DP,
+// the template width (64, 112, 120 or 128, those of the wgmma kernel) over
+// V^T rows that are zero past D, and only columns < D are stored.
+constexpr int kTxBM = 64;              // query rows per block
+constexpr int kTxBN = 64;              // keys per tile
+constexpr int kTxThreads = 256;        // consumer + producer warpgroup
+constexpr int kTxBoxBytes = 64 * 128;  // 64 rows x 32 floats
+constexpr int kTxSAcc = 2;             // accumulators of Q K^T
+// named barriers of the K and V buffers (id 0 is __syncthreads')
+constexpr int kBarKFull = 1, kBarKEmpty = 2, kBarVFull = 3, kBarVEmpty = 4;
+
+// x rounded to TF32 (10 fraction bits), to nearest with ties away from
+// zero, as cvt.rna.tf32.f32 rounds finite x, in two integer operations
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// writes made by threads become visible to the products' (async proxy)
+// reads of shared memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// byte offset of 16-byte chunk `ch` (4 floats) of row `r` in a box of
+// 128-byte rows in the 128-byte swizzle
+__device__ __forceinline__ uint32_t sw128_off(int r, int ch) {
+  return (uint32_t)(r * 128 + ((ch ^ (r & 7)) << 4));
+}
+// hi and (if `split`) lo of x, as TF32, to chunk `off` of two tiles
+__device__ __forceinline__ void store_split(uint8_t* hi, uint8_t* lo,
+                                            uint32_t off, float4 x,
+                                            bool split) {
+  const uint4 h = make_uint4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z),
+                             tf32_rna(x.w));
+  *reinterpret_cast<uint4*>(hi + off) = h;
+  if (split)
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(
+        tf32_rna(x.x - __uint_as_float(h.x)),
+        tf32_rna(x.y - __uint_as_float(h.y)),
+        tf32_rna(x.z - __uint_as_float(h.z)),
+        tf32_rna(x.w - __uint_as_float(h.w)));
+}
+// elements d0 .. d0 + 3 of a row of D elements (zeros past D) as float: one
+// 16-byte (f32) or 8-byte (bf16) load where `vec` (row and d0 aligned, D a
+// multiple of 4), element loads otherwise
+__device__ __forceinline__ float4 load4(const void* row, int d0, int D,
+                                        bool bf16, bool vec) {
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (d0 >= D) return r;
+  if (bf16) {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(row) + d0;
+    if (vec) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+      const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+      r = make_float4(__low2float(a), __high2float(a), __low2float(b),
+                      __high2float(b));
+    } else {
+      r.x = __bfloat162float(p[0]);
+      if (d0 + 1 < D) r.y = __bfloat162float(p[1]);
+      if (d0 + 2 < D) r.z = __bfloat162float(p[2]);
+      if (d0 + 3 < D) r.w = __bfloat162float(p[3]);
+    }
+  } else {
+    const float* p = static_cast<const float*>(row) + d0;
+    if (vec) {
+      r = *reinterpret_cast<const float4*>(p);
+    } else {
+      r.x = p[0];
+      if (d0 + 1 < D) r.y = p[1];
+      if (d0 + 2 < D) r.z = p[2];
+      if (d0 + 3 < D) r.w = p[3];
+    }
+  }
+  return r;
+}
+__device__ __forceinline__ const void* row_at(const void* base, long long off,
+                                              bool bf16) {
+  return static_cast<const char*>(base) + off * (bf16 ? 2 : 4);
+}
+
+// d[32] (+)= A[64 x 8] B[8 x 64], TF32, both from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[N/2] (+)= A[64 x 8] B[8 x N], TF32, A from registers, B K-major;
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n112(float (&d)[56],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24), FW_D8(32), FW_D8(40),
+        FW_D8(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n120(float (&d)[60],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %65, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n120k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59"
+      "}, {%60, %61, %62, %63}, %64, p, 1, 1;\n}\n"
+      : FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24), FW_D8(32), FW_D8(40),
+        FW_D8(48), FW_D4(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : FW_D8(0), FW_D8(8), FW_D8(16), FW_D8(24), FW_D8(32), FW_D8(40),
+        FW_D8(48), FW_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d[DP/2] (+)= P[64 x 8] V[8 x DP], TF32, V^T K-major from shared memory
+template <int DP>
+__device__ __forceinline__ void wgmma_tf32_pv(float (&d)[DP / 2],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  if constexpr (DP == 64) wgmma_tf32_rs_n64(d, a, db, scale_d);
+  else if constexpr (DP == 112) wgmma_tf32_rs_n112(d, a, db, scale_d);
+  else if constexpr (DP == 120) wgmma_tf32_rs_n120(d, a, db, scale_d);
+  else wgmma_tf32_rs_n128(d, a, db, scale_d);
+}
+
+// Shared memory, from a 1,024-byte aligned base: Q hi, Q lo, K hi, K lo
+// (NB boxes of 64 rows each), then V^T hi and V^T lo (two boxes of 32 keys
+// by DP rows each). q, k, v and o are bf16 or f32 (`bf16`), read and
+// written through their (batch, head, sequence) strides in elements;
+// vecq / veck / vecv allow vector loads of that tensor's rows.
+template <int DP>
+__global__ void __launch_bounds__(kTxThreads, 1)
+flash_attention_tf32x3_kernel(const void* __restrict__ q,
+                              const void* __restrict__ k,
+                              const void* __restrict__ v,
+                              void* __restrict__ o, int H, int G, int Sq,
+                              int Skv, int D, long long qsb, long long qsh,
+                              long long qss, long long ksb, long long ksh,
+                              long long kss, long long vsb, long long vsh,
+                              long long vss, long long osb, long long osh,
+                              long long oss, int causal, int use_window,
+                              int window, float scale, int bf16, int vecq,
+                              int veck, int vecv) {
+  constexpr int NB = (DP + 31) / 32;
+  constexpr int kVtBox = DP * 128;           // 32 keys x DP rows
+  extern __shared__ uint8_t tx_raw[];
+  uint8_t* qs_hi = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(tx_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs_lo = qs_hi + NB * kTxBoxBytes;
+  uint8_t* ks_hi = qs_lo + NB * kTxBoxBytes;
+  uint8_t* ks_lo = ks_hi + NB * kTxBoxBytes;
+  uint8_t* vs_hi = ks_lo + NB * kTxBoxBytes;
+  uint8_t* vs_lo = vs_hi + 2 * kVtBox;
+
+  const bool split = !bf16;                  // lo parts are 0 for bf16
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, kh = h / G;
+  const int iq = gridDim.y - 1 - blockIdx.y;     // heaviest tiles first
+  const int q0 = iq * kTxBM;
+  const int q_offset = Skv - Sq;
+  const int nq = min(kTxBM, Sq - q0);
+  const int q_lo = q_offset + q0, q_hi = q_lo + nq - 1;
+  // key tiles inside the band of this block's rows
+  const int nk = (Skv + kTxBN - 1) / kTxBN;
+  int kt_hi = nk - 1;
+  if (causal) kt_hi = min(kt_hi, q_hi / kTxBN);
+  int kt_lo = 0;
+  if (use_window) {
+    const int lo_key = q_lo - window + 1;
+    kt_lo = lo_key > 0 ? lo_key / kTxBN : 0;
+  }
+  const int n_tiles = kt_hi - kt_lo + 1;
+  // Q K^T runs nks k-steps of 8 columns: Q and K are staged in 2 nks chunks
+  // of 4 columns a row (zeros past D), in slots of 1 << sh chunks a row
+  const int nks = (D + 7) / 8;
+  const int nc4 = 2 * nks;
+  const int sh = nc4 <= 8 ? 3 : nc4 <= 16 ? 4 : 5;
+  const int n_slots = kTxBM << sh;
+  // f32: q pre-scaled as the reference scales it; bf16: q kept exact and the
+  // scale applied to the scores
+  const float qscale = split ? scale : 1.f;
+  const float sscale = split ? 1.f : scale;
+
+  // ---- Q tile, hi and lo, by all threads
+  {
+    const void* qb = row_at(q, b * qsb + h * qsh + (long long)q0 * qss, bf16);
+    for (int item = threadIdx.x; item < n_slots; item += kTxThreads) {
+      const int r = item >> sh, c4 = item & ((1 << sh) - 1);
+      if (c4 >= nc4) continue;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nq)
+        x = load4(row_at(qb, (long long)r * qss, bf16), 4 * c4, D, bf16,
+                  vecq);
+      x.x *= qscale;
+      x.y *= qscale;
+      x.z *= qscale;
+      x.w *= qscale;
+      store_split(qs_hi, qs_lo, (c4 >> 3) * kTxBoxBytes + sw128_off(r, c4 & 7),
+                  x, split);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // ---- producer warpgroup: K and V^T of each tile, hi and lo. The loads
+    // of tile it + 1 are issued as soon as tile it's registers are written
+    // to shared memory, so they are in flight while the producer waits for
+    // the consumer to free each buffer.
+    const int pt = threadIdx.x - 128;
+    const void* kb = row_at(k, b * ksb + kh * ksh, bf16);
+    const void* vb = row_at(v, b * vsb + kh * vsh, bf16);
+    // K [keys][D]: slot pt + 128 i is (key r, chunk c4); a warp takes one
+    // key row, 8 threads 8 chunks of one box (no bank conflicts)
+    float4 kr[16];
+    auto load_k = [&](int it) {
+      const int k0 = (kt_lo + it) * kTxBN;
+      const int nkv = min(kTxBN, Skv - k0);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int item = pt + 128 * i;
+        const int r = item >> sh, c4 = item & ((1 << sh) - 1);
+        kr[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (item < n_slots && c4 < nc4 && r < nkv)
+          kr[i] = load4(row_at(kb, (long long)(k0 + r) * kss, bf16), 4 * c4,
+                        D, bf16, veck);
+      }
+    };
+    // V^T [D][keys]: item pt + 128 i is (key group gk of 8, head-dim chunk
+    // dc of 4); it writes 4 rows x (even keys, odd keys). Threads gk and
+    // gk + 4 (other box) write the two halves in the opposite order, so the
+    // 8 threads of a store hit 8 distinct 16-byte banks.
+    float4 vr[2][8];
+    auto load_v = [&](int it) {
+      const int k0 = (kt_lo + it) * kTxBN;
+      const int nkv = min(kTxBN, Skv - k0);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int item = pt + 128 * i;
+        const int gk = item & 7, dc = item >> 3;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int key = 8 * gk + u;
+          vr[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (dc < DP / 4 && key < nkv)
+            vr[i][u] = load4(row_at(vb, (long long)(k0 + key) * vss, bf16),
+                             4 * dc, D, bf16, vecv);
+        }
+      }
+    };
+    load_k(0);
+    load_v(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      if (it > 0) named_bar_sync(kBarKEmpty, kTxThreads);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int item = pt + 128 * i;
+        const int r = item >> sh, c4 = item & ((1 << sh) - 1);
+        if (item < n_slots && c4 < nc4)
+          store_split(ks_hi, ks_lo,
+                      (c4 >> 3) * kTxBoxBytes + sw128_off(r, c4 & 7), kr[i],
+                      split);
+      }
+      fence_proxy_async();
+      named_bar_arrive(kBarKFull, kTxThreads);
+      if (it + 1 < n_tiles) load_k(it + 1);
+
+      if (it > 0) named_bar_sync(kBarVEmpty, kTxThreads);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int item = pt + 128 * i;
+        const int gk = item & 7, dc = item >> 3;
+        if (dc >= DP / 4) continue;
+        const int box = gk >> 2, chb = 2 * (gk & 3);
+        const bool odd_first = box == 1;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 4 * dc + e;
+          float ev[4], od[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float4 x0 = vr[i][2 * u], x1 = vr[i][2 * u + 1];
+            ev[u] = e == 0 ? x0.x : e == 1 ? x0.y : e == 2 ? x0.z : x0.w;
+            od[u] = e == 0 ? x1.x : e == 1 ? x1.y : e == 2 ? x1.z : x1.w;
+          }
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const bool odd = (half == 1) != odd_first;
+            const float4 x = odd ? make_float4(od[0], od[1], od[2], od[3])
+                                 : make_float4(ev[0], ev[1], ev[2], ev[3]);
+            store_split(vs_hi, vs_lo,
+                        box * kVtBox + sw128_off(d, chb + (odd ? 1 : 0)), x,
+                        split);
+          }
+        }
+      }
+      fence_proxy_async();
+      named_bar_arrive(kBarVFull, kTxThreads);
+      if (it + 1 < n_tiles) load_v(it + 1);
+    }
+  } else {
+    // ---- consumer warpgroup: this thread rows r0 and r0 + 8, key columns
+    // 8 j + 2 t4 + {0, 1} of a tile
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = warp * 16 + g;
+    const int qpos0 = q_lo + r0;
+    float oacc[DP / 2], pv[DP / 2];
+    float sacc[kTxBN / 2], s_acc[kTxSAcc][kTxBN / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    const float neg_inf = -__uint_as_float(0x7f800000u);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = (kt_lo + it) * kTxBN;
+      // S = Q K^T into kTxSAcc accumulators, k-step kk into kk % kTxSAcc
+      // (the lo hi and hi lo terms of every k-step first, then the hi hi
+      // terms; hi hi alone for bf16), issued back to back and added in
+      // float32: each accumulator sums half the k-steps, and consecutive
+      // products go to different accumulators.
+      named_bar_sync(kBarKFull, kTxThreads);
+#pragma unroll
+      for (int a = 0; a < kTxSAcc; ++a) fence_regs(s_acc[a]);
+      wgmma_fence();
+      if (split) {
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          if (kk < nks) {
+            const int off = (kk >> 2) * kTxBoxBytes + (kk & 3) * 32;
+            wgmma_tf32_ss_n64(s_acc[kk % kTxSAcc],
+                              sw128_desc(qs_lo + off, 16, 1024),
+                              sw128_desc(ks_hi + off, 16, 1024),
+                              kk >= kTxSAcc);
+            wgmma_tf32_ss_n64(s_acc[kk % kTxSAcc],
+                              sw128_desc(qs_hi + off, 16, 1024),
+                              sw128_desc(ks_lo + off, 16, 1024), 1);
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        if (kk < nks) {
+          const int off = (kk >> 2) * kTxBoxBytes + (kk & 3) * 32;
+          wgmma_tf32_ss_n64(s_acc[kk % kTxSAcc],
+                            sw128_desc(qs_hi + off, 16, 1024),
+                            sw128_desc(ks_hi + off, 16, 1024),
+                            split || kk >= kTxSAcc);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int a = 0; a < kTxSAcc; ++a) fence_regs(s_acc[a]);
+      // accumulators past the nks-th were not written this tile
+#pragma unroll
+      for (int i = 0; i < kTxBN / 2; ++i) {
+        float t = s_acc[0][i];
+#pragma unroll
+        for (int a = 1; a < kTxSAcc; ++a)
+          if (a < nks) t += s_acc[a][i];
+        sacc[i] = t;
+      }
+      if (it + 1 < n_tiles) named_bar_arrive(kBarKEmpty, kTxThreads);
+
+      // online softmax as the reference takes it, p = exp(s - m) (in the log2
+      // domain the rounding of s log2(e) alone would cost ~1 ulp of |s|
+      // in every p); rows r0 (e = 0, 1), r0 + 8
+      const bool edge = (causal && k0 + kTxBN - 1 > q_lo) ||
+                        (use_window && k0 <= q_hi - window) ||
+                        k0 + kTxBN > Skv;
+      float mx[2] = {neg_inf, neg_inf};
+#pragma unroll
+      for (int j = 0; j < kTxBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float t = sacc[4 * j + e] * sscale;
+          if (edge) {
+            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+            const int qpos = qpos0 + 8 * (e >> 1);
+            if (kpos >= Skv)
+              t = neg_inf;                            // past Skv: p = 0
+            else if ((causal && kpos > qpos) ||
+                     (use_window && kpos <= qpos - window))
+              t = kNegInf;
+          }
+          sacc[4 * j + e] = t;
+          mx[e >> 1] = fmaxf(mx[e >> 1], t);
+        }
+      }
+      float m_new[2], corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        m_new[rr] = fmaxf(m_r[rr], mx[rr]);
+        corr[rr] = expf(m_r[rr] - m_new[rr]);
+        m_r[rr] = m_new[rr];
+      }
+#pragma unroll
+      for (int i = 0; i < kTxBN / 2; ++i) {
+        const int rr = (i >> 1) & 1;
+        sacc[i] = expf(sacc[i] - m_new[rr]);
+        sum[rr] += sacc[i];
+      }
+      // l is this thread's share of the row sum; the four shares of a row
+      // are added once, at the end
+      l_r[0] = l_r[0] * corr[0] + sum[0];
+      l_r[1] = l_r[1] * corr[1] + sum[1];
+
+      // p's A fragments, hi and lo: k-step kk is the column block kk of S;
+      // A's (row g, column t4) is key 2 t4, (g, t4 + 4) key 2 t4 + 1 (V^T
+      // permuted to match), rows g + 8 likewise. All are built before the
+      // products, which read them until the wait.
+      uint32_t ph[kTxBN / 8][4], pl[kTxBN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kTxBN / 8; ++kk) {
+        const float pr[4] = {sacc[4 * kk], sacc[4 * kk + 2],
+                             sacc[4 * kk + 1], sacc[4 * kk + 3]};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          ph[kk][x] = tf32_rna(pr[x]);
+          pl[kk][x] = tf32_rna(pr[x] - __uint_as_float(ph[kk][x]));
+        }
+      }
+      // P V of this tile into a fresh accumulator (the lo hi terms, the hi
+      // lo terms (f32), then the hi hi terms), added to O in float32
+      named_bar_sync(kBarVFull, kTxThreads);
+      fence_regs(pv);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTxBN / 8; ++kk) {
+        const int off = (kk >> 2) * kVtBox + (kk & 3) * 32;
+        wgmma_tf32_pv<DP>(pv, pl[kk], sw128_desc(vs_hi + off, 16, 1024),
+                          kk > 0);
+      }
+      if (split) {
+#pragma unroll
+        for (int kk = 0; kk < kTxBN / 8; ++kk) {
+          const int off = (kk >> 2) * kVtBox + (kk & 3) * 32;
+          wgmma_tf32_pv<DP>(pv, ph[kk], sw128_desc(vs_lo + off, 16, 1024), 1);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kTxBN / 8; ++kk) {
+        const int off = (kk >> 2) * kVtBox + (kk & 3) * 32;
+        wgmma_tf32_pv<DP>(pv, ph[kk], sw128_desc(vs_hi + off, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(pv);
+      if (it + 1 < n_tiles) named_bar_arrive(kBarVEmpty, kTxThreads);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i)
+        oacc[i] = fmaf(oacc[i], corr[(i >> 1) & 1], pv[i]);
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float l = l_r[rr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = q0 + r0 + 8 * rr;
+      if (row >= Sq) continue;
+      const float inv_l = 1.f / fmaxf(l, 1e-30f);
+      const long long base = b * osb + h * osh + (long long)row * oss;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t4 + e;
+          if (col >= D) continue;
+          const float val = oacc[4 * j + 2 * rr + e] * inv_l;
+          if (bf16)
+            static_cast<__nv_bfloat16*>(o)[base + col] = __float2bfloat16(val);
+          else
+            static_cast<float*>(o)[base + col] = val;
+        }
       }
     }
   }
@@ -1266,6 +1680,36 @@ cudaError_t launch_fw(dim3 grid, cudaStream_t stream, const CUtensorMap& tq,
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_tx(dim3 grid, cudaStream_t stream, const void* q,
+                      const void* k, const void* v, void* o, int H, int G,
+                      int Sq, int Skv, int D, long long qsb, long long qsh,
+                      long long qss, long long ksb, long long ksh,
+                      long long kss, long long vsb, long long vsh,
+                      long long vss, long long osb, long long osh,
+                      long long oss, int causal, int use_window, int window,
+                      float scale, int bf16, int vecq, int veck, int vecv) {
+  constexpr int NB = (DP + 31) / 32;
+  // Q hi, lo and K hi, lo (NB boxes each), V^T hi and lo (DP x 64 floats)
+  const size_t smem =
+      1024 + (size_t)4 * NB * kTxBoxBytes + (size_t)4 * DP * 128;
+  auto kern = flash_attention_tf32x3_kernel<DP>;
+  cudaError_t e = set_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, kTxThreads, smem, stream>>>(
+      q, k, v, o, H, G, Sq, Skv, D, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh,
+      vss, osb, osh, oss, causal, use_window, window, scale, bf16, vecq, veck,
+      vecv);
+  return cudaGetLastError();
+}
+
+// each kernel's launcher at the template widths 64, 112, 120 and 128, by
+// the index of the least one >= D
+constexpr decltype(&launch_fw<64>) kLaunchFw[] = {
+    launch_fw<64>, launch_fw<112>, launch_fw<120>, launch_fw<128>};
+constexpr decltype(&launch_tx<64>) kLaunchTx[] = {
+    launch_tx<64>, launch_tx<112>, launch_tx<120>, launch_tx<128>};
+
 }  // namespace
 
 extern "C" {
@@ -1276,7 +1720,7 @@ const char* prefill_error_string(int err) {
 
 // q [B,H,Sq,D], k/v [B,K,Skv,D], o [B,H,Sq,D], each through its (batch,
 // head, sequence) strides in elements; the last dimension is contiguous.
-// *route is set to the kernel taken: 1 the wgmma kernel, 0 the CUDA-core
+// *route is set to the kernel taken: 1 the wgmma kernel, 2 the tf32x3
 // kernel (-1 if the arguments are refused).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int K, int Sq, int Skv,
@@ -1293,20 +1737,17 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   if (B <= 0 || H <= 0 || Sq <= 0 || K <= 0 || Skv <= 0 || H % K != 0 ||
       D <= 0 || D > kFaMaxD || (Sq > Skv && (causal || use_window)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * ((size_t)kFaBQ * (D + 1) + (size_t)kFaBK * (D + 1) +
-                       (size_t)kFaBK * D + (size_t)kFaBQ * (kFaBK + 1) +
-                       3 * (size_t)kFaBQ);
-  const dim3 grid((unsigned)((Sq + kFaBQ - 1) / kFaBQ), (unsigned)(B * H));
   const int G = H / K;
   cudaError_t e;
   // the wgmma kernel loads through TMA: strides that are multiples of 8
   // elements (16 bytes) and 16-byte aligned bases, any D (the TMA fills the
-  // columns past D with zeros). It returns its own errors: no fallback.
+  // columns past D with zeros). Each kernel returns its own errors: no
+  // fallback.
   const long long strides = qsb | qsh | qss | ksb | ksh | kss | vsb | vsh |
                             vss | osb | osh | oss;
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
                           (uintptr_t)o;
+  const int dp = D <= 64 ? 0 : D <= 112 ? 1 : D <= 120 ? 2 : 3;
   if (is_bf16 && (strides & 7) == 0 && (bases & 15) == 0) {
     *route = 1;
     CUtensorMap tq, tk, tv;
@@ -1320,42 +1761,32 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     const dim3 fgrid((unsigned)(B * H), (unsigned)((Sq + kFwBM - 1) / kFwBM));
     const float scale_log2 = scale * 1.4426950408889634f;
     const int mask_all = !(scale > 0.f);
-    if (D <= 64)
-      e = launch_fw<64>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
-                        osh, oss, causal, use_window, window, scale_log2,
-                        mask_all);
-    else if (D <= 112)
-      e = launch_fw<112>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
-                         osh, oss, causal, use_window, window, scale_log2,
-                         mask_all);
-    else if (D <= 120)
-      e = launch_fw<120>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
-                         osh, oss, causal, use_window, window, scale_log2,
-                         mask_all);
-    else
-      e = launch_fw<128>(fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
-                         osh, oss, causal, use_window, window, scale_log2,
-                         mask_all);
-    if (e != cudaSuccess) return (int)e;
-  } else if (is_bf16) {
-    *route = 0;
-    auto kern = flash_attention_kernel<__nv_bfloat16>;
-    if ((e = set_smem(kern, smem)) != cudaSuccess) return (int)e;
-    kern<<<grid, kFaThreads, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, H, G, Sq, Skv, D, qsb,
-        qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal,
-        use_window, window, scale);
-  } else {
-    *route = 0;
-    auto kern = flash_attention_kernel<float>;
-    if ((e = set_smem(kern, smem)) != cudaSuccess) return (int)e;
-    kern<<<grid, kFaThreads, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, H, G,
-        Sq, Skv, D, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
-        oss, causal, use_window, window, scale);
+    e = kLaunchFw[dp](fgrid, stream, tq, tk, tv, o, H, G, Sq, Skv, D, osb,
+                      osh, oss, causal, use_window, window, scale_log2,
+                      mask_all);
+    return (int)e;
   }
-  return (int)cudaGetLastError();
+  // f32, and bf16 views the TMA refuses: the tf32x3 kernel, which stages
+  // every tile by threads. Vector loads need an aligned base, strides that
+  // keep rows aligned (a dimension of size 1 is never stepped) and D a
+  // multiple of 4; each tensor is judged on its own.
+  *route = 2;
+  const int esize = is_bf16 ? 2 : 4, align = is_bf16 ? 8 : 16;
+  auto vec = [&](const void* p, int n0, long long s0, int n1, long long s1,
+                 int n2, long long s2) {
+    const int per = align / esize;
+    return (int)(((uintptr_t)p % align) == 0 && D % 4 == 0 &&
+                 (n0 == 1 || s0 % per == 0) && (n1 == 1 || s1 % per == 0) &&
+                 (n2 == 1 || s2 % per == 0));
+  };
+  const int vecq = vec(q, B, qsb, H, qsh, Sq, qss);
+  const int veck = vec(k, B, ksb, K, ksh, Skv, kss);
+  const int vecv = vec(v, B, vsb, K, vsh, Skv, vss);
+  const dim3 tgrid((unsigned)(B * H), (unsigned)((Sq + kTxBM - 1) / kTxBM));
+  e = kLaunchTx[dp](tgrid, stream, q, k, v, o, H, G, Sq, Skv, D, qsb, qsh,
+                    qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal,
+                    use_window, window, scale, is_bf16, vecq, veck, vecv);
+  return (int)e;
 }
 
 // x [B,S,H,P] f32, a [B,S,H] f32, b/c [B,S,G,N] (bf16 or f32), each

@@ -25,11 +25,16 @@ need no copy.
   accumulator, so p stays near float32 as in the TPU kernel, which widens
   v and takes P V in float32.
 * f32 inputs, and bf16 inputs whose strides or bases the TMA cannot take,
-  run on the CUDA cores in float32: one block per (batch, head, 64-query
-  tile), 64-key tiles.
+  run on the same warpgroup products in TF32 with every float32 operand
+  split in a TF32 high part and the TF32 of its remainder, three products
+  for each of Q K^T and P V (3xTF32; p is split too), so f32 keeps float32
+  accuracy: one block per (batch, head, 64-query tile), a producer
+  warpgroup that stages each 64-key K and V tile through its strides (split,
+  V transposed: TF32 products take K-major operands only) for a consumer
+  warpgroup that runs the products and the online softmax.
 
 The launcher reports the kernel it took; ``flash_attention_cuda.routes``
-counts launches by route (``"wgmma"``, ``"cuda_cores"``). A failed launch
+counts launches by route (``"wgmma"``, ``"tf32x3"``). A failed launch
 raises: neither kernel stands in for the other.
 """
 from __future__ import annotations
@@ -44,7 +49,7 @@ from repro_torch.kernels.build import check_strided, load_library, stream_of
 
 MAX_HEAD_DIM = 128
 DTYPES = (torch.bfloat16, torch.float32)
-ROUTES = ("cuda_cores", "wgmma")        # by the launcher's route code
+ROUTES = {1: "wgmma", 2: "tf32x3"}      # by the launcher's route code
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
@@ -81,4 +86,4 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     return out
 
 
-flash_attention_cuda.routes = {"wgmma": 0, "cuda_cores": 0}
+flash_attention_cuda.routes = {name: 0 for name in ROUTES.values()}

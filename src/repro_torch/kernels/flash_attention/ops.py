@@ -4,7 +4,7 @@
 tensors to the plain version; ``impl="ref"`` calls the plain version on
 any device. Launches are counted in ``flash_attention.launches``, and by
 the kernel they took in ``flash_attention.routes`` (``"wgmma"``,
-``"cuda_cores"``; the launcher's own count, reset in place).
+``"tf32x3"``; the launcher's own count, reset in place).
 
 On a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
 (``FlashAttention``), and nowhere else: its forward launches the kernel;

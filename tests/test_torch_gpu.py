@@ -470,27 +470,61 @@ def ssd_case(shape, seed=0, decay="test"):
     return x, a, bb, cc
 
 
+def _routed(FA, fn):
+    """(fn's result, the K7 launches it made by route)."""
+    before = dict(FA.flash_attention.routes)
+    out = fn()
+    return out, {r: n - before[r] for r, n in FA.flash_attention.routes.items()}
+
+
+# the tf32x3 kernel's own grid, f32: head dims 36 and 100 (not multiples of
+# 8 or 16: Q K^T's last k-step half zeros, P V at the template width with
+# V^T's rows past D zero), 128 and h2o-danube's 120 at its GQA; lengths
+# that are not multiples of the 64-row and 64-key tiles; q x 8 (scores in
+# the tens: the split of S must hold) and v x 64 (the split of p must hold)
+TF32X3_SHAPES = [(1, 4, 2, 200, 200, 36), (2, 4, 1, 130, 257, 100),
+                 (1, 4, 4, 192, 192, 128), (1, 32, 8, 300, 300, 120)]
+# (shape, dtype, q scale, v scale, seed): the reference's shapes in both
+# dtypes, then the tf32x3 grid
+FLASH_CASES = (
+    [(s, dt, 1.0, 1.0, 0) for s in FLASH_SHAPES
+     for dt in (torch.float32, torch.bfloat16)]
+    + [(s, torch.float32, qs, vs, s[-1]) for s in TF32X3_SHAPES
+       for qs, vs in ((1.0, 1.0), (8.0, 1.0), (1.0, 64.0))])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dtype,q_scale,v_scale,seed", FLASH_CASES)
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
-def test_flash_attention_matches_plain_on_card(shape, dtype, causal, window,
+def test_flash_attention_matches_plain_on_card(shape, dtype, q_scale,
+                                               v_scale, seed, causal, window,
                                                cuda):
     """K7 against its plain version on the same inputs, within the
     reference's kernel tolerance (tests/test_kernels.py: 2e-5 in float32,
-    2e-2 in bf16)."""
+    2e-2 in bf16); f32 on the tf32x3 kernel (one TF32 product misses 2e-5),
+    its atol scaled with |v| for v x 64 (the split carries 22 significant
+    bits against float32's 24, so its absolute error grows with |v|; one
+    TF32 p would miss ~20x), bf16 on the wgmma kernel, as the launcher
+    reports; strided [B, S, H, D] views of q, k and v give a bitwise equal
+    output."""
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, v = flash_case(shape, seed=seed)
     q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
-               for x in flash_case(shape))
-    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+               for x in (q * q_scale, k, v * v_scale))
+    got, routes = _routed(FA, lambda: FA.flash_attention(
+        q, k, v, causal=causal, window=window))
+    route = "tf32x3" if dtype == torch.float32 else "wgmma"
+    assert routes == {r: int(r == route) for r in routes}
     want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
+    atol = tol * v_scale if dtype == torch.float32 else tol
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-    # a strided [B,S,H,D] view reads the same
-    qs = q.transpose(1, 2).contiguous().transpose(1, 2)
-    assert torch.equal(FA.flash_attention(qs, k, v, causal=causal,
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=tol)
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2)
+             for x in (q, k, v)]
+    assert torch.equal(FA.flash_attention(*views, causal=causal,
                                           window=window), got)
     torch.cuda.synchronize()
 
@@ -552,13 +586,6 @@ def test_flash_attention_wgmma_grid_matches_plain_on_card(
     torch.cuda.synchronize()
 
 
-def _routed(FA, fn):
-    """(fn's result, the K7 launches it made by route)."""
-    before = dict(FA.flash_attention.routes)
-    out = fn()
-    return out, {r: n - before[r] for r, n in FA.flash_attention.routes.items()}
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
 def test_flash_attention_d120_takes_wgmma_on_card(causal, window, cuda):
@@ -575,7 +602,7 @@ def test_flash_attention_d120_takes_wgmma_on_card(causal, window, cuda):
     assert views[0].stride() == (1024 * 32 * 120, 120, 32 * 120, 1)
     got, routes = _routed(FA, lambda: FA.flash_attention(
         *views, causal=causal, window=window))
-    assert routes == {"wgmma": 1, "cuda_cores": 0}
+    assert routes == {"wgmma": 1, "tf32x3": 0}
     want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
@@ -587,11 +614,12 @@ def test_flash_attention_d120_takes_wgmma_on_card(causal, window, cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal,window", FLASH_MASKS)
-def test_flash_attention_unaligned_bf16_takes_cuda_cores_on_card(
+def test_flash_attention_unaligned_bf16_takes_tf32x3_on_card(
         causal, window, cuda):
     """bf16 views whose bases are not 16-byte aligned (columns 1-40 of a
-    D=48 tensor) are refused by the TMA: the launcher reports the CUDA-core
-    kernel, whose output is within 2e-2 of the plain version."""
+    D=48 tensor) are refused by the TMA: the launcher reports the tf32x3
+    kernel, which reads them with element loads (their lo parts are 0) and
+    whose output is within 2e-2 of the plain version."""
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.flash_attention import ref as FA_REF
     q, k, v = (torch.as_tensor(x, device=cuda).to(torch.bfloat16)[..., 1:41]
@@ -599,11 +627,35 @@ def test_flash_attention_unaligned_bf16_takes_cuda_cores_on_card(
     assert q.data_ptr() % 16 == 2 and q.stride(-1) == 1
     got, routes = _routed(FA, lambda: FA.flash_attention(
         q, k, v, causal=causal, window=window))
-    assert routes == {"wgmma": 0, "cuda_cores": 1}
+    assert routes == {"wgmma": 0, "tf32x3": 1}
     want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", FLASH_MASKS)
+def test_flash_attention_tf32x3_key_order_on_card(causal, window, cuda):
+    """The tf32x3 kernel stores V^T's keys permuted in each group of 8 so
+    that the S registers feed the A operand as they are. A V whose entries
+    all differ (v[key, d] distinct over keys and columns) and scores so
+    peaked (q x 16) that each row reads a few keys: a key taken for its
+    neighbour would show as an error of order 1, far past 2e-5."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.flash_attention import ref as FA_REF
+    q, k, _ = flash_case((1, 4, 2, 256, 256, 64), seed=64)
+    key = np.arange(256, dtype=np.float32)[:, None]
+    col = np.arange(64, dtype=np.float32)[None, :]
+    v = np.broadcast_to((key * 64 + col) / 16384.0, (1, 2, 256, 64))
+    q, k, v = (torch.as_tensor(np.ascontiguousarray(x), device=cuda)
+               for x in (q * 16, k, v))
+    got, routes = _routed(FA, lambda: FA.flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert routes == {"wgmma": 0, "tf32x3": 1}
+    want = FA_REF.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
     torch.cuda.synchronize()
 
 
@@ -631,8 +683,11 @@ def test_flash_attention_cross_matches_plain_on_card(shape, dtype, v_scale,
     q, k, v = (torch.as_tensor(x, device=cuda).to(dtype)
                for x in (q, k, v * v_scale))
     before = FA.flash_attention.launches
-    got = FA.flash_attention(q, k, v, causal=False)
+    got, routes = _routed(FA, lambda: FA.flash_attention(q, k, v,
+                                                         causal=False))
     assert FA.flash_attention.launches == before + 1
+    route = "tf32x3" if dtype == torch.float32 else "wgmma"
+    assert routes == {r: int(r == route) for r in routes}
     want = FA_REF.flash_attention_ref(q, k, v, causal=False)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert got.shape == q.shape and bool(torch.isfinite(got).all())
