@@ -51,17 +51,19 @@ one line each, each with its duration:
      tf32x3 kernel, every other bf16 launch on the wgmma kernel, as the
      launcher reports; K8 at zamba2's and mamba2-130m's widths under
      real-init and strong decays
- 14. prefill at full width and depth (``make_prefill_step``), Llama 3.2 1B
-     then Zamba2-7B (random weights from a seed; the Llama models are freed
-     first): cuda vs ref at B=2, S=4096 in bf16 and f32; then one timed
+ 14. prefill at full width (``make_prefill_step``), Llama 3.2 1B at full
+     depth then Zamba2-7B at depth 24 of 81 (4 of its 14 shared-block
+     periods, each layer's weights at the full model's scale,
+     ``cut_depth_model``; random weights from a seed; the Llama models are
+     freed first): cuda vs ref at B=2, S=4096 in bf16 and f32; then one timed
      prefill at B=1, S=32,768 (the reference's prefill_32k, its batch of 32
-     cut to 1); K7 and K8 must launch, 16 (llama) / 14 and 81 (zamba2)
+     cut to 1); K7 and K8 must launch, 16 (llama) / 4 and 24 (zamba2)
      times. In each of these prefills the first K7 and K8 call (layer 0) is
      also held against the plain version on the path's own arguments
      (strided [B,S,H,D] views, real activations): at S=4096 in bf16 and
      f32 in full, at S=32,768 K7's last 1,024 query rows against all keys
      and K8 over the whole length (128 chunks of state carry)
- 15. hybrid serving at full width: Zamba2-7B, 4 tenants, 32 sequences, 256
+ 15. hybrid serving at full width: Zamba2-7B at depth 24, 4 tenants, 32 sequences, 256
      decode steps, equilibria, cuda vs ref step by step; tpp and static 16
      steps each; one profiled step; K5 and K6 must launch; K5 and K6 timed
      at S3's widths on the run's own cache, as in phase 11
@@ -107,8 +109,8 @@ one line each, each with its duration:
      the rollout's Chrome trace and Prometheus exposition through the
      validators; ``counterfactual_run`` on ``churn_small``, "cuda" vs "ref"
 
- 27. moe serving: granite-moe-3b-a800m at full width and depth (32 layers,
-     40 experts, top-8, f32 weights), 4 tenants, 64 sequences x 256 steps
+ 27. moe serving: granite-moe-3b-a800m at full width and depth 8 of 32
+     (``cut_depth_model``; 40 experts, top-8, f32 weights), 4 tenants, 64 sequences x 256 steps
      under ``full_load``, cuda vs ref step by step: integers as in phase
      9, logits and hotness in the steps whose expert routing agrees in
      every layer; tpp and static 32 steps each; one profiled step; K5's
@@ -123,12 +125,12 @@ one line each, each with its duration:
      prefill at B=1, S=32,768, layer 0's K7 held on the path (at
      S=32,768 on the last query rows); Mixtral serving 16 x 64 as phase 27
  29. the dense configs h2o-danube-3-4b (window 4,096, head dim 120),
-     codeqwen1.5-7b and qwen3-32b (bf16 weights at full depth 64,
-     qk-norm): the prefill as in phase 28 (qwen3 compared at B=1) and
+     codeqwen1.5-7b and qwen3-32b (bf16 weights, qk-norm), each at full
+     width and depth 8 (of 24, 32 and 64; ``cut_depth_model``): the prefill as in phase 28 (qwen3 compared at B=1) and
      32 x 64 serving, cuda vs ref held as in phase 9; danube's timed
      prefill (P5) profiled by class. Every timed bf16 prefill (phases 14,
      28-30, 32-33) counts K7's launches by the route the launcher reports
-     and requires all of them on the wgmma kernel (P5: 24 of 24)
+     and requires all of them on the wgmma kernel (P5: 8 of 8)
  30. mamba2-130m: the prefill through K8 (24 op calls), 64 x 256 serving
      (cuda == ref bitwise; no kernel on the decode path) and decode ==
      forward in f32 over 4 x 64 steps
@@ -197,6 +199,19 @@ one line each, each with its duration:
      block), with
      the cross-entropy's gradient at the logits from both forwards;
      ``launch/dryrun.py``'s bytes of every train_4k cell
+
+ 38. the port's static-analysis gate (``repro_torch.analysis``, ``--fast``)
+     on the card: the tick targets under ``set_sync_debug_mode("warn")``,
+     the kernel-backed tick (K1-K4), the eight kernel wrappers (each must
+     launch; K7 on its tf32x3 route), the fleet chunk's
+     ``memory_allocated`` never above its value after the second tick, the constancy sweeps, the
+     cuda tick at C1's size (T=32 and 64 under sync debug in both
+     controller phases: equal op histograms and launches a tick), a child
+     process capturing the C1 tick at T=64 in a CUDA graph, one per
+     controller phase; no finding outside the committed baseline. Prints
+     the C1 tick's aten ops and launches a tick, its purity, the capture
+     verdicts with warm medians of eager ticks and replays, and the sync
+     sites; the kernels line gains each row's ``analysis_launches``
 
 Any failure raises (non-zero exit). The last lines are the card's name and
 power limit, the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -314,10 +329,14 @@ def ssd_ops(B: int, S: int, H: int, P: int, N: int, G: int, Q: int) -> int:
 PREFILL_B, PREFILL_S = 2, 4096           # cuda vs ref at full width
 F32_LONG_S = 16384       # K7's f32 route also timed here (plain: no)
 # bf16: phase 9's bound, relative to max |logit|; f32: float32 sums in
-# another order through 16 or 81 layers
+# another order through 16 or 24 layers
 PREFILL_TOL = {"bfloat16": 1e-1, "float32": 1e-3}
 TIMED_B, TIMED_S = 1, 32768              # the reference's prefill_32k, B cut
 HYBRID_SIDE_STEPS = 16                   # tpp and static, hybrid serving
+# Zamba2-7B at full width and 4 of its 14 shared-block periods (24 of 81
+# Mamba2 layers): at full depth phases 14-16 took 195 s of the script's
+# time limit
+ZAMBA2_DEPTH = 24
 HYBRID_FWD_BATCH, HYBRID_FWD_STEPS = 4, 64
 # dynamic ownership (slices B and C): H1 is a churned host of C1's size
 H1_TICKS, H1_HOT_TICKS = 40, 20
@@ -2183,6 +2202,43 @@ DANUBE = DENSE_ARCHS[0]                  # head dim 120: P5
 # Mixtral 8x22B's 141B parameters fit no single card in any dtype: its
 # full width at 8 of its 56 layers, bf16 weights (20.4B parameters)
 MIXTRAL_DEPTH = 8
+# granite-moe (32 layers) and the dense configs (24, 32 and 64 layers)
+# run at full width and depth 8 too (``cut_depth_model``): at full depth
+# their serving and prefill took 265 of the script's 1,020 s on an H100,
+# and the script must end within 1,200 s on a card that may run slower.
+# Page hotness is the attention mass averaged over the layers, so the
+# tiering load keeps its scale at any depth
+SERVE_DEPTH = 8
+
+
+def cut_depth_model(arch: str, depth: int, **replace):
+    """``arch`` at full width and depth ``depth`` (``reduced_depth_config``,
+    then ``replace``), its stacked weights at the full model's scale. The
+    init draws a stacked weight with std scale / sqrt(layers), as the
+    reference does, so drawn as it is a model at depth 8 has weights up to
+    sqrt(64 / 8) = 2.8x those of the full model's layers, and activations
+    and scores to match: on an H100 h2o-danube's layer-0 K7 outputs reached
+    114 at depth 8, where one bf16 ulp (0.5) is past K7_TOL. Every such
+    weight is scaled by sqrt(depth / full depth), so each layer's weights
+    have the full model's distribution."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced_depth_config
+    from repro_torch.models import transformer as TF
+    cfg = dataclasses.replace(reduced_depth_config(arch, depth), **replace)
+    model = TF.make_model(cfg, seed=0, device="cuda")
+    factor = math.sqrt(cfg.num_layers / get_config(arch).num_layers)
+
+    def scale(specs, tree):
+        for k, spec in specs.items():
+            if isinstance(spec, dict):
+                scale(spec, tree[k])
+            elif spec.init == "normal":
+                tree[k].mul_(factor)
+
+    with torch.no_grad():
+        scale(TF.model_specs(cfg)["layers"], model.layers.tree())
+    return model
 MOE_SIDE_STEPS = 32                      # tpp and static, granite
 SSM_FWD_BATCH, SSM_FWD_STEPS = 4, 64     # mamba2 decode == forward (f32)
 NEW_WINDOW = 4096                        # Mixtral's and h2o-danube's window
@@ -2718,20 +2774,22 @@ def check_k5_new_widths(torch, np, TA, TA_REF, widths) -> tuple:
     edge), bf16 and f32, window None and 4,096; timed in bf16 at each
     width's own window. Returns (max abs error, cases, {width: times})."""
     rng = np.random.default_rng(31)
+    # the pools (up to 3.5 GB in float32) are drawn on the card: drawn
+    # with numpy and copied over, they took 40 s of the phase
+    gen = torch.Generator(device="cuda").manual_seed(31)
     pt, err, cases, times = 16, 0.0, 0, {}
     for label, (B, H, K, D, window) in widths.items():
         Mp = 208                       # the windowed configs' fast pool
         n_pages = K5_SEQ[1] // pt + 1
-        q = rng.standard_normal((B, H, D)).astype(np.float32)
-        pk, pv = (rng.standard_normal((B, Mp, pt, K, D)).astype(np.float32)
-                  for _ in range(2))
+        q, pk, pv = (torch.randn(shape, generator=gen, device="cuda")
+                     for shape in ((B, H, D), (B, Mp, pt, K, D),
+                                   (B, Mp, pt, K, D)))
         slot = np.stack([rng.permutation(n_pages)[:Mp] for _ in range(B)])
         slot = np.where(rng.random((B, Mp)) < 0.15, -1, slot).astype(np.int32)
         seq = rng.integers(*K5_SEQ, B).astype(np.int32)
         for dtype in (torch.bfloat16, torch.float32):
-            a = [torch.as_tensor(x, device="cuda") for x in
-                 (q, pk, pv, slot, seq)]
-            a[:3] = [x.to(dtype) for x in a[:3]]
+            a = [x.to(dtype) for x in (q, pk, pv)] + [
+                torch.as_tensor(x, device="cuda") for x in (slot, seq)]
             for win in (None, NEW_WINDOW):
                 got = TA.pool_attention_partial(*a, window=win)
                 want = TA_REF.pool_attention_partial_ref(*a, window=win)
@@ -2822,9 +2880,8 @@ def family_phases(torch, np, env: dict) -> dict:
     phase("27-31", f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
                    "allocated before the first model")
 
-    # ---- 27. MoE serving: granite-moe-3b-a800m, full width and depth -------
-    gcfg = get_config(GRANITE)
-    model = make_model(gcfg, seed=0, device="cuda")
+    # ---- 27. MoE serving: granite-moe-3b-a800m, full width, depth 8 --------
+    model = cut_depth_model(GRANITE, SERVE_DEPTH)
     gB, gsteps = get_serve_load(GRANITE)
     res["serve"]["S5 granite"] = serve_cell(
         torch, np, env, model, batch=gB, steps=gsteps, seed=27,
@@ -2860,13 +2917,15 @@ def family_phases(torch, np, env: dict) -> dict:
 
     # ---- 29. the dense configs: h2o-danube-3-4b, codeqwen1.5-7b, qwen3 ---
     for arch in DENSE_ARCHS:
-        cfg = get_config(arch)
         batch = PREFILL_B
         if arch == "qwen3_32b":
-            # full depth 64 in bf16 weights (65.5 GB)
-            cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
+            # bf16 weights, as at full depth 64 (65.5 GB)
+            model = cut_depth_model(arch, SERVE_DEPTH,
+                                    param_dtype="bfloat16")
             batch = 1        # plain K7's [B, 64, S, S] float32 scores
-        model = make_model(cfg, seed=0, device="cuda")
+        else:
+            model = cut_depth_model(arch, SERVE_DEPTH)
+        cfg = model.cfg
         step, toks = prefill_cell(model, arch, tag="29-dense-prefill",
                                   batch=batch, tail=path_tail(cfg))
         if arch == DANUBE:
@@ -4471,6 +4530,79 @@ def record_train(rows: list, res: dict) -> None:
               f"({per_step:g} a step)")
 
 
+# ---------------------------------------------------------- phase 38 ----
+def analysis_phase(torch) -> dict:
+    """Phase 38: the port's static-analysis gate (``repro_torch.analysis``)
+    on the card, ``--fast``: the tick targets (``ref``) and the
+    kernel-backed ``tick:cuda:equilibria`` under sync debug, the eight
+    kernel wrappers, the fleet chunk's donation contract
+    (``memory_allocated`` never above its value after the second tick), the constancy sweeps, the
+    cuda tick at C1's size (T = 32 and 64 over L = 262,144) under sync
+    debug in both controller phases, and a child process that captures
+    the C1 tick at T = 64 in a CUDA graph, one per controller phase.
+    Requires no finding outside the committed baseline, each of K1-K8
+    launched by the audit, every K7 launch on its tf32x3 route, and equal
+    op histograms and launches per tick at T=32 and 64 in each phase.
+    Returns the audit's launches per kernel wrapper and its figures."""
+    from repro_torch.analysis.__main__ import CAPTURE_TARGET, run_audit
+    from repro_torch.analysis.findings import load_baseline
+    from repro_torch.analysis.op_audit import CAPTURE_REPS
+    from repro_torch.analysis.walk import KERNELS
+    t0 = time.perf_counter()
+    report, info = run_audit("cuda", fast=True)
+    secs = time.perf_counter() - t0
+    new = report.new_vs(load_baseline())
+    require(not new, "38-analysis: findings outside the baseline: "
+            + "; ".join(f"{f.key} ({f.message[:160]})" for f in new))
+    launches = info["launches"]
+    for tag, _mod, name in KERNELS:
+        require(launches[name] > 0,
+                f"38-analysis: the audit never launched {tag} ({name})")
+    routes = {k: v for k, v in info["k7_routes"].items() if v}
+    require(routes == {"tf32x3": launches["flash_attention"]},
+            f"38-analysis: K7's f32 launches took routes {routes}, not "
+            f"tf32x3 alone")
+    memory = info["memory"].get("fleet:chunk")
+    require(memory and max(memory[2:]) <= memory[1],
+            f"38-analysis: the fleet chunk's memory_allocated after each "
+            f"one-tick chunk is {memory}: it grows past the second")
+    c1 = {}
+    for name in ("tick:cuda:C1:T", "tick:cuda:C1:T:controller"):
+        (t_a, sig_a), (t_b, sig_b) = info["constancy"][name]
+        require(sig_a == sig_b, f"38-analysis: {name}: the C1 cuda tick "
+                f"differs at T={t_a} and T={t_b}: "
+                + "; ".join(sig_a.diff(sig_b)))
+        c1[name] = sig_b
+    cap = info["capture"]
+    syncs = sorted(f.slug for f in report.findings
+                   if f.pass_name == "purity" and f.slug.startswith("sync"))
+    c1_syncs = sorted(f.key for f in report.findings
+                      if f.target.startswith("tick:cuda:C1:")
+                      and f.pass_name == "purity")
+    ticks = "; ".join(
+        f"{'controller tick' if name.endswith('controller') else 'tick'} "
+        f"{sig.n_ops} aten ops, {sum(dict(sig.launches).values())} kernel "
+        f"launches {dict(sig.launches)}" for name, sig in c1.items())
+    caps = "; ".join(
+        (f"{v['phase']} ok (warm medians of "
+         f"{CAPTURE_REPS}: eager {v['eager_ms']:.4f} ms, replay "
+         f"{v['replay_ms']:.4f} ms)" if v["ok"] else
+         f"{v['phase']} FAILED at {v['where']}: {v['error'][:200]}")
+        for v in cap["phases"])
+    phase("38-analysis", f"C1 cuda tick (L={L0}, T={t_b}): {ticks}; equal "
+          f"at T={t_a} and T={t_b}; purity at C1 under sync debug: "
+          f"{', '.join(c1_syncs) or 'no host read, no sync'}; "
+          f"{CAPTURE_TARGET} (T={t_b}) CUDA-graph capture: {caps}; sync "
+          f"sites: {', '.join(syncs) or 'none'}; fleet chunk "
+          f"memory_allocated {memory}; K7 routes {routes}; "
+          f"{len(report.findings)} findings, all in the baseline; audit "
+          f"launches {launches}; audit {secs:.1f} s")
+    sig = c1["tick:cuda:C1:T"]
+    return {"launches": launches, "seconds": secs, "capture": cap,
+            "c1_ops": sig.n_ops, "c1_launches": dict(sig.launches),
+            "syncs": syncs}
+
+
 # ---------------------------------------------------------- phase 18 ----
 KERNEL_CLASSES = (("K7 flash_attention", ("flash_attention",)),
                   ("K8 ssd_scan", DEVICE_KERNELS["ssd_scan"]),
@@ -5038,8 +5170,8 @@ def main() -> int:
             f"{prefill_rows['llama']['launches']} times")
     del model
     torch.cuda.empty_cache()
-    zcfg = get_config("zamba2_7b")
-    zmodel = make_model(zcfg, seed=0, device="cuda")
+    zmodel = cut_depth_model("zamba2_7b", ZAMBA2_DEPTH)
+    zcfg = zmodel.cfg
     n_params = sum(p.numel() for p in zmodel.parameters())
     zstep, ztoks = prefill_cell(zmodel, "zamba2")
     n_apps = -(-zcfg.num_layers // zcfg.hybrid_attn_every)
@@ -5343,6 +5475,10 @@ def main() -> int:
     record_cross(rows, cross, prefill_rows, path_checks[n_checks:])
     train = train_phases(torch, np, fam_env)
     record_train(rows, train)
+    audit = analysis_phase(torch)
+    for row in rows:
+        row["analysis_launches"] = audit["launches"][row.get("kernel",
+                                                             row["name"])]
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -162,6 +162,7 @@ def _constructors(**dev):
     from repro_torch.data import pipeline
     from repro_torch.launch import train as launch_train
     from repro_torch.train.step import make_prefill_step, make_train_step
+    from repro_torch.analysis.__main__ import main as analysis_main
     cfg = TieringConfig(n_tenants=2, n_fast_pages=8, n_slow_pages=16,
                         page_tokens=4)
     owner = np.repeat(np.arange(2, dtype=np.int32), 4)
@@ -300,6 +301,9 @@ def _constructors(**dev):
         # no step reaches --ckpt-every: the CLI writes no checkpoint, and
         # a fresh --ckpt-dir holds none to resume from
         "launch.train": lambda: _train_cli(launch_train, dev),
+        "analysis.main": lambda: analysis_main(
+            ["--fixture", "clean"]
+            + (["--device", dev["device"]] if dev else [])),
     }
 
 
