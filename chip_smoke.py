@@ -18,10 +18,13 @@ one line each, each with its duration:
   1. device: nvidia-smi name and power limit, torch/CUDA versions, the build
   2. tick kernels (K1-K4) vs plain versions on the card, bitwise, at full
      width (T=64, S=4096, k=256; L=262,144, C=4096, N=16,384) and edge cases
-     (K2 also on unaligned rows and x / valid views at odd offsets)
+     (K1 also on the dynamic path's rowspace, S=262,144 with a prefix of
+     valid lanes; K2 also on unaligned rows and x / valid views at odd
+     offsets)
   3. the reference's ``static_small`` golden through ``simulate(impl="cuda")``
   4. the tick at full width: T=64, L=262,144, equilibria, 20 ticks, "cuda"
-     vs "ref" on the card; every tick kernel must launch in this run
+     vs "ref" on the card; every tick kernel must launch in this run, K1 on
+     its "staged" route (``seg_topk.routes``)
   5. ``stacked64`` in all four modes, "cuda" vs "ref"
   6. tick kernels: time, launches per tick, bound, plain and library times,
      the earlier designs' times and the launch floor (an empty kernel); K1
@@ -81,14 +84,19 @@ one line each, each with its duration:
      serverless; L=261,824 pages), equilibria, 40 ticks: "cuda", "ref"
      and "batched" in turns from the same all-free pool, integer outputs
      and state bitwise every tick, conservation every tick; tick ms for
-     each impl, K1 launches per tick, one profiled tick
+     each impl, K1 launches per tick (all on its "long" route), one
+     profiled tick
  21. H1 for 20 ticks with the sampled, sketch (outside full coverage: the
      threefry probe draw on the card) and neomem providers, "cuda" vs
      "ref"; stacked64 with its owner vector permuted (non-contiguous),
      "cuda" == "ref" == "batched"
  22. K1 at the dynamic path's rowspace width (T=64, S=L=261,824) at a
-     moving tick's own quotas: time, bound, launch floor, its plain
-     version, ``torch.topk`` and ``torch.sort`` on the same rows
+     moving tick's own quotas, and on a tied copy (every valid score 0.0):
+     its route, bitwise against the plain version; time beside K1's
+     earlier design on the same rows (``EARLIER_TOPK_SOURCE``, built at
+     phase 1 beside the port's sources), the dense bound and the must-read
+     bound, the launch floor, the plain version, ``torch.topk`` and
+     ``torch.sort``
 
  23. the fleet (slice D), static: ``run_fleet`` over 4 hosts of C1's size
      (T=64, L=262,144, ``heterogeneous_mixes``), 20 ticks, detect=True,
@@ -222,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import gc
 import json
 import math
@@ -342,6 +351,10 @@ HYBRID_FWD_BATCH, HYBRID_FWD_STEPS = 4, 64
 H1_TICKS, H1_HOT_TICKS = 40, 20
 PERMUTED_TICKS = 60                      # stacked64, owner vector permuted
 CHURN_IMPLS = ("cuda", "ref", "batched")
+# K1's earlier design, timed beside the port's at the dynamic rowspace
+# width: one block a row, whose rows past the 24,576 lanes it stages in
+# shared memory are read again from device memory on every pass
+EARLIER_TOPK_SOURCE = "scripts/selection_one_block.cu"
 
 
 _LAST = [time.perf_counter()]
@@ -460,12 +473,36 @@ def check_kernels(torch, np, OPS, REFS):
             score[1] = np.where(rng.random(3000) < 0.5, -0.0, 0.0)
         topk_cases.append((score, valid,
                            np.array([-1, 0, 1, k, k + 40], np.int32), k))
+    # the dynamic path's rowspace (S = L, K1's long route): each row's valid
+    # lanes a prefix of about 1,250 columns, a third of the scores 0.0
+    # (some -0.0), row 1's winners running into the tie at 0.0
+    score = (rng.random((4, 262144)) * 4).astype(np.float32)
+    u = rng.random(score.shape)
+    score[u < 1 / 3] = 0.0
+    score[u < 1 / 30] = -0.0
+    score[1, 5:] = 0.0
+    valid = np.arange(262144)[None, :] < rng.integers(1150, 1350, 4)[:, None]
+    topk_cases.append((score, valid, np.array([0, 19, 7, 19], np.int32),
+                       K_MAX))
     for score, valid, quotas, k in topk_cases:
         args = (torch.as_tensor(score, device=cuda),
                 torch.as_tensor(valid, device=cuda),
                 torch.as_tensor(quotas, device=cuda))
         kk = max(min(k, score.shape[1]), 1)
         same("seg_topk", KSEL.seg_topk(*args, k), RSEL.seg_topk_ref(*args, kk))
+    # the long route on views at offsets (score, valid): in phase (1, 1),
+    # out of phase (1, 3: every lane one at a time), with a block's keys
+    # staged (2% valid) and overflowing the stage and the candidate buffer
+    # (60%, winners past the 2,048 sorted at once)
+    lrng = np.random.default_rng(22)
+    for s_off, v_off, p_valid in ((1, 1, 0.6), (1, 3, 0.02), (1, 3, 0.6)):
+        score = (lrng.random((2, 262144)) * 4).astype(np.float32)
+        valid = lrng.random(score.shape) < p_valid
+        args = (at_offset(torch, torch.as_tensor(score, device=cuda), s_off),
+                at_offset(torch, torch.as_tensor(valid, device=cuda), v_off),
+                torch.tensor([K_MAX, 3000], dtype=torch.int32, device=cuda))
+        same("seg_topk", KSEL.seg_topk(*args, 3000),
+             RSEL.seg_topk_ref(*args, 3000))
 
     # seg_reduce / seg_sums: full-width 0/1 masks (what the tick feeds) and
     # full-range int32 values whose sums wrap
@@ -1656,23 +1693,52 @@ def ms_summary(v) -> str:
 
 
 # ------------------------------------------------------ phases 19-22 ----
-def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
+def earlier_topk(torch, lib, k: int):
+    """K1 as its earlier design computes it (``EARLIER_TOPK_SOURCE``, built
+    with ``build_variant``), called as the port's wrapper calls its
+    kernel: outputs allocated on each call, launched on the current
+    stream."""
+    import ctypes
+    fn = lib.seg_topk_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+
+    def run(score, valid, quotas):
+        T, S = score.shape
+        dev = score.device
+        cols = torch.empty((T, k), dtype=torch.int32, device=dev)
+        take = torch.empty((T, k), dtype=torch.bool, device=dev)
+        counts = torch.empty((T,), dtype=torch.int32, device=dev)
+        err = fn(score.data_ptr(), valid.data_ptr(), quotas.data_ptr(), T, S,
+                 k, cols.data_ptr(), take.data_ptr(), counts.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"K1's earlier design: CUDA error {err}")
+        return cols, take, counts
+
+    return run
+
+
+def churn_phases(torch, np, rows: list, floor_ms: float,
+                 earlier_lib) -> None:
     """Phases 19-22: dynamic ownership and the hotness providers on the
-    card; appends K1's dynamic-width entry to ``rows``."""
+    card; appends K1's dynamic-width entry to ``rows``, timed beside its
+    earlier design (``earlier_lib``, a ``build_variant`` build of
+    ``EARLIER_TOPK_SOURCE``)."""
     from repro_torch.core import simulator as SIM
-    from repro_torch.core.churn import churn_events, make_churn_tick
+    from repro_torch.core.churn import churn_events
     from repro_torch.core.engine import run_engine
-    from repro_torch.core.state import init_state
     from repro_torch.core.workloads import build_churn_schedule, build_trace
     from repro_torch.kernels.migrate import ops as KMIG
     from repro_torch.kernels.select import ops as KSEL
-    from repro_torch.kernels.select import ref as RSEL
     wrappers = {"seg_topk": KSEL.seg_topk, "seg_reduce": KSEL.seg_reduce,
                 "seg_sums": KSEL.seg_sums, "commit_moves": KMIG.commit_moves}
 
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for r in KSEL.seg_topk.routes:      # in place: the launcher's dict
+            KSEL.seg_topk.routes[r] = 0
 
     def read_counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -1708,6 +1774,9 @@ def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
         torch, h1_cfg, h1_sched, CHURN_IMPLS, H1_TICKS, keep_at=H1_TICKS // 2)
     h1_launches = read_counts()
     require(h1_launches["seg_topk"] > 0, "H1: K1 never launched")
+    h1_routes = dict(KSEL.seg_topk.routes)
+    require(h1_routes == {"staged": 0, "long": h1_launches["seg_topk"]},
+            f"H1: K1's routes {h1_routes}, want all long (S = L)")
     o = h1_outs["cuda"]
     h1_moves = (int(sum(int(x.promotions.sum()) for x in o)),
                 int(sum(int(x.demotions.sum()) for x in o)))
@@ -1720,7 +1789,7 @@ def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
           f"not bitwise: {h1_inexact or 'none'}), conservation every tick; "
           f"promotions {h1_moves[0]} demotions {h1_moves[1]}; launches "
           f"{h1_launches} ({h1_launches['seg_topk'] / H1_TICKS:g} K1 a "
-          "tick); tick ms (CUDA events) " + "; ".join(
+          f"tick, by route {h1_routes}); tick ms (CUDA events) " + "; ".join(
               f"{i} {ms_summary(v)}" for i, v in h1_ms.items()))
     h1_tick_ms = sorted(h1_ms["cuda"])[H1_TICKS // 2]
     h1_prof = profile_fn(torch, lambda: kept[0](kept[1], kept[2]))
@@ -1730,7 +1799,7 @@ def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
                                   "saw no device event")
     else:
         n_dev, busy_ms, top, pwall = h1_prof
-        k1 = [(t, c) for nm, t, c in top if "seg_topk_kernel" in nm]
+        k1 = [(t, c) for nm, t, c in top if "seg_topk" in nm]   # either route
         phase("20-churn-profile", f"impl=cuda tick {H1_TICKS // 2}: {n_dev} "
               f"device events, busy {busy_ms:.4f} ms of {h1_tick_ms:.4f} ms "
               f"(median tick; idle share {1 - busy_ms / h1_tick_ms:.3f}; "
@@ -1772,7 +1841,22 @@ def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
           f"{int(p_out.demotions.sum())}")
     del p_runs, p_out
 
-    # ---- 22. K1 at the dynamic rowspace width ------------------------------
+    k1_dynamic_phase(torch, rows, floor_ms, earlier_lib, h1_cfg, h1_sched,
+                     h1_launches["seg_topk"])
+
+
+# ------------------------------------------------------------ phase 22 ----
+def k1_dynamic_phase(torch, rows: list, floor_ms: float, earlier_lib,
+                     h1_cfg, h1_sched, h1_k1_launches: int) -> None:
+    """Phase 22: K1 at the dynamic rowspace width, on the calls of H1's
+    tick 10 (``h1_cfg``, ``h1_sched``: phase 20's host; its K1 launches
+    ``h1_k1_launches``), beside its earlier design (``earlier_lib``);
+    appends the ``seg_topk_dynamic`` row to ``rows``."""
+    from repro_torch.core.churn import make_churn_tick
+    from repro_torch.core.state import init_state
+    from repro_torch.kernels.select import ops as KSEL
+    from repro_torch.kernels.select import ref as RSEL
+    L1 = h1_cfg.n_fast_pages + h1_cfg.n_slow_pages
     # the seg_topk calls of one moving tick of H1's cuda path (tick 10:
     # arrivals, promotions and demotions), recorded on the way in
     calls = []
@@ -1801,41 +1885,94 @@ def churn_phases(torch, np, rows: list, floor_ms: float) -> None:
     score, valid, quotas, k = max(calls, key=lambda c: int(
         c[2].clamp(min=0).sum()))
     T1, S1 = score.shape
-    got = orig_topk(score, valid, quotas, k)
-    plain = RSEL.seg_topk_ref(score, valid, quotas, min(k, S1))
-    for g, w in zip(got, plain):
-        require(torch.equal(g, w), "K1 != plain at the dynamic width")
-    masked = torch.where(valid, score, float("-inf"))
-    k1_ms = device_ms(lambda: orig_topk(score, valid, quotas, k))
-    k1_plain = device_ms(lambda: RSEL.seg_topk_ref(score, valid, quotas,
-                                                   min(k, S1)), n=10)
-    k1_topk = device_ms(lambda: torch.topk(masked, k, dim=1))
-    k1_sort = device_ms(lambda: torch.sort(masked, dim=1, descending=True,
-                                           stable=True), n=10)
-    nbytes = T1 * S1 * 5 + T1 * 4 + T1 * k * 5 + T1 * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = T1 * S1 / F32_OPS_PER_S * 1e3
+    kk = min(k, S1)
+    old = earlier_topk(torch, earlier_lib, kk)
+    # the bounds, each with the quotas and the outputs: must-read (the
+    # kernels line's bound), what this call's data needs: a row at quota
+    # <= 0 takes nothing and is not read, every other row's valid mask is,
+    # and the 64 bytes of scores behind each of its 16-lane groups that
+    # holds a valid lane; and dense, every lane's score and valid byte
+    active = valid[quotas > 0]
+    n_active = active.shape[0]
+    act16 = torch.cat([active, active.new_zeros((n_active, (-S1) % 16))], 1)
+    n_groups = int(act16.view(n_active, -1, 16).any(dim=2).sum())
+    out_bytes = T1 * 4 + T1 * kk * 5 + T1 * 4
+    nbytes = T1 * S1 * 5 + out_bytes
+    must_bytes = n_active * S1 + 64 * n_groups + out_bytes
+    t_bytes = max(nbytes / HBM_BYTES_PER_S, T1 * S1 / F32_OPS_PER_S) * 1e3
+    t_must = must_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_active * S1 / F32_OPS_PER_S * 1e3
+    del active, act16
+    res = {}
+    for label, sc in (("H1", score),
+                      ("tied", torch.where(valid, torch.zeros_like(score),
+                                           score))):
+        before = dict(KSEL.seg_topk.routes)
+        got = orig_topk(sc, valid, quotas, k)
+        route = [r for r, n in KSEL.seg_topk.routes.items()
+                 if n != before[r]]
+        require(route == ["long"], f"K1 {label}: route {route}, want long")
+        plain = RSEL.seg_topk_ref(sc, valid, quotas, kk)
+        for g, e, w in zip(got, old(sc, valid, quotas), plain):
+            require(torch.equal(g, w), f"K1 != plain at the dynamic width "
+                                       f"({label})")
+            require(torch.equal(e, w), f"K1's earlier design != plain at the "
+                                       f"dynamic width ({label})")
+        masked = torch.where(valid, sc, float("-inf"))
+        # the two designs in turns: new, earlier, earlier, new
+        t_new = [device_ms(lambda: orig_topk(sc, valid, quotas, k))]
+        t_old = [device_ms(lambda: old(sc, valid, quotas), n=20)]
+        t_old.append(device_ms(lambda: old(sc, valid, quotas), n=20))
+        t_new.append(device_ms(lambda: orig_topk(sc, valid, quotas, k)))
+        res[label] = {
+            "ms": sum(t_new) / 2, "new": t_new, "earlier_ms": sum(t_old) / 2,
+            "old": t_old,
+            "plain_ms": device_ms(lambda: RSEL.seg_topk_ref(
+                sc, valid, quotas, kk), n=10),
+            "topk_ms": device_ms(lambda: torch.topk(masked, kk, dim=1)),
+            "sort_ms": device_ms(lambda: torch.sort(
+                masked, dim=1, descending=True, stable=True), n=10),
+            "winners": int(got[2].sum()),
+        }
+    h, tied = res["H1"], res["tied"]
     rows.append({
         "name": "seg_topk_dynamic", "kernel": "seg_topk", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES["seg_topk"],
-        "launches": h1_launches["seg_topk"], "max_abs_err": 0.0,
-        "ms": k1_ms, "plain_ms": k1_plain,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": k1_topk, "sort_ms": k1_sort,
-        "width": f"T={T1} S={S1} (dynamic rowspace, S = L)", "k": k,
+        "launches": h1_k1_launches, "max_abs_err": 0.0,
+        "ms": h["ms"], "plain_ms": h["plain_ms"],
+        "bound_ms": max(t_must, t_ops),
+        "bound_by": "bytes" if t_must >= t_ops else "operations",
+        "bound_must_read_ms": max(t_must, t_ops), "bound_dense_ms": t_bytes,
+        "library_ms": h["topk_ms"], "sort_ms": h["sort_ms"],
+        "earlier_ms": h["earlier_ms"], "earlier_source": EARLIER_TOPK_SOURCE,
+        "kernel_route": "long", "tied_ms": tied["ms"],
+        "tied_earlier_ms": tied["earlier_ms"],
+        "tied_plain_ms": tied["plain_ms"], "tied_library_ms": tied["topk_ms"],
+        "width": f"T={T1} S={S1} (dynamic rowspace, S = L)", "k": kk,
         "quota_max": int(quotas.max()), "bytes": nbytes,
+        "bytes_must_read": must_bytes, "valid_lanes": int(valid.sum()),
+        "rows_read": n_active, "valid_groups": n_groups,
         "launch_floor_ms": floor_ms,
-        "launches_per_tick": h1_launches["seg_topk"] / H1_TICKS,
+        "launches_per_tick": h1_k1_launches / H1_TICKS,
     })
-    phase("22-kernel", f"seg_topk [T={T1} S={S1}, k={k}, quotas max "
-          f"{int(quotas.max())} sum {int(quotas.clamp(min=0).sum())}, "
-          f"{int(valid.sum())} valid lanes; H1 tick 10's largest call of "
-          f"{len(calls)}]: {k1_ms:.4f} ms (bitwise = plain; plain "
-          f"{k1_plain:.4f}, torch.topk {k1_topk:.4f}, torch.sort "
-          f"{k1_sort:.4f}, bound {max(t_bytes, t_ops):.5f} at 3.35 TB/s, "
-          f"launch floor {floor_ms:.4f})")
-    del calls, score, valid, quotas, masked, got, plain
+    phase("22-kernel", f"seg_topk [T={T1} S={S1}, k={kk}, quotas max "
+          f"{int(quotas.max())} sum {int(quotas.clamp(min=0).sum())} "
+          f"({int((quotas <= 0).sum())} rows <= 0), {int(valid.sum())} valid "
+          f"lanes, {n_groups} 16-lane groups holding one in the {n_active} "
+          f"rows at quota > 0; H1 tick 10's largest call of "
+          f"{len(calls)}], route long, bitwise = plain = the earlier design; "
+          + "; ".join(
+              f"{lb}: {r['ms']:.4f} ms (readings {r['new'][0]:.4f}, "
+              f"{r['new'][1]:.4f}; earlier design {r['earlier_ms']:.4f}: "
+              f"{r['old'][0]:.4f}, {r['old'][1]:.4f}; plain "
+              f"{r['plain_ms']:.4f}, torch.topk {r['topk_ms']:.4f}, "
+              f"torch.sort {r['sort_ms']:.4f}; {r['winners']} winners)"
+              for lb, r in (("H1 call", h), ("tied copy", tied)))
+          + f"; bounds: must-read {max(t_must, t_ops):.5f} ms ({must_bytes} "
+          f"B), dense {t_bytes:.5f} ({nbytes} B) at 3.35 TB/s; launch floor "
+          f"{floor_ms:.4f}")
+    del calls, score, valid, quotas
+
 
 
 # ------------------------------------------------------ phases 23-26 ----
@@ -2024,9 +2161,11 @@ def fleet_phases(torch, np, wrappers: dict) -> dict:
                                   "saw no device event")
     else:
         n_dev, busy_ms, top, pwall = prof
+        k1 = [(t, c) for nm, t, c in top if "seg_topk" in nm]
         phase("24-fleet-profile", f"one fleet tick ({MIXED_HOSTS} hosts, "
               f"impl=cuda): {n_dev} device events, busy {busy_ms:.3f} ms of "
               f"{pwall:.3f} ms wall (idle share {1 - busy_ms / pwall:.3f}); "
+              f"K1 {sum(t for t, _ in k1):.3f} ms x{sum(c for _, c in k1)}; "
               "top by device ms: " + "; ".join(
                   f"{nm[:50]} {t:.3f} ms x{c}" for nm, t, c in top[:6]))
     del states, tick, w_d, r_d
@@ -4649,7 +4788,7 @@ def main() -> int:
     from repro_torch.core.simulator import simulate, simulate_preset
     from repro_torch.core.state import init_state
     from repro_torch.core.workloads import ci_like, microbenchmark, web_like
-    from repro_torch.kernels.build import build_all
+    from repro_torch.kernels.build import build_all, build_variant
     from repro_torch.kernels.migrate import ops as KMIG
     from repro_torch.kernels.migrate import ref as RMIG
     from repro_torch.kernels.select import ops as KSEL
@@ -4677,6 +4816,8 @@ def main() -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for r in KSEL.seg_topk.routes:      # in place: the launcher's dict
+            KSEL.seg_topk.routes[r] = 0
 
     def read_counts():
         return {k: w.launches for k, w in wrappers.items()}
@@ -4692,6 +4833,11 @@ def main() -> int:
     phase("1-device", f"{kind} | torch {torch.__version__} cuda "
                       f"{torch.version.cuda} | python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    # K1's earlier design (phase 22) builds beside the port's sources
+    pool = ThreadPoolExecutor(max_workers=1)
+    earlier_topk = pool.submit(build_variant, "selection",
+                               ROOT / EARLIER_TOPK_SOURCE)
+    pool.shutdown(wait=False)
     libs = build_all()
     for lib in libs.values():
         regs = [ln.strip() for ln in lib.log.splitlines()
@@ -4738,13 +4884,17 @@ def main() -> int:
     require(a_out.fast_usage.shape == (MAIN_TICKS, T0), "output shape")
     for name, n in launches.items():
         require(n > 0, f"main path never launched {name}")
+    k1_routes = dict(KSEL.seg_topk.routes)
+    require(k1_routes == {"staged": launches["seg_topk"], "long": 0},
+            f"full width: K1's routes {k1_routes}, want all staged")
     # in turns, so drift on the card shows as a cuda/cuda spread
     ms = [(impl, tick_ms(torch, make_tick, init_state, cfg, owner, acc[0],
                          impl)) for impl in ("cuda", "ref", "batched", "cuda")]
     phase("4-main", f"T={T0} L={L0} equilibria {MAIN_TICKS} ticks: cuda == "
                     f"ref (ints bitwise, floats rtol 1e-5); promotions "
-                    f"{promos} demotions {demos}; launches {launches}; "
-                    f"tick ms " + " ".join(f"{k}={v:.4f}" for k, v in ms))
+                    f"{promos} demotions {demos}; launches {launches}, "
+                    f"K1's by route {k1_routes}; tick ms "
+                    + " ".join(f"{k}={v:.4f}" for k, v in ms))
 
     # ---- 5. stacked64, four modes ------------------------------------------
     res = []
@@ -5452,7 +5602,7 @@ def main() -> int:
     del zmodel, zctx, ctx32, zstep, ztoks, ztoks_d
     torch.cuda.empty_cache()
 
-    churn_phases(torch, np, rows, floor_ms)
+    churn_phases(torch, np, rows, floor_ms, earlier_topk.result())
     fleet_launches = fleet_phases(torch, np, wrappers)
     # the fleet paths' launches of the tick kernels, beside each row's own
     for row in rows:

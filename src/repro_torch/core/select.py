@@ -485,13 +485,18 @@ def dynamic_strategy(n_tenants: int, k_max: int, impl: str = "batched",
 
 
 def kernel_dynamic_strategy(n_tenants: int, k_max: int, impl: str = "cuda",
-                            device="cuda") -> Strategy:
+                            device="cuda",
+                            s_max: Optional[int] = None) -> Strategy:
     """Kernel-backed strategy for ownership-as-state (the reference's
-    ``pallas_dynamic_strategy`` at its default width). Each selection
-    rebuilds the [T, L] rowspace from the run-time owner vector (one
-    index-order segment sort, then a scatter into rows), and the segmented
-    top-k replaces the composite-key sort; reductions stay on the
-    sentinel-tolerant scatters, selections are mask-only."""
+    ``pallas_dynamic_strategy``). Each selection rebuilds the [T, S]
+    rowspace from the run-time owner vector (one index-order segment sort,
+    then a scatter into rows), and the segmented top-k replaces the
+    composite-key sort; reductions stay on the sentinel-tolerant scatters,
+    selections are mask-only. S = L by default; ``s_max`` caps it at
+    ``min(s_max, L)`` when the largest per-tenant footprint is known, and a
+    page whose rank in its tenant is S or more is then dropped from the
+    rowspace (it is never selected), as the reference's ``mode="drop"``
+    scatter drops it."""
     seg_topk = _kernel_ops(impl)[0]
     resolve_device(device)
     T = n_tenants
@@ -501,18 +506,21 @@ def kernel_dynamic_strategy(n_tenants: int, k_max: int, impl: str = "cuda",
 
     def select(score, owner, active, quotas):
         L = score.shape[0]
+        S = min(s_max, L) if s_max else L
         seg = torch.where(owner < T, owner.to(torch.int64), T)
         col = segment_ranks(seg, None, T).to(torch.int64)
-        rows = torch.full((T + 1, L), L, dtype=torch.int32,
-                          device=owner.device)    # row T: the free pool
-        rows[seg, col] = torch.arange(L, dtype=torch.int32,
-                                      device=owner.device)
-        page_rows = rows[:T]
+        # row T holds the free pool and column S the pages past the cap:
+        # both are cut off below (torch's index assignment cannot drop)
+        rows = torch.full((T + 1, S + 1), L, dtype=torch.int32,
+                          device=owner.device)
+        rows[seg, torch.clamp(col, max=S)] = torch.arange(
+            L, dtype=torch.int32, device=owner.device)
+        page_rows = rows[:T, :S]
         page_rows_pad = torch.cat(
             [page_rows, page_rows.new_full((T, 1), L)], dim=1)
         return _rows_select(seg_topk, score, active, quotas,
                             torch.clamp(page_rows, max=L - 1).to(torch.int64),
-                            page_rows < L, page_rows_pad, min(k_max, L), L,
+                            page_rows < L, page_rows_pad, min(k_max, S), L,
                             compact=False)
 
     def alloc_ranks(new, owner):

@@ -37,7 +37,8 @@ _IP = ctypes.POINTER(ctypes.c_int)
 # C signatures of the launchers, by source
 _SIGNATURES = {
     "selection": {
-        "seg_topk_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+        # the route taken comes back through the int pointer
+        "seg_topk_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _IP, _P),
         "seg_reduce_launch": (_P, _P, _I, _I, _P, _P, _P),
         "seg_sums_launch": (_P, _P, _I, _I, _P, _P),
         "commit_moves_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,

@@ -5,13 +5,20 @@ on PyTorch's current stream and raises on a launch error. No
 synchronisation, no fallback.
 
 * ``seg_topk_cuda`` replaces ``repro/kernels/select/kernel.py``
-  ``seg_topk_tpu``: one block per tenant row over packed (score, column)
-  keys, unique by their column, staged in shared memory when the row fits.
-  A radix select (8-bit digits, most significant first, stopping once the
-  prefix holds only winners) finds the r-th largest key; the r winners
-  (the keys at or above it) are compacted and bitonic-sorted in shared
-  memory, up to 2,048 at a time by rank. A handful of passes over the row,
-  whatever the quota.
+  ``seg_topk_tpu``, over packed (score, column) keys, unique by their
+  column, in one of two routes, which the launcher reports and
+  ``seg_topk_cuda.routes`` counts. ``"staged"`` (S <= 24,576, C1's rows):
+  one block per tenant row with the row's keys in shared memory; a radix
+  select (8-bit digits, most significant first, stopping once the prefix
+  holds only winners) finds the r-th largest key, and the r winners (the
+  keys at or above it) are compacted and bitonic-sorted in shared memory,
+  up to 2,048 at a time by rank. ``"long"`` (the dynamic rowspace, S = L):
+  a thread-block cluster per row reads the row once in 16-byte vectors
+  (scores only behind valid lanes) into a 12-bit first-digit histogram
+  summed through distributed shared memory; the keys at or above the
+  r-th key's bin go to the leader block, which finishes the select and the
+  sort there; further digits over the row keep it exact when they
+  overflow its buffer. A row whose quota is <= 0 is not read.
 * ``seg_reduce_cuda`` replaces ``seg_reduce_tpu``: one block of 1,024
   threads per row, one scan. Each thread owns a run of 4-lane units (one
   at S=4,096), issues its 16-byte loads of x and 4-byte loads of valid
@@ -28,9 +35,14 @@ byte read).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels.build import check_cuda, load_library, stream_of
+
+# seg_topk's routes, by the code its launcher reports
+TOPK_ROUTES = {0: "staged", 1: "long"}
 
 
 def seg_topk_cuda(score: torch.Tensor, valid: torch.Tensor,
@@ -48,12 +60,18 @@ def seg_topk_cuda(score: torch.Tensor, valid: torch.Tensor,
     cols = torch.empty((T, k), dtype=torch.int32, device=dev)
     take = torch.empty((T, k), dtype=torch.bool, device=dev)
     counts = torch.empty((T,), dtype=torch.int32, device=dev)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         load_library().call("seg_topk_launch", score.data_ptr(),
                             valid.data_ptr(), quotas.data_ptr(), T, S, k,
                             cols.data_ptr(), take.data_ptr(),
-                            counts.data_ptr(), stream_of(score))
+                            counts.data_ptr(), ctypes.byref(route),
+                            stream_of(score))
+    seg_topk_cuda.routes[TOPK_ROUTES[route.value]] += 1
     return cols, take, counts
+
+
+seg_topk_cuda.routes = {name: 0 for name in TOPK_ROUTES.values()}
 
 
 def _check_rows(x: torch.Tensor, valid: torch.Tensor, name: str) -> None:

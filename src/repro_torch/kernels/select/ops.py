@@ -3,7 +3,9 @@
 A CUDA tensor goes to the hand-written kernel (``kernel.py``); a CPU tensor
 goes to the plain version (``ref.py``), because the kernel cannot run
 there. Nothing else selects between the two, and a kernel error raises.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+``seg_topk.routes`` counts K1's launches by the route its launcher took
+(``"staged"``, ``"long"``: reset it in place, it is the launcher's dict).
 """
 from __future__ import annotations
 
@@ -51,5 +53,6 @@ def seg_sums(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 seg_topk.launches = 0
+seg_topk.routes = K.seg_topk_cuda.routes
 seg_reduce.launches = 0
 seg_sums.launches = 0

@@ -327,6 +327,43 @@ def test_dynamic_strategies_match_reference(seed, impl_t, impl_j):
     eq(ra[new], rb[new], "alloc ranks")
 
 
+@pytest.mark.parametrize("cap", ["none", "below", "equal", "above_L"])
+@pytest.mark.parametrize("seed", range(3))
+def test_dynamic_strategy_s_max_matches_reference(seed, cap):
+    """The rowspace cap: the port's kernel-backed dynamic strategy with
+    ``s_max`` against the reference's ``pallas_dynamic_strategy`` (its
+    plain version) with the same ``s_max``, selection masks bitwise. Below
+    the largest tenant's footprint, pages ranked past the cap in their
+    tenant are dropped from the rowspace (never selected)."""
+    rng = np.random.default_rng(40 + seed)
+    T = int(rng.choice([2, 3, 7]))
+    L = int(rng.choice([64, 123, 300]))
+    owner = rng.integers(0, T + 1, L).astype(np.int32)     # T = free
+    k_max = int(rng.choice([3, 16, 64]))
+    score = (rng.integers(-3, 3, L) if seed % 2
+             else rng.standard_normal(L)).astype(np.float32)
+    score[rng.random(L) < 0.05] = -np.inf
+    active = (rng.random(L) < 0.8) & (owner < T)
+    quotas = rng.integers(0, L // T + 4, T).astype(np.int32)
+    foot = int(np.bincount(owner[owner < T], minlength=T).max())
+    s_max = {"none": None, "below": foot // 2, "equal": foot,
+             "above_L": L + 7}[cap]
+    ts = TSEL.kernel_dynamic_strategy(T, k_max, impl="cuda", device="cpu",
+                                      s_max=s_max)
+    js = JSEL.pallas_dynamic_strategy(T, k_max, impl="pallas_ref",
+                                      s_max=s_max)
+    a = ts.select(T_(score), T_(owner), T_(active), T_(quotas))
+    b = jax.jit(js.select)(jnp.asarray(score), jnp.asarray(owner),
+                           jnp.asarray(active), jnp.asarray(quotas))
+    eq(a.mask, b.mask, "mask")
+    assert int(a.mask.sum()) > 0
+    if cap == "below":        # a page past the cap is never selected
+        rank = np.zeros(L, np.int64)
+        for t in range(T):
+            rank[owner == t] = np.arange(int((owner == t).sum()))
+        assert not (a.mask.numpy() & (rank >= s_max) & (owner < T)).any()
+
+
 # ---------------------------------------- static and dynamic, one pipeline ----
 _SHARED = [
     dict(footprint=24, pattern="uniform", hot_rate=4.0, cold_rate=0.0,

@@ -49,9 +49,12 @@ def topk_case(seed):
 # seg_topk's edge cases (the same kinds as chip_smoke.py's phase 2): rows
 # longer than the kernel stages in shared memory (S > 24,576), more winners
 # than it sorts at once (r > 2,048), rows with nothing eligible, rows that
-# tie throughout (with -0.0 against +0.0), and quotas around 0 and k
+# tie throughout (with -0.0 against +0.0), quotas around 0 and k, and the
+# dynamic path's rowspace (S = L, each row's valid lanes a prefix of its
+# tenant's pages, cold pages scoring 0.0)
 TOPK_EDGE_CASES = ("long_row", "long_row_over_sort_cap", "over_sort_cap",
-                   "all_nan", "all_invalid", "all_tied", "quota_grid")
+                   "all_nan", "all_invalid", "all_tied", "quota_grid",
+                   "dynamic_rowspace")
 
 
 def topk_edge_case(name):
@@ -84,6 +87,18 @@ def topk_edge_case(name):
         score = rng.standard_normal((2, 1000)).astype(np.float32)
         return score, np.zeros_like(score, bool), np.array([5, 1000],
                                                            np.int32), 300
+    if name == "dynamic_rowspace":
+        # 4 rows of S=262,144, about 1,250 valid lanes each from column 0,
+        # a third of the scores 0.0 (some -0.0); row 1 has five non-zero
+        # scores, so its winners run into the tie at 0.0
+        T, S = 4, 262144
+        score = (rng.random((T, S)) * 4).astype(np.float32)
+        u = rng.random((T, S))
+        score[u < 1 / 3] = 0.0
+        score[u < 1 / 30] = -0.0
+        score[1, 5:] = 0.0
+        valid = np.arange(S)[None, :] < rng.integers(1150, 1350, T)[:, None]
+        return score, valid, np.array([0, 19, 7, 19], np.int32), 256
     k = 2500 if name == "all_tied" else 256
     quotas = np.array([-1, 0, 1, k, k + 40], np.int32)
     if name == "all_tied":
@@ -218,6 +233,46 @@ def test_seg_topk_edge_cases_match_plain_on_card(name, cuda):
     got = TSEL.seg_topk(*args, k)
     want = TSEL_REF.seg_topk_ref(*args, k)
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+
+
+# (T, S, route, (score offset, valid offset) in elements, share of valid
+# lanes): rows up to S = 24,576 on the staged route (C1's S=4,096), longer
+# ones on the long route; views at offsets 1 and 1 keep score and valid in
+# phase (single lanes before the first 16-byte unit), 1 and 3 put them out
+# of phase (every lane of the row one at a time); 2% valid keeps a block's
+# eligible keys staged in shared memory, 60% overflows the stage and the
+# candidate buffer (further digits over the row again)
+TOPK_ROUTE_CASES = [(64, 4096, "staged", (0, 0), 0.02),
+                    (2, 24576, "staged", (0, 0), 0.02),
+                    (2, 24577, "long", (0, 0), 0.02),
+                    (64, 261824, "long", (0, 0), 0.02),
+                    (1, 262144, "long", (0, 0), 0.02),
+                    (2, 262144, "long", (1, 1), 0.6),
+                    (2, 262144, "long", (1, 3), 0.02),
+                    (2, 262144, "long", (1, 3), 0.6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,S,route,offsets,p_valid", TOPK_ROUTE_CASES)
+def test_seg_topk_route_on_card(T, S, route, offsets, p_valid, cuda):
+    """K1's launcher takes the staged route up to S = 24,576 (C1's
+    S=4,096) and the cluster route past it (the dynamic rowspace, S = L),
+    as ``seg_topk.routes`` counts, bitwise equal to the plain version, with
+    score and valid as views at offsets in phase and out of phase."""
+    rng = np.random.default_rng(S)
+    score, valid = (rng.random((T, S)) * 4).astype(np.float32), \
+        rng.random((T, S)) < p_valid
+    quotas = rng.integers(0, 300, T).astype(np.int32)
+    args = [_at_offset(score, cuda, offsets[0]),
+            _at_offset(valid, cuda, offsets[1]),
+            torch.as_tensor(quotas, device=cuda)]
+    before = dict(TSEL.seg_topk.routes)
+    got = TSEL.seg_topk(*args, 256)
+    delta = {r: n - before[r] for r, n in TSEL.seg_topk.routes.items()}
+    assert delta == {r: int(r == route) for r in delta}
+    for g, w in zip(got, TSEL_REF.seg_topk_ref(*args, 256)):
         assert torch.equal(g, w)
     torch.cuda.synchronize()
 
@@ -775,9 +830,11 @@ def test_ssd_scan_matches_plain_on_card(shape, bc_dtype, decay, cuda):
 
 # ---------------------------------------------- dynamic ownership (churn) ----
 # K1 over the dynamic path's run-time rowspace: T rows of S = L lanes, past
-# the 24,576 lanes the kernel stages in shared memory; free-pool sentinels
-# (owner == T), integer scores (ties) and quotas around 0 and k
-DYNAMIC_ROWSPACES = ((4, 30000, 64), (9, 40000, 256), (3, 70001, 300))
+# the 24,576 lanes the kernel stages in shared memory (its long route);
+# free-pool sentinels (owner == T), integer scores (ties) and quotas around
+# 0 and k; a churned host's width (T=64, L=261,824) and a single row
+DYNAMIC_ROWSPACES = ((4, 30000, 64), (9, 40000, 256), (3, 70001, 300),
+                     (64, 261824, 256), (1, 262144, 256))
 
 
 @pytest.mark.gpu
@@ -793,7 +850,7 @@ def test_kernel_dynamic_strategy_matches_ref_on_card(T, L, k_max, cuda):
     active = torch.as_tensor(rng.random(L) < 0.7, device=cuda) & (owner < T)
     quotas = torch.as_tensor(rng.integers(-1, k_max + 40, T).astype(np.int32),
                              device=cuda)
-    quotas[0] = 0
+    quotas[0] = 0 if T > 1 else k_max     # a single row takes its k_max
     a = SEL.kernel_dynamic_strategy(T, k_max, impl="cuda", device=cuda)
     b = SEL.kernel_dynamic_strategy(T, k_max, impl="ref", device=cuda)
     before = TSEL.seg_topk.launches

@@ -135,13 +135,119 @@ def radix_topk_model(score, valid, quotas, k, cap=2048):
     return cols, take, counts
 
 
-@pytest.mark.parametrize("cap", [2048, 5])
+# The kernel's long route (csrc/selection.cu seg_topk_long_kernel, rows past
+# the 24,576 lanes it stages), modelled in numpy: a row with quota <= 0 is not
+# read; a 12-bit first digit over the row (the cluster's summed
+# histograms); per chunk, further 12-bit digits over the row while the keys
+# at or above the chosen bin, less the earlier chunks' winners, overflow the
+# leader's candidate buffer; then the candidates, and the leader's digits
+# over them down to the chunk's threshold (the same early stop; where one
+# bin holds every key under the prefix, the next digit starts at the
+# highest bit at which those keys differ). The kernel's block slices and
+# staged keys change where a key is read, not which keys are counted, so
+# the model has none.
+LONG_BITS = 12
+
+
+def _next_shift(sh):
+    return sh - LONG_BITS if sh > LONG_BITS else 0
+
+
+def _pick_digit(hist, above, need, n=None):
+    """(digit, keys above it, keys in it): the bin that holds the need-th
+    largest key; n sets ``above`` to n less the histogram's total."""
+    if n is not None:
+        above = n - int(hist.sum())
+    top = above + np.cumsum(hist[::-1])          # keys at or above each bin
+    i = int(np.argmax(top >= need))
+    d = hist.size - 1 - i
+    assert above < need <= top[-1]
+    return d, int(top[i] - hist[d]), int(hist[d])
+
+
+def _under(keys, P, sh):
+    """The keys under prefix P (their bits from sh up)."""
+    return keys[(keys >> np.uint64(sh)) == np.uint64(P)]
+
+
+def _digit_hist(under, sh, sh2):
+    """Histogram of the digit in bits [sh2, sh) of ``under``."""
+    d = (under >> np.uint64(sh2)) & np.uint64((1 << (sh - sh2)) - 1)
+    return np.bincount(d.astype(np.int64), minlength=1 << LONG_BITS)
+
+
+def long_topk_model(score, valid, quotas, k, cap=2048, cands=8192):
+    T, S = score.shape
+    keys = _topk_keys(score, valid)
+    cols = np.full((T, k), S, np.int32)
+    take = np.zeros((T, k), bool)
+    counts = np.zeros(T, np.int32)
+    for t in range(T):
+        if int(quotas[t]) <= 0:
+            continue
+        elig = keys[t][keys[t] != 0]
+        first = np.bincount((elig >> np.uint64(64 - LONG_BITS)).astype(
+            np.int64), minlength=1 << LONG_BITS)
+        r = min(int(quotas[t]), k, int(first.sum()))
+        upper = np.uint64(2**64 - 1)
+        for done in range(0, r, cap):
+            m = min(cap, r - done)
+            need = done + m
+            P, above, count = _pick_digit(first, 0, need)
+            sh = 64 - LONG_BITS
+            final = above + count == need
+            while not final and above + count - done > cands:
+                sh2 = _next_shift(sh)                 # over the row
+                d, above, count = _pick_digit(
+                    _digit_hist(_under(elig, P, sh), sh, sh2), above, need)
+                P, sh = (P << (sh - sh2)) | d, sh2
+                final = above + count == need or sh == 0
+            lo = np.uint64(P << sh)
+            cand = elig[(elig >= lo) & (elig < upper)]
+            assert cand.size == above + count - done <= cands
+            n, above = cand.size, None
+            while not final:                          # the leader's
+                sh2 = _next_shift(sh)
+                under = _under(cand, P, sh)
+                d, above, count = _pick_digit(
+                    _digit_hist(under, sh, sh2), above, m,
+                    n if above is None else None)
+                P, sh = (P << (sh - sh2)) | d, sh2
+                final = above + count == m or sh == 0
+                if not final and count == under.size:     # one bin: ties
+                    k_and = int(np.bitwise_and.reduce(under))
+                    sh = (k_and ^ int(np.bitwise_or.reduce(under))
+                          ).bit_length()
+                    P = k_and >> sh
+            thr = np.uint64(P << sh)
+            win = np.sort(cand[cand >= thr])[::-1]
+            assert win.size == m              # exactly this chunk's winners
+            cols[t, done:done + m] = (np.uint64(0xFFFFFFFF)
+                                      - (win & np.uint64(0xFFFFFFFF)))
+            take[t, done:done + m] = True
+            upper = thr
+        counts[t] = r
+    return cols, take, counts
+
+
+# the models' capacities: the staged route's sort (2,048, and 5: many
+# chunks at small sizes); the long route's sort and candidate buffer
+# (2,048 and 8,192, the kernel's; 3 and 5, so that the digits over the
+# row run whenever a threshold bin holds more than a few keys)
+TOPK_MODELS = {"2048": 2048, "5": 5, "long-8192": (2048, 8192),
+               "long-5": (3, 5)}
+
+
+@pytest.mark.parametrize("cap", list(TOPK_MODELS.values()),
+                         ids=list(TOPK_MODELS))
 @pytest.mark.parametrize("case", [f"seed{i}" for i in range(10)]
                          + list(TOPK_EDGE_CASES))
 def test_seg_topk_radix_model_matches_plain(case, cap):
-    """The kernel's radix select, at its sort capacity and at a capacity of
-    5 (many chunks at small sizes), bitwise against the plain version on
-    the seeded grid and the edge cases the card-only tests use."""
+    """The kernel's two routes, each at its capacities and at capacities of
+    a few keys, bitwise against the plain version on the seeded grid and
+    the edge cases the card-only tests use: the staged route's radix
+    select, and the long route's first digit, candidate buffer, digits
+    over the row when the buffer overflows, and chunks."""
     if case.startswith("seed"):
         score, valid, quotas, k = topk_case(int(case[4:]))
         k = max(min(k, score.shape[1]), 1)
@@ -150,7 +256,10 @@ def test_seg_topk_radix_model_matches_plain(case, cap):
     want = TSEL_REF.seg_topk_ref(torch.as_tensor(score),
                                  torch.as_tensor(valid),
                                  torch.as_tensor(quotas), k)
-    got = radix_topk_model(score, valid, quotas, k, cap=cap)
+    if isinstance(cap, tuple):
+        got = long_topk_model(score, valid, quotas, k, *cap)
+    else:
+        got = radix_topk_model(score, valid, quotas, k, cap=cap)
     for name, g, w in zip(("cols", "take", "counts"), got, want):
         np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
 
