@@ -5,8 +5,9 @@ Production behaviors, testable on the CPU with injected failures:
   * checkpoint/restart: resume from the latest atomic checkpoint; a step
     that raises is retried after restoring state (transient-failure model);
     repeated failures at the same step abort (poison-step model).
-  * straggler mitigation: per-step wall time tracked with an EWMA; steps
-    slower than ``straggler_factor`` x EWMA are counted and surfaced via the
+  * straggler mitigation: per-step time (``time.perf_counter``, a clock
+    that does not jump) tracked with an EWMA; steps slower than
+    ``straggler_factor`` x EWMA are counted and surfaced via the
     ``on_straggler`` hook.
   * heartbeat: a liveness file updated every step (what a cluster agent
     watches to detect a hung worker and restart the job).
@@ -16,7 +17,9 @@ Production behaviors, testable on the CPU with injected failures:
 A step's time ends when its work on the card has: where the new state
 holds a CUDA tensor, the driver synchronizes that device (the reference
 blocks on the first leaf). A state holding a module (``(model, opt)``) is
-restored in place: the module's parameters are overwritten.
+restored in place: the module's parameters are overwritten. The step runs
+in the span ``train.step``, its synchronisation in ``train.sync``
+(``obs/spans.py``).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.checkpoint import sharded as ckpt
+from repro_torch.obs.spans import span
 
 
 @dataclass
@@ -96,12 +100,14 @@ class TrainDriver:
             batch = next(it)
             retries = 0
             while True:
-                t0 = time.time()
+                t0 = time.perf_counter()
                 try:
                     if self.failure_injector is not None:
                         self.failure_injector(step)
-                    new_state, metrics = self.step_fn(state, batch)
-                    block_until_ready(new_state)
+                    with span("train.step"):
+                        new_state, metrics = self.step_fn(state, batch)
+                        with span("train.sync"):
+                            block_until_ready(new_state)
                     break
                 except RuntimeError:
                     retries += 1
@@ -113,7 +119,7 @@ class TrainDriver:
                     if last is not None:
                         state = ckpt.restore(self.cfg.checkpoint_dir, last,
                                              state)
-            dt = time.time() - t0
+            dt = time.perf_counter() - t0
             ewma = self.stats.step_time_ewma
             if ewma > 0 and dt > self.cfg.straggler_factor * ewma:
                 self.stats.stragglers += 1

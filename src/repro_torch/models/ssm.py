@@ -28,6 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamSpec, dtype_of
 from repro_torch.numerics import fused_mul_add
+from repro_torch.obs.spans import span
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -190,30 +191,33 @@ def mamba_block(p, u: torch.Tensor, cfg: ModelConfig, *, impl: str = "cuda"
     """Full-sequence Mamba2 block (prefill). u: [B,S,D] -> ([B,S,D],
     h_final [B,H,P,N]). The scan goes through the ``ssd_scan`` op (K8 on a
     CUDA tensor) with ``impl="cuda"``, straight to its plain version with
-    ``impl="ref"``; B and C stay per group ([B,S,G,N])."""
+    ``impl="ref"``; B and C stay per group ([B,S,G,N]). Spans: the block
+    in ``mamba.block``, its scan in ``mamba.scan``."""
     # imported here: the kernel's plain version imports this module
     from repro_torch.kernels.ssd_scan import ops as SSD
     s: SSMConfig = cfg.ssm
     di, nh, g, n = ssm_dims(cfg)
     B, S, _ = u.shape
-    un = rms_norm(u, p["norm"], cfg.rms_eps)
-    x, z, bb, cc, dtv = _project(p, un, cfg)
-    x = F.silu(_causal_conv(x, p["conv_x"]))
-    bb = F.silu(_causal_conv(bb, p["conv_B"]))
-    cc = F.silu(_causal_conv(cc, p["conv_C"]))
-    dt_f, A = _decay(p, dtv)                                      # [B,S,H]
-    a = dt_f * A                                                  # log-decay
-    xh = x.reshape(B, S, nh, s.head_dim)
-    xdt = xh.to(torch.float32) * dt_f[..., None]
-    y, h_fin = SSD.ssd_scan(xdt, a, bb.reshape(B, S, g, n),
-                            cc.reshape(B, S, g, n),
-                            chunk=min(s.chunk_size, S), impl=impl)
-    y = y + p["D"].to(torch.float32)[None, None, :, None] * xh.to(
-        torch.float32)
-    y = y.reshape(B, S, di)
-    y = rms_norm(y.to(u.dtype) * F.silu(z), p["gnorm"], cfg.rms_eps)
-    out = y @ p["wo"].to(dtype_of(cfg.dtype))
-    return u + out, h_fin
+    with span("mamba.block"):
+        un = rms_norm(u, p["norm"], cfg.rms_eps)
+        x, z, bb, cc, dtv = _project(p, un, cfg)
+        x = F.silu(_causal_conv(x, p["conv_x"]))
+        bb = F.silu(_causal_conv(bb, p["conv_B"]))
+        cc = F.silu(_causal_conv(cc, p["conv_C"]))
+        dt_f, A = _decay(p, dtv)                                  # [B,S,H]
+        a = dt_f * A                                              # log-decay
+        xh = x.reshape(B, S, nh, s.head_dim)
+        xdt = xh.to(torch.float32) * dt_f[..., None]
+        with span("mamba.scan"):
+            y, h_fin = SSD.ssd_scan(xdt, a, bb.reshape(B, S, g, n),
+                                    cc.reshape(B, S, g, n),
+                                    chunk=min(s.chunk_size, S), impl=impl)
+        y = y + p["D"].to(torch.float32)[None, None, :, None] * xh.to(
+            torch.float32)
+        y = y.reshape(B, S, di)
+        y = rms_norm(y.to(u.dtype) * F.silu(z), p["gnorm"], cfg.rms_eps)
+        out = y @ p["wo"].to(dtype_of(cfg.dtype))
+        return u + out, h_fin
 
 
 def _conv_step(buf: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
@@ -228,9 +232,12 @@ def _conv_step(buf: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
 def state_update(h, da, xh, bh, dt_f) -> torch.Tensor:
     """h [B,H,P,N] * da [B,H] + outer(xh [B,H,P], bh [B,H,N] * dt_f [B,H]):
     the jitted reference forms ``b * dt`` first (its einsum
-    "bhn,bhp,bh->bhpn") and rounds the multiply-add once."""
-    return fused_mul_add(h, da[..., None, None],
-                         xh[..., None] * (bh * dt_f[..., None])[:, :, None, :])
+    "bhn,bhp,bh->bhpn") and rounds the multiply-add once (span
+    ``mamba.state``)."""
+    with span("mamba.state"):
+        return fused_mul_add(
+            h, da[..., None, None],
+            xh[..., None] * (bh * dt_f[..., None])[:, :, None, :])
 
 
 def mamba_decode_step(p, u: torch.Tensor, cache: MambaCache,

@@ -13,6 +13,8 @@
                ``export``/``dashboard`` surfaces: Chrome-trace JSON of the
                migration rings, Prometheus text exposition of fleet
                counters, and a markdown fleet dashboard CLI.
+  the port's — ``spans``: host and device time of the serve, prefill and
+               train steps' layers (off unless ``spans.enable()``).
 """
 from repro_torch.obs.export import (chrome_trace, fleet_exposition,
                                     rollout_exposition,

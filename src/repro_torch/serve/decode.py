@@ -16,6 +16,7 @@ has no paged KV and no tiering step, only ``{"mamba": MambaCache}``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -29,8 +30,18 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as TF
 from repro_torch.models.params import dtype_of
+from repro_torch.obs.spans import span
 
 IMPLS = ("cuda", "ref")
+
+
+def _step_span(serve_step):
+    """``serve_step`` inside the span ``serve.step``."""
+    @functools.wraps(serve_step)
+    def step(model, state, tokens: torch.Tensor):
+        with span("serve.step"):
+            return serve_step(model, state, tokens)
+    return step
 
 
 def fast_budget_pages(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
@@ -115,7 +126,11 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     impl "cuda" (the default on a card) runs the attention and the page
     moves through the hand-written kernels' wrappers; "ref" (the default on
     the CPU) calls their plain versions directly, on any device. The step
-    runs under ``torch.no_grad``."""
+    runs under ``torch.no_grad``. Its spans (``obs/spans.py``):
+    ``serve.step`` around it, and inside ``serve.alloc`` (the page
+    allocation), ``serve.attention`` (each KV layer's append and tiered
+    attention), ``serve.mamba`` (each Mamba2 layer) and ``serve.tiering``
+    (the tiering step)."""
     TF.model_specs(cfg)                  # raises for an unknown family
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
@@ -130,13 +145,15 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 
     def mamba_layer(model, x, mc: S.MambaCache, idx: int):
         """Layer ``idx``'s Mamba2 decode step; its state updated in place."""
-        x, new = S.mamba_decode_step(model.layer(idx), x,
-                                     S.MambaCache(*(c[idx] for c in mc)), cfg)
-        for c, n in zip(mc, new):
-            c[idx].copy_(n)
+        with span("serve.mamba"):
+            x, new = S.mamba_decode_step(
+                model.layer(idx), x, S.MambaCache(*(c[idx] for c in mc)), cfg)
+            for c, n in zip(mc, new):
+                c[idx].copy_(n)
         return x
 
     if cfg.family == "ssm":
+        @_step_span
         @torch.no_grad()
         def serve_step(model: TF.SSMLM, state, tokens: torch.Tensor):
             """The reference's ssm branch: no paged KV (its fast budget is
@@ -160,18 +177,20 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
         def attend(q, k, v):
             fk, fv = kv.fast_k[i], kv.fast_v[i]
             sk, sv = kv.slow_k[i], kv.slow_v[i]
-            KC.append_token_kv(fk, fv, sk, sv, kv, lpage, k, v)
-            out, mf, ms = KC.tiered_paged_attention(
-                q, fk, fv, sk, sv, kv.fast_page, kv.slow_page, kv.seq_len,
-                window=window, impl=impl)
-            masses[0] = masses[0] + mf
-            masses[1] = masses[1] + ms
+            with span("serve.attention"):
+                KC.append_token_kv(fk, fv, sk, sv, kv, lpage, k, v)
+                out, mf, ms = KC.tiered_paged_attention(
+                    q, fk, fv, sk, sv, kv.fast_page, kv.slow_page,
+                    kv.seq_len, window=window, impl=impl)
+                masses[0] = masses[0] + mf
+                masses[1] = masses[1] + ms
             return out
         return attend
 
     def begin(state, model, tokens):
-        kv, lpage = KC.alloc_page_for_append(state["kv"], tcfg, policy,
-                                             budget)
+        with span("serve.alloc"):
+            kv, lpage = KC.alloc_page_for_append(state["kv"], tcfg, policy,
+                                                 budget)
         masses = [torch.zeros(kv.fast_page.shape, dtype=torch.float32,
                               device=dev),
                   torch.zeros(kv.slow_page.shape, dtype=torch.float32,
@@ -179,12 +198,14 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
         return kv, lpage, masses, TF.embed_tokens(model, tokens, cfg)
 
     def tiering(kv: KC.TieredKVCache, masses: list):
-        kv = kv._replace(seq_len=kv.seq_len + 1)
-        return equilibria_kv_step(kv, masses[0] / n_layers,
-                                  masses[1] / n_layers, tcfg, policy, budget,
-                                  mode=mode, impl=impl)
+        with span("serve.tiering"):
+            kv = kv._replace(seq_len=kv.seq_len + 1)
+            return equilibria_kv_step(kv, masses[0] / n_layers,
+                                      masses[1] / n_layers, tcfg, policy,
+                                      budget, mode=mode, impl=impl)
 
     if cfg.family in ("dense", "moe"):
+        @_step_span
         @torch.no_grad()
         def serve_step(model: TF._LM, state, tokens: torch.Tensor):
             """Dense and moe (``moe_block_decode`` in place of the MLP)."""
@@ -204,6 +225,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
         return lambda p, a: cross_attend(p, a, ck, cv, cfg)
 
     if cfg.family == "encdec":
+        @_step_span
         @torch.no_grad()
         def serve_step(model: TF.EncDecLM, state, tokens: torch.Tensor):
             """The reference's encdec branch: each decoder layer attends
@@ -224,6 +246,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
     if cfg.family == "vlm":
         n_self = cfg.cross_attn_every - 1
 
+        @_step_span
         @torch.no_grad()
         def serve_step(model: TF.VisionLM, state, tokens: torch.Tensor):
             """The reference's vlm branch: self layer j of unit u uses KV
@@ -247,6 +270,7 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
 
     every = cfg.hybrid_attn_every
 
+    @_step_span
     @torch.no_grad()
     def serve_step(model: TF.HybridLM, state, tokens: torch.Tensor):
         """The reference's hybrid branch: before every ``every``-th Mamba2

@@ -18,6 +18,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.params import dtype_of
 from repro_torch.models.transformer import (cast_params, model_forward,
                                             model_specs)
+from repro_torch.obs.spans import span
 from repro_torch.optim.adamw import OptState, adamw_update, flat_params
 
 IMPLS = ("cuda", "ref")
@@ -73,7 +74,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
     the batch splits into n along its first axis, a Python loop
     accumulates float32 gradients and divides by n, and the metrics carry
     no ``ce``/``moe_aux``, as the reference's scan does. metrics:
-    {"loss", "grad_norm", "lr"} (+ {"ce", "moe_aux"}), detached scalars."""
+    {"loss", "grad_norm", "lr"} (+ {"ce", "moe_aux"}), detached scalars.
+    Spans: ``train.forward`` (each loss), ``train.backward`` (each
+    ``backward()``, rematerialised forwards included) and
+    ``train.optimizer``."""
     model_specs(cfg)                      # raises for an unknown family
     impl = _resolve_impl(impl, device)
     loss_fn = make_loss_fn(cfg, tc, impl=impl)
@@ -81,8 +85,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
     def grads_of(params, model, batch):
         for p in params.values():
             p.grad = None
-        loss, extras = loss_fn(model, batch)
-        loss.backward()
+        with span("train.forward"):
+            loss, extras = loss_fn(model, batch)
+        with span("train.backward"):
+            loss.backward()
         return loss.detach(), {k: v.detach() for k, v in extras.items()}
 
     def train_step(model, opt: OptState, batch: Dict[str, torch.Tensor]):
@@ -109,7 +115,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, *,
         else:
             loss, extras = grads_of(params, model, batch)
             grads = {k: p.grad for k, p in params.items()}
-        _, opt, metrics = adamw_update(params, grads, opt, tc)
+        with span("train.optimizer"):
+            _, opt, metrics = adamw_update(params, grads, opt, tc)
         return opt, {"loss": loss, **metrics, **extras}
 
     return train_step
@@ -126,12 +133,13 @@ def make_prefill_step(cfg: ModelConfig, *, impl: Optional[str] = None,
     versions with ``impl="ref"`` (the default on the CPU); the MoE products
     are plain torch in both. Only the last position goes through the
     logits matmul (the reference computes all positions and keeps the
-    last; the rows are independent). It runs under ``torch.no_grad``."""
+    last; the rows are independent). It runs under ``torch.no_grad``, in
+    the span ``prefill.step``."""
     model_specs(cfg)                      # raises for an unknown family
     impl = _resolve_impl(impl, device)
 
     def prefill_step(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        with torch.no_grad():
+        with torch.no_grad(), span("prefill.step"):
             return model_forward(model, batch, impl=impl, last_only=True
                                  )[:, 0]
 

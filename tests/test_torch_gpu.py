@@ -1220,3 +1220,43 @@ def test_train_step_launches_per_layer_on_card(remat, per_layer, cuda):
         n0 = op.launches
         model, _ = _train_once(arch, "cuda", remat, cuda)
         assert op.launches - n0 == per_layer * model.cfg.num_layers, arch
+
+
+@pytest.mark.gpu
+def test_spans_time_the_device_and_skip_capture(cuda):
+    """The span recorder on the card: its events give each span's device
+    time, a child's within its parent's; under ``torch.cuda.graph`` capture
+    it records nothing, and the captured graph replays."""
+    from repro_torch.obs import spans
+    a = torch.randn(2048, 2048, device=cuda)
+    spans.reset()
+    spans.enable()
+    try:
+        for _ in range(3):
+            with spans.span("serve.step"):
+                with spans.span("serve.mamba"):
+                    b = a @ a
+                b = b + 1
+        torch.cuda.synchronize()
+        rows = spans.summary()
+        step, child = rows["serve.step"], rows["serve.mamba"]
+        assert (step["steps"], step["calls"], child["calls"]) == (3, 3, 3)
+        assert 0 < child["device_ms"] <= step["device_ms"]
+        assert step["self_device_ms"] >= -1e-3
+        spans.reset()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            c = a @ a                        # warm the product off the graph
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            with spans.span("serve.step"):
+                c = a @ a
+        graph.replay()
+        torch.cuda.synchronize()
+        assert spans.summary() == {}
+        assert torch.allclose(c, b - 1, rtol=1e-3, atol=1e-2)
+    finally:
+        spans.disable()
+        spans.reset()
