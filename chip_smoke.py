@@ -34,17 +34,23 @@ one line each, each with its duration:
      versions on the card at full width: K5 at S1's and S3's widths in bf16
      and f32, window None and 40, free slots, mid-page lengths; K6 bitwise
      in bf16 and f32, one pool and K+V in one launch, at S1's and S3's
-     pages, odd page sizes, unaligned pools, indices out of range
+     pages, odd page sizes, unaligned pools, indices out of range; D1 (the
+     Mamba2 decode-state kernel) at Zamba2's and mamba2-130m's widths at
+     B=256 and 3 and at 16 x 16, x/B/C in bf16 (the conv step's views and
+     contiguous) and f32, on layer 2 of a stacked cache: the state in place
+     bit for bit, the other layers untouched, y within ``D1_TOL``
   9. serving at full width: Llama 3.2 1B (random weights from a seed), 4
      tenants, 64 sequences, 512 decode steps, equilibria, impl "cuda" vs
      "ref" step by step from a shared state on teacher-forced tokens; then
-     tpp and static for 64 steps each; K5 and K6 must launch
+     tpp and static for 64 steps each; K5 and K6 must launch, D1 must not
  10. decode == full-sequence forward at full width in float32 (TF32 off),
      4 sequences x 128 steps, with pages migrating
  11. serving kernels: time, launches per step, bound, plain, library times
      (K5's yardstick: the faster of scaled_dot_product_attention with
      expanded K/V and with enable_gqa=True); the earlier designs' times;
-     K6 as one pool and as the K+V pair the tiering step launches
+     K6 as one pool and as the K+V pair the tiering step launches; D1 at
+     the decode cell's B=256 (Zamba2's and mamba2-130m's widths) beside its
+     plain version, the plain version plus the cache copy, and its bound
  12. where one decode step's device time goes (torch.profiler), and each
      serving op's device launches per op call
  13. prefill kernels (K7 flash attention, K8 SSD scan) vs plain versions on
@@ -68,10 +74,12 @@ one line each, each with its duration:
      and K8 over the whole length (128 chunks of state carry)
  15. hybrid serving at full width: Zamba2-7B at depth 24, 4 tenants, 32 sequences, 256
      decode steps, equilibria, cuda vs ref step by step; tpp and static 16
-     steps each; one profiled step; K5 and K6 must launch; K5 and K6 timed
-     at S3's widths on the run's own cache, as in phase 11
+     steps each; one profiled step; K5 and K6 must launch, D1 once a Mamba2
+     layer a step; D1 on each layer slice of the run's own final state with
+     the inputs the path last gave the layer, held as in phase 8; K5 and K6
+     timed at S3's widths on the run's own cache, as in phase 11
  16. hybrid decode == full-sequence forward (K7 and K8) in float32, 4
-     sequences x 64 steps, with pages migrating
+     sequences x 64 steps, with pages migrating; D1 held as in phase 15
  17. prefill kernels: time, launches per prefill, bound, plain and library
      (``scaled_dot_product_attention`` for K7; none for K8) times, the
      earlier designs' times; K8 also at S=32,768
@@ -140,8 +148,9 @@ one line each, each with its duration:
      28-30, 32-33) counts K7's launches by the route the launcher reports
      and requires all of them on the wgmma kernel (P5: 8 of 8)
  30. mamba2-130m: the prefill through K8 (24 op calls), 64 x 256 serving
-     (cuda == ref bitwise; no kernel on the decode path) and decode ==
-     forward in f32 over 4 x 64 steps
+     (D1 its one kernel, once a layer a step; cuda vs ref: layer 0's state
+     bitwise, the logits within the bf16 bound; D1 held as in phase 15)
+     and decode == forward in f32 over 4 x 64 steps
  31. K5 at each new (H, K, D) over random pools of 4,000-6,000 tokens
      (past a 4,096 window), bf16 and f32; K6 bitwise at each new page
      size; K7 at each new head shape, causal and window 4,096, S = 4,096
@@ -262,6 +271,9 @@ SERVE_REPLACES = {
     "pool_attention_partial":
         "src/repro/kernels/tiered_attention/kernel.py:99",
     "migrate_pages": "src/repro/kernels/migrate/kernel.py:50",
+    # D1, the Mamba2 decode-state kernel, replaces none: the reference's
+    # decode step (src/repro/models/ssm.py mamba_decode_step) is plain jnp
+    "ssd_decode": None,
 }
 # serving: the measured load (the configs' SERVE_LOAD under
 # repro_torch.launch.serve.full_load), 16 layers
@@ -298,6 +310,14 @@ K7_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # H100 (PERF.md), while a kernel computing in bf16 or TF32 (~1e-3
 # relative) fails this bound
 K8_ATOL, K8_RTOL = 1e-5, 1e-4
+# D1 vs its plain version: the state bit for bit (the same float64
+# multiply-add, one rounding), y within atol and rtol 1e-5 (float32 sums
+# over N in another order)
+D1_TOL = 1e-5
+# D1 timed at the decode cell's batch: (B, H, P, N, G) of Zamba2-7B's
+# Mamba2 layers and of mamba2-130m's
+D1_WIDTHS = {"zamba2": (256, 112, 64, 64, 2),
+             "mamba2_130m": (256, 32, 48, 128, 1)}
 PATH_TAIL = 1024     # K7's query rows checked on the S=32,768 path
 # card times of the earlier designs of K1 (a block-wide argmax per winner),
 # K2 (a block scan per 1,024-lane chunk with a running carry), K3 (a block
@@ -320,6 +340,7 @@ DEVICE_KERNELS = {
     "pool_attention_partial": ("pool_attention_split_kernel",
                                "pool_attention_merge_kernel"),
     "migrate_pages": ("migrate_pages_kernel",),
+    "ssd_decode": ("ssd_decode_state_kernel",),
     "ssd_scan": ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                  "ssd_chunk_out_kernel"),
 }
@@ -811,6 +832,163 @@ def check_serve_kernels(torch, np, TA, TA_REF, KMIG, KMIG_REF):
                 del pools
     torch.cuda.synchronize()
     return err, cases
+
+
+def ssd_decode_inputs(torch, B, H, P, N, G, seed: int, dtype, conv: bool,
+                      layers: int = 4):
+    """Seeded inputs of D1 on the card: a stacked [layers, B, H, P, N]
+    float32 state, x [B,H,P] and b, c [B,G,N] in ``dtype`` (with ``conv``
+    as the conv step's outputs are: transposed views of [C, B] tensors,
+    else contiguous), dt (softplus of N(0, 1.2), as the init's), da =
+    exp(-dt) and D [H]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def low(cols):
+        t = (torch.randn((cols, B) if conv else (B, cols), generator=g,
+                         device="cuda") * 0.5).to(dtype)
+        return t.t() if conv else t
+
+    h = torch.randn((layers, B, H, P, N), generator=g, device="cuda")
+    x = low(H * P).reshape(B, H, P)
+    b = low(G * N).reshape(B, G, N)
+    c = low(G * N).reshape(B, G, N)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, H), generator=g, device="cuda") * 1.2)
+    D = 1.0 + 0.1 * torch.randn(H, generator=g, device="cuda")
+    return h, x, b, c, dt, torch.exp(-dt), D
+
+
+def bitwise(torch, a, b) -> bool:
+    """Equal float32 tensors bit for bit (NaNs included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_ssd_decode(torch, SDEC, SDEC_REF):
+    """D1 against its plain version on the card: at the decode cell's B=256
+    with Zamba2-7B's and mamba2-130m's widths, at B=3 with each and at the
+    smoke configs' 16 x 16 (B=5); x, B and C in bf16 (as the conv step's
+    transposed views, and contiguous) and in float32; on layer slice 2 of a
+    stacked [4, B, H, P, N] cache: the slice updated in place and equal to
+    the plain state bit for bit, the other layers untouched, y within
+    ``D1_TOL``, one launch a call. Returns (max |y - plain y|, cases)."""
+    err, cases = 0.0, 0
+    for B, H, P, N, G in (*D1_WIDTHS.values(), (3, 112, 64, 64, 2),
+                          (3, 32, 48, 128, 1), (5, 8, 16, 16, 1)):
+        for dtype, conv in ((torch.bfloat16, True), (torch.bfloat16, False),
+                            (torch.float32, True)):
+            h, x, b, c, dt, da, D = ssd_decode_inputs(
+                torch, B, H, P, N, G, 8 + cases, dtype, conv)
+            before = h.clone()
+            want_h, want_y = SDEC_REF.ssd_decode_ref(h[2], x, b, c, dt, da, D)
+            n0 = SDEC.ssd_decode.launches
+            got_h, got_y = SDEC.ssd_decode(h[2], x, b, c, dt, da, D)
+            torch.cuda.synchronize()
+            what = (f"D1 B={B} H={H} P={P} N={N} G={G} {dtype} "
+                    f"{'conv views' if conv else 'contiguous'}")
+            require(SDEC.ssd_decode.launches == n0 + 1
+                    and got_h.data_ptr() == h[2].data_ptr(),
+                    f"{what}: not one launch in place")
+            require(bitwise(torch, h[2], want_h), f"{what}: state != plain")
+            require(all(bitwise(torch, h[i], before[i]) for i in (0, 1, 3)),
+                    f"{what}: another layer of the cache moved")
+            d = float((got_y - want_y).abs().max())
+            err = max(err, d)
+            require(torch.allclose(got_y, want_y, atol=D1_TOL, rtol=D1_TOL),
+                    f"{what}: y max abs err {d}")
+            cases += 1
+            del h, before, want_h, want_y, got_y
+    torch.cuda.empty_cache()
+    return err, cases
+
+
+def d1_numbers(torch, SDEC, SDEC_REF, B, H, P, N, G) -> dict:
+    """D1 timed on layer 1 of a stacked cache with x, B and C as the conv
+    step's bf16 views: the kernel, its plain version, the plain version
+    plus the copy of the new state into the cache (the decode step's path
+    before D1), and its bound (one read and one write of the state at 3.35
+    TB/s)."""
+    h, x, b, c, dt, da, D = ssd_decode_inputs(torch, B, H, P, N, G, 11,
+                                              torch.bfloat16, True)
+    layer = h[1]
+
+    def plain_copy():
+        new, _ = SDEC_REF.ssd_decode_ref(layer, x, b, c, dt, da, D)
+        layer.copy_(new)
+
+    nbytes = 2 * B * H * P * N * 4
+    out = dict(
+        ms=device_ms(lambda: SDEC.ssd_decode(layer, x, b, c, dt, da, D)),
+        plain_ms=device_ms(
+            lambda: SDEC_REF.ssd_decode_ref(layer, x, b, c, dt, da, D), n=10),
+        plain_copy_ms=device_ms(plain_copy, n=10),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bytes=nbytes)
+    del h, layer
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def d1_inputs(SDEC, n_layers: int, found: dict):
+    """While active, the inputs but the state of each card call of
+    ``ssd_decode`` under impl "cuda" are kept in ``found`` by layer (the
+    call's index mod ``n_layers``: a step calls it once a layer, in order),
+    the last of each layer last. The op counts its launches on the module's
+    global of its name, the hook while it is active; the count is carried
+    over both ways."""
+    orig = SDEC.ssd_decode
+    calls = [0]
+
+    def hooked(h, *ins, impl="cuda"):
+        if impl == "cuda" and h.is_cuda:
+            found[calls[0] % n_layers] = ins
+            calls[0] += 1
+        return orig(h, *ins, impl=impl)
+
+    hooked.launches = orig.launches
+    SDEC.ssd_decode = hooked
+    try:
+        yield
+    finally:
+        SDEC.ssd_decode = orig
+        orig.launches = hooked.launches
+
+
+def d1_replay(torch, SDEC, SDEC_REF, hs, found: dict, label: str) -> float:
+    """D1 on each layer slice of a run's own stacked state ``hs`` [L, B, H,
+    P, N] (left as it is: the calls update a copy), with the inputs the
+    path last gave that layer (``d1_inputs``), against the plain version:
+    each slice updated in place and equal bit for bit, the layers after it
+    untouched, y within ``D1_TOL``, one launch a call. Returns the largest
+    |y - plain y|."""
+    L = hs.shape[0]
+    require(sorted(found) == list(range(L)),
+            f"{label}: D1's inputs seen for layers {sorted(found)} of {L}")
+    work, err = hs.clone(), 0.0
+    for idx in range(L):
+        want_h, want_y = SDEC_REF.ssd_decode_ref(hs[idx], *found[idx])
+        n0 = SDEC.ssd_decode.launches
+        got_h, got_y = SDEC.ssd_decode(work[idx], *found[idx])
+        torch.cuda.synchronize()
+        what = f"{label}: D1 on layer {idx} of the run's state {_shape(hs)}"
+        require(SDEC.ssd_decode.launches == n0 + 1
+                and got_h.data_ptr() == work[idx].data_ptr(),
+                f"{what}: not one launch in place")
+        require(bitwise(torch, work[idx], want_h), f"{what}: state != plain")
+        require(bitwise(torch, work[idx + 1:], hs[idx + 1:]),
+                f"{what}: a later layer moved")
+        d = float((got_y - want_y).abs().max())
+        require(torch.allclose(got_y, want_y, atol=D1_TOL, rtol=D1_TOL),
+                f"{what}: y max abs err {d}")
+        err = max(err, d)
+    del work
+    return err
+
+
+def d1_launches(cfg, steps: int) -> int:
+    """D1's launches in ``steps`` decode steps of ``cfg``'s serve step under
+    impl "cuda": one a Mamba2 layer a step (the hybrid and ssm families'
+    layers are all Mamba2 layers; the others have none)."""
+    return cfg.num_layers * steps if cfg.family in ("hybrid", "ssm") else 0
 
 
 # ----------------------------------------------------------- phase 9 ----
@@ -2650,7 +2828,9 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
         check_compare(np, run, TOL["bf16"], f"{tag}-agree",
                       hold_floats=not layered)
         for name, n in launches.items():
-            require(n > 0, f"{tag}: the serving path never launched {name}")
+            want = d1_launches(cfg, steps) if name == "ssd_decode" else None
+            require(n > 0 if want is None else n == want,
+                    f"{tag}: the serving path launched {name} {n} times")
         if need_moves:
             require(promos > 0 and demos > 0 and moved, f"{tag}: promotions "
                     f"{promos}, demotions {demos}, K6 held on the path "
@@ -2728,11 +2908,16 @@ def serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
 
 def ssm_serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
                    seed: int, tag: str) -> dict:
-    """The ssm family's serving: no paged KV, no tiering step and no kernel
-    on the decode path. impl "cuda" and "ref" step by step from a shared
-    state must agree bitwise (logits and the Mamba2 state); then decode ==
-    full-sequence forward (K8) in float32. Returns the run's numbers."""
-    SD = env["SD"]
+    """The ssm family's serving: no paged KV and no tiering step; D1 once a
+    Mamba2 layer a step. impl "cuda" and "ref" step by step from a shared
+    state: layer 0's Mamba2 state bit for bit (its inputs are the same),
+    the logits within the bf16 bound of max |logit| (D1's y sums in another
+    order, so a later layer's input can differ in its last bf16 bit, as K5's
+    outputs do in phase 9), the state's largest gap reported; D1 launched
+    once a layer a step and held on the run's own final state
+    (``d1_replay``); then decode == full-sequence forward (K8) in float32.
+    Returns the run's numbers."""
+    SD, SDEC = env["SD"], env["SDEC"]
     cfg = model.cfg
     tcfg = env["full_load"](cfg, batch, steps)
     toks = torch.as_tensor(np.random.default_rng(seed).integers(
@@ -2744,7 +2929,9 @@ def ssm_serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
     torch.cuda.reset_peak_memory_stats()
     e0 = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
     e1 = [torch.cuda.Event(enable_timing=True) for _ in range(steps)]
-    with torch.no_grad():
+    logit_rel, state_rel, d1_in = [], 0.0, {}
+    n0 = SDEC.ssd_decode.launches
+    with torch.no_grad(), d1_inputs(SDEC, cfg.num_layers, d1_in):
         for i in range(steps):
             ref_state = clone_state(torch, state)
             tok = toks[:, i:i + 1]
@@ -2754,19 +2941,40 @@ def ssm_serve_cell(torch, np, env: dict, model, *, batch: int, steps: int,
             lr, ref_state = step_r(model, ref_state, tok)
             require(bool(torch.isfinite(lc).all()), f"{tag} step {i}: "
                     "non-finite logits")
-            require(torch.equal(lc, lr), f"{tag} step {i}: logits differ")
-            require_same_tree(torch, state["mamba"], ref_state["mamba"],
-                              f"{tag} step {i}")
+            logit_rel.append(float((lc.float() - lr.float()).abs().max()
+                                   / lr.float().abs().max()))
+            for f in state["mamba"]._fields:
+                a = getattr(state["mamba"], f)
+                b = getattr(ref_state["mamba"], f)
+                require(torch.equal(a[0], b[0]), f"{tag} step {i}: layer "
+                        f"0's {f} differs")
+                state_rel = max(state_rel, float(
+                    (a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30)))
     torch.cuda.synchronize()
+    launched = SDEC.ssd_decode.launches - n0
+    require(launched == d1_launches(cfg, steps),
+            f"{tag}: D1 launched {launched} times, want "
+            f"{d1_launches(cfg, steps)}")
+    require(max(logit_rel) <= TOL["bf16"]["logit_rtol"],
+            f"{tag}: logits differ by {max(logit_rel):.3g} of max |logit|")
+    d1_err = d1_replay(torch, SDEC, env["SDEC_REF"], state["mamba"].h, d1_in,
+                       tag)
     ms = sorted(a.elapsed_time(b) for a, b in zip(e0, e1))
     mean = sum(ms) / len(ms)
     out = dict(step_ms=mean, median_ms=ms[len(ms) // 2],
                p90_ms=ms[int(len(ms) * 0.9)],
                tokens_per_s=batch / (mean / 1e3),
-               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               d1_launches=launched, d1_err=d1_err)
     phase(tag, f"{cfg.name} {cfg.num_layers} Mamba2 layers, {batch} seqs x "
-          f"{steps} steps, bf16: cuda == ref bitwise every step (logits and "
-          f"the Mamba2 state; no kernel on the decode path); step ms mean "
+          f"{steps} steps, bf16: cuda vs ref every step: layer 0's Mamba2 "
+          f"state bitwise, logits rel err max {max(logit_rel):.3g} median "
+          f"{float(np.median(logit_rel)):.3g} <= "
+          f"{TOL['bf16']['logit_rtol']}, Mamba2 state max rel "
+          f"{state_rel:.3g}; D1 launches {launched} ({cfg.num_layers} a "
+          f"step), on the run's final state bitwise, y max abs err "
+          f"{d1_err:.3g}; step ms mean "
           f"{mean:.3f} median {out['median_ms']:.3f} p90 {out['p90_ms']:.3f}"
           f" (CUDA events); decode {out['tokens_per_s']:.1f} tokens/s; peak "
           f"memory {out['peak_gib']:.2f} GiB")
@@ -3310,9 +3518,12 @@ def record_families(rows: list, fam: dict, prefill_rows: dict,
                                         f"{pr['launches']}, want {want}")
     # the new paths' launches, beside each row's main-path count
     by_name = {r["name"]: r for r in rows if "kernel" not in r}
+    d1 = by_name["ssd_decode"]
     for label, sv in fam["serve"].items():
-        if "launches" not in sv:
-            continue                   # ssm serving: no kernel
+        if "launches" not in sv:       # ssm serving: D1 its only kernel
+            d1.setdefault("family_launches", {})[label] = sv["d1_launches"]
+            d1["max_abs_err"] = max(d1["max_abs_err"], sv["d1_err"])
+            continue
         for k in ("pool_attention_partial", "migrate_pages"):
             fl = by_name[k].setdefault("family_launches", {})
             fl[label] = sv["launches"][k]
@@ -4799,6 +5010,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ref as FA_REF
     from repro_torch.kernels.ssd_scan import ops as SSD
     from repro_torch.kernels.ssd_scan import ref as SSD_REF
+    from repro_torch.kernels.ssd_decode import ops as SDEC
+    from repro_torch.kernels.ssd_decode import ref as SDEC_REF
     from repro_torch.launch.serve import full_load
     from repro_torch.memtier import kvcache as KC
     from repro_torch.models import layers as LAYERS
@@ -5117,10 +5330,20 @@ def main() -> int:
           "and S3's pools and a 15-element page, bf16/f32, aligned and "
           "unaligned pools, all-unselected, src slot == dst slot, indices "
           "out of range)")
+    serve_err["ssd_decode"], serve_cases["ssd_decode"] = check_ssd_decode(
+        torch, SDEC, SDEC_REF)
+    phase("8-serve-kernels", f"ssd_decode (D1): the state bit for bit and y "
+          f"within {D1_TOL} of plain (max abs err "
+          f"{serve_err['ssd_decode']:.3g}) over {serve_cases['ssd_decode']} "
+          "cases (Zamba2's H=112 P=64 N=64 G=2 and mamba2-130m's H=32 P=48 "
+          "N=128 at B=256 and 3, 16 x 16 at B=5; x/B/C bf16 as the conv "
+          "step's views and contiguous, f32; layer 2 of a stacked cache, "
+          "updated in place, the other layers untouched, one launch a call)")
 
     # ---- 9. tiered-KV serving at full width --------------------------------
     swrap = {"pool_attention_partial": TA.pool_attention_partial,
-             "migrate_pages": KMIG.migrate_pages}
+             "migrate_pages": KMIG.migrate_pages,
+             "ssd_decode": SDEC.ssd_decode}
     cfg = get_config("llama32_1b")
     B, steps = get_serve_load("llama32_1b")
     tcfg = full_load(cfg, B, steps)
@@ -5173,7 +5396,8 @@ def main() -> int:
     require(promos > 0 and demos > 0, f"serving: promotions {promos}, "
                                       f"demotions {demos}")
     for name, n in serve_launches.items():
-        require(n > 0, f"serving path never launched {name}")
+        require(n > 0 if name != "ssd_decode" else n == 0,
+                f"serving path launched {name} {n} times")
     side = []
     for mode in ("tpp", "static"):
         r = serve_compare(torch, np, ctx, mode, SIDE_STEPS, TOL["bf16"])
@@ -5254,6 +5478,19 @@ def main() -> int:
               f"{bw / 1e12:.3f} TB/s) launches/step "
               f"{serve_launches[name] / steps:g}")
 
+    d1 = {name: d1_numbers(torch, SDEC, SDEC_REF, *w)
+          for name, w in D1_WIDTHS.items()}
+    for name, kn in d1.items():
+        B_, H_, P_, N_, G_ = D1_WIDTHS[name]
+        phase("11-serve-kernel", f"ssd_decode (D1) [{name} B={B_} H={H_} "
+              f"P={P_} N={N_} G={G_}, x/B/C bf16 conv views, one layer of a "
+              f"stacked cache]: {kn['ms']:.4f} ms (plain "
+              f"{kn['plain_ms']:.4f}, plain + the cache copy "
+              f"{kn['plain_copy_ms']:.4f}, library none, bound "
+              f"{kn['bound_ms']:.5f} at 3.35 TB/s, {kn['bytes'] / bw * 1e3:.5f}"
+              f" at measured copy; {100 * kn['bound_ms'] / kn['ms']:.1f}% of "
+              "the bound)")
+
     # ---- 12. where one decode step's device time goes ---------------------
     step_c = SD.build_serve_step(cfg, tcfg, B, steps, impl="cuda")
     wall_ms, prof = profile_serve_step(
@@ -5266,7 +5503,7 @@ def main() -> int:
         n_dev, busy_ms, top, _ = prof
         ours = {k: [(t, c) for nm, t, c in top
                     if any(d in nm for d in DEVICE_KERNELS[k])]
-                for k in SERVE_REPLACES}
+                for k in SERVE_REPLACES if serve_launches[k]}
         for k, v in ours.items():
             per_call = sum(c for _, c in v) / (serve_launches[k] / steps)
             next(r for r in rows if r["name"] == k)[
@@ -5356,8 +5593,10 @@ def main() -> int:
                 model=zmodel, toks=ztoks_d, steps=zsteps, rec=rec)
     for w in swrap.values():
         w.launches = 0
-    zrun = serve_compare(torch, np, zctx, "equilibria", zsteps, TOL["bf16"],
-                         snapshot_at=zsteps // 2)
+    d1_in: dict = {}
+    with d1_inputs(SDEC, zcfg.num_layers, d1_in):
+        zrun = serve_compare(torch, np, zctx, "equilibria", zsteps,
+                             TOL["bf16"], snapshot_at=zsteps // 2)
     hyb_launches = {k: w.launches for k, w in swrap.items()}
     zpeak = torch.cuda.max_memory_allocated() / 2**30
     zkv = zrun["state"]["kv"]
@@ -5387,6 +5626,36 @@ def main() -> int:
     check_compare(np, zrun, TOL["bf16"], "15-hybrid-agree")
     for name, n in hyb_launches.items():
         require(n > 0, f"hybrid serving never launched {name}")
+    want_d1 = d1_launches(zcfg, zsteps)
+    require(hyb_launches["ssd_decode"] == want_d1,
+            f"hybrid serving launched D1 {hyb_launches['ssd_decode']} times, "
+            f"want {want_d1} ({zcfg.num_layers} Mamba2 layers x {zsteps} "
+            "steps)")
+    d1_err = d1_replay(torch, SDEC, SDEC_REF, zrun["state"]["mamba"].h,
+                       d1_in, "15-hybrid-kernel")
+    phase("15-hybrid-kernel", f"ssd_decode (D1) on each of the run's "
+          f"{zcfg.num_layers} layer slices of its own final state, with the "
+          "inputs the path last gave the layer (bf16 conv views), against "
+          "the plain version: the state bit for bit in place, the later "
+          f"layers untouched, y max abs err {d1_err:.3g} <= {D1_TOL}; "
+          f"launches on the path {hyb_launches['ssd_decode']} = "
+          f"{zcfg.num_layers} a step")
+    rows.append({
+        "name": "ssd_decode", "route": "cuda", "source": SERVE_SOURCE,
+        "replaces": SERVE_REPLACES["ssd_decode"],
+        "launches": hyb_launches["ssd_decode"],
+        "max_abs_err": max(serve_err["ssd_decode"], d1_err),
+        "ms": d1["zamba2"]["ms"], "plain_ms": d1["zamba2"]["plain_ms"],
+        "plain_copy_ms": d1["zamba2"]["plain_copy_ms"],
+        "bound_ms": d1["zamba2"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "launches_per_step": hyb_launches["ssd_decode"] / zsteps,
+        "bytes": d1["zamba2"]["bytes"],
+        "bound_copy_ms": d1["zamba2"]["bytes"] / bw * 1e3,
+        "widths": {name: dict(zip("BHPNG", w))
+                   for name, w in D1_WIDTHS.items()},
+        "mamba2_130m": d1["mamba2_130m"],
+    })
     require(zpromos > 0 and zdemos > 0, f"hybrid serving: promotions "
                                         f"{zpromos}, demotions {zdemos}")
     zstep_c = SD.build_serve_step(zcfg, ztcfg, zB, zsteps, impl="cuda")
@@ -5463,8 +5732,12 @@ def main() -> int:
     ztoks_fw = ztoks_d[:HYBRID_FWD_BATCH, :HYBRID_FWD_STEPS].contiguous()
     ctx32 = dict(zctx, cfg=z32.cfg, tcfg=tcfg_fw, model=z32, toks=ztoks_fw,
                  steps=HYBRID_FWD_STEPS)
-    r32 = serve_compare(torch, np, ctx32, "equilibria", HYBRID_FWD_STEPS,
-                        TOL["f32"])
+    d1_in = {}
+    with d1_inputs(SDEC, z32.cfg.num_layers, d1_in):
+        r32 = serve_compare(torch, np, ctx32, "equilibria",
+                            HYBRID_FWD_STEPS, TOL["f32"])
+    d1_err32 = d1_replay(torch, SDEC, SDEC_REF, r32["state"]["mamba"].h,
+                         d1_in, "16-hybrid-forward")
     SD.equilibria_kv_step = kv_step
     for w in pwrap.values():
         w.launches = 0
@@ -5485,8 +5758,12 @@ def main() -> int:
           f"{HYBRID_FWD_STEPS} steps: max |decode - forward| / max |logit| ="
           f" {fw_rel:.3g} <= {FWD_RTOL} with {fw_moves} page moves and "
           f"{fw_slow} slow pages; forward launches {fw_launches}; Mamba2 "
-          f"state cuda vs ref max rel {r32.get('mamba_rel', 0):.3g}")
+          f"state cuda vs ref max rel {r32.get('mamba_rel', 0):.3g}; D1 on the "
+          f"run's final state with f32 x/B/C: bitwise, y max abs err "
+          f"{d1_err32:.3g}")
     check_compare(np, r32, TOL["f32"], "16-hybrid-f32-agree")
+    d1_row = next(r for r in rows if r["name"] == "ssd_decode")
+    d1_row["max_abs_err"] = max(d1_row["max_abs_err"], d1_err32)
     del r32, dec, ref_logits, z32
     torch.cuda.empty_cache()
 
@@ -5615,6 +5892,7 @@ def main() -> int:
         F=F, SD=SD, TF=TF, KC=KC, LAYERS=LAYERS, TA=TA, TA_REF=TA_REF,
         KMIG=KMIG, RMIG=RMIG, FA=FA,
         FA_REF=FA_REF, swrap=swrap, pwrap=pwrap, full_load=full_load,
+        SDEC=SDEC, SDEC_REF=SDEC_REF,
         fused_mul_add=fused_mul_add, make_model=make_model,
         prefill_cell=prefill_cell, ssm_lm_forward=ssm_lm_forward,
         TieringConfig=TieringConfig, SSD=SSD, SSD_REF=SSD_REF)
@@ -5626,9 +5904,10 @@ def main() -> int:
     train = train_phases(torch, np, fam_env)
     record_train(rows, train)
     audit = analysis_phase(torch)
+    # D1 is not under the audit (None)
     for row in rows:
-        row["analysis_launches"] = audit["launches"][row.get("kernel",
-                                                             row["name"])]
+        row["analysis_launches"] = audit["launches"].get(
+            row.get("kernel", row["name"]))
     phase("done", f"{time.perf_counter() - t_start:.1f}s on {smi_line}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,10 @@ The cell runs through ``portbench.harness.run_cell`` as
 Prints the harness's result line first (stdout), then one JSON line:
 ``layers`` (the layer numbers of ``LAYERS``, each left out where its spans
 never ran), ``summary`` (``spans.summary()``), ``host_step_ms`` (the
-harness's mean unprofiled step), and with ``--trace 1`` the idle gaps of
+harness's mean unprofiled step), ``host`` (what the host did over the
+window, ``host_window``: this process's CPU use and context switches, the
+machine's busy, idle and stolen shares, its CPU model, clock, cores, load
+and torch's threads), and with ``--trace 1`` the idle gaps of
 the profiled spans by the kind of host label that holds them and the
 unfiltered reduction's numbers. The summary's rows also go to stderr,
 after the card's name and power limit.
@@ -29,7 +32,9 @@ after the card's name and power limit.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import resource
 import subprocess
 import sys
 import time
@@ -83,6 +88,77 @@ def host_step_ms(record: dict):
     times = [t[-2] for key in ("steps", "requests", "train_steps")
              for t in record.get(key, ()) if not t[-1]]
     return 1e3 * sum(times) / len(times) if times else None
+
+
+# the fields of /proc/stat's "cpu" line, in clock ticks
+PROC_STAT = ("user", "nice", "system", "idle", "iowait", "irq", "softirq",
+             "steal")
+
+
+def _read(path: str):
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return None
+
+
+def host_state() -> dict:
+    """The host as this process sees it now: the CPU model and the mean
+    clock of its cores (/proc/cpuinfo), the cores the machine has and those
+    this process may run on, its threads, torch's intra-op threads, the
+    load average, the machine's CPU time by kind since boot (/proc/stat,
+    clock ticks), this process's CPU seconds (all its threads) and its
+    context switches. What the platform does not give is None."""
+    import torch
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    info = _read("/proc/cpuinfo") or ""
+    models = [ln.split(":", 1)[1].strip() for ln in info.splitlines()
+              if ln.startswith("model name")]
+    mhz = [float(ln.split(":", 1)[1]) for ln in info.splitlines()
+           if ln.startswith("cpu MHz")]
+    stat = (_read("/proc/stat") or "").splitlines()
+    ticks = ([int(v) for v in stat[0].split()[1:1 + len(PROC_STAT)]]
+             if stat and stat[0].startswith("cpu ") else None)
+    status = _read("/proc/self/status") or ""
+    threads = [int(ln.split()[1]) for ln in status.splitlines()
+               if ln.startswith("Threads:")]
+    return {
+        "t": time.perf_counter(), "cpu_model": models[0] if models else None,
+        "cpu_mhz": sum(mhz) / len(mhz) if mhz else None,
+        "cpus": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+        "threads": threads[0] if threads else None,
+        "torch_threads": torch.get_num_threads(),
+        "loadavg": list(os.getloadavg()),
+        "proc_stat": dict(zip(PROC_STAT, ticks)) if ticks else None,
+        "cpu_s": ru.ru_utime + ru.ru_stime, "ctx_voluntary": ru.ru_nvcsw,
+        "ctx_involuntary": ru.ru_nivcsw}
+
+
+def host_window(a: dict, b: dict) -> dict:
+    """What the host did between two ``host_state`` readings: the wall
+    seconds; this process's CPU seconds per wall second (1.0: one core
+    busy all along) and its context switches per second (voluntary: it
+    waited; involuntary: it was preempted); the machine's shares of its CPU
+    time that were busy, idle (idle and iowait) and stolen by the
+    hypervisor; and the fixed fields at both ends."""
+    wall = b["t"] - a["t"]
+    out = {"wall_s": wall,
+           "process_cores": (b["cpu_s"] - a["cpu_s"]) / wall,
+           "ctx_voluntary_per_s": (b["ctx_voluntary"] - a["ctx_voluntary"])
+           / wall,
+           "ctx_involuntary_per_s": (b["ctx_involuntary"]
+                                     - a["ctx_involuntary"]) / wall}
+    if a["proc_stat"] and b["proc_stat"]:
+        d = {k: b["proc_stat"][k] - a["proc_stat"][k] for k in PROC_STAT}
+        total = sum(d.values()) or 1
+        idle = d["idle"] + d["iowait"]
+        out.update(machine_busy=(total - idle - d["steal"]) / total,
+                   machine_idle=idle / total, machine_steal=d["steal"] / total)
+    for k in ("cpu_model", "cpus", "affinity", "threads", "torch_threads",
+              "cpu_mhz", "loadavg"):
+        out[k] = [a[k], b[k]] if a[k] != b[k] else a[k]
+    return out
 
 
 def gap_kinds(spans_) -> dict:
@@ -142,20 +218,24 @@ def report(name: str, seed: int, seconds: float, trace: bool,
     setup_done = harness.Bench.setup_done
     read_memory_peak = harness.Bench.read_memory_peak
 
+    host = {}
+
     def opened(bench):
         setup_done(bench)
-        spans.reset()
-        spans.enable()
+        host["open"] = host_state()
+        if spans_on:
+            spans.reset()
+            spans.enable()
 
     def closed(bench):
         spans.disable()
+        host["close"] = host_state()
         read_memory_peak(bench)
 
     spans.reset()
     PT.reduce = filtered
-    if spans_on:
-        harness.Bench.setup_done = opened
-        harness.Bench.read_memory_peak = closed
+    harness.Bench.setup_done = opened
+    harness.Bench.read_memory_peak = closed
     try:
         man = run_cell_kw.pop("man", None) or harness.manifest()
         bench = harness.run_cell(name, seed, seconds, trace, man=man,
@@ -170,7 +250,9 @@ def report(name: str, seed: int, seconds: float, trace: bool,
         torch.cuda.synchronize()
     summary = spans.summary()
     extra = {"spans_on": spans_on, "layers": layers(summary),
-             "summary": summary, "host_step_ms": host_step_ms(bench.record)}
+             "summary": summary, "host_step_ms": host_step_ms(bench.record),
+             "host": (host_window(host["open"], host["close"])
+                      if len(host) == 2 else None)}
     if trace:
         extra["gaps"] = gap_kinds(bench.tracer.spans)
         extra["unfiltered"] = unfiltered

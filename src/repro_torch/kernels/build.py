@@ -1,15 +1,15 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Each source under ``csrc/`` (``selection.cu``: the tiering tick's selection
-core; ``serving.cu``: the serving path's attention and page moves;
-``prefill.cu``: the full-sequence forward's attention and SSD scan) is
-compiled with ``nvcc`` into its own shared library with a plain C interface
-and loaded with ``ctypes``; pointers come from ``tensor.data_ptr()`` and the
-stream from PyTorch's current stream. A library is built at first use,
-keyed by a hash of its source and the flags, into ``.kernel_build/`` at the
-root of the checkout (git-ignored); ``build_all`` starts one ``nvcc`` per
-missing library, all at once. Nothing is built or imported when this module
-is imported.
+core; ``serving.cu``: the serving path's attention, page moves and Mamba2
+decode state; ``prefill.cu``: the full-sequence forward's attention and
+SSD scan) is compiled with ``nvcc`` into its own shared library with a
+plain C interface and loaded with ``ctypes``; pointers come from
+``tensor.data_ptr()`` and the stream from PyTorch's current stream. A
+library is built at first use, keyed by a hash of its source and the flags,
+into ``.kernel_build/`` at the root of the checkout (git-ignored);
+``build_all`` starts one ``nvcc`` per missing library, all at once. Nothing
+is built or imported when this module is imported.
 """
 from __future__ import annotations
 
@@ -51,6 +51,9 @@ _SIGNATURES = {
                                           *(_P,) * 8),
         "migrate_pages_launch": (_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
                                  _I, _LL, _P),
+        # three strides of each of x, b and c, as long long
+        "ssd_decode_state_launch": (*(_P,) * 8, *(_I,) * 5, *(_LL,) * 9, _I,
+                                    _P),
     },
     "prefill": {
         # three strides of each of four tensors, as long long; the route

@@ -6,6 +6,10 @@
 //                             pool_attention_partial_tpu
 //   migrate_pages          <- repro/kernels/migrate/kernel.py
 //                             migrate_pages_tpu
+// and adds one that replaces none:
+//   ssd_decode_state       (the reference's Mamba2 decode step,
+//                           repro/models/ssm.py mamba_decode_step, is plain
+//                           jnp with no Pallas kernel)
 //
 // pool_attention_partial: single-query decode attention over one tier's
 // paged pool, returning the online-softmax partial (acc, m, l) and the
@@ -68,6 +72,31 @@
 //     round trip, not eight in a row.
 // A page whose size is not a multiple of 16 bytes, or a pool not 16-byte
 // aligned, is copied byte by byte in the same walk.
+//
+// ssd_decode_state: one Mamba2 layer's decode step from the conv outputs
+// to y, for every (batch, head): with g = h / (H / G),
+//   c[p, n]  = x[p] * (B[g, n] * dt)          (float32, rounded twice)
+//   h'[p, n] = (float)((double)h[p, n] * da + (double)c[p, n])
+//   y[p]     = sum_n C[g, n] h'[p, n] + D * x[p]
+// h' is stored over h in place. It is the plain version's float64
+// multiply-add (numerics.fused_mul_add, the reference's single rounding of
+// h * da + c: h * da is exact in float64) done in registers with explicit
+// _rn intrinsics, so h' equals the plain version bit for bit; only y's sum
+// order differs. Bound by device-memory bytes: h is read once and written
+// once, 2 x B*H*P*N*4 bytes a layer (0.94 GB at Zamba2-7B's B=256, H=112,
+// P=N=64: 0.280 ms at 3.35 TB/s); the float64 work (three conversions, a
+// multiply and an add an element) hides under that byte rate (a float32
+// multiply-add in its place timed the same). The design is one streaming
+// pass: a warp per (batch, head) tile of P x N floats, each lane owning one
+// 16-byte column of N (N / 4 lanes a row, rounded up to a power of two, so
+// a warp covers 32 / that rows at once); the tile streams through a
+// three-stage cp.async ring in shared memory, two groups of rows in flight
+// while one is computed, with no registers held for the loads
+// (evict-first loads and streaming stores: the state does not fit in L2
+// and is not read again in the step); B, C and b * dt of the lane's four
+// columns, dt, da and D are loaded once a tile; y's sum over N is a
+// shuffle reduction over the row's lanes. x, B and C are read in their own
+// dtype (bf16 or float32; widening bf16 is exact) through their strides.
 //
 // Plain C interface: each launcher returns cudaGetLastError() right after
 // its launch (0 on success), and the caller raises on anything else.
@@ -687,6 +716,146 @@ cudaError_t launch_split_cpl(int cpl, int nst, dim3 grid, size_t smem,
 #undef PA_ARGS
 }
 
+// ------------------------------------------------- Mamba2 decode state
+constexpr int kSdWarps = 8;            // (batch, head) tiles a block
+constexpr int kSdUnroll = 4;           // rows of a lane in a group
+constexpr int kSdStages = 3;           // groups in a warp's ring
+
+struct SdStrides {                     // element strides of x, b and c
+  long long x[3], b[3], c[3];
+};
+
+// 16-byte asynchronous copy into shared memory, marked evict-first in L2;
+// with valid false nothing is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async16_ef(void* smem, const void* gmem,
+                                              bool valid,
+                                              unsigned long long pol) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n"
+      ::"r"(s), "l"(gmem), "r"(valid ? 16 : 0), "l"(pol));
+}
+
+// A warp per (batch, head) tile h [P, N] (row-major, N contiguous); tiles
+// run batch-fastest, so the warps of a block read neighbouring entries of
+// x, B and C in the conv step's transposed layout (batch stride 1). Lane
+// (row = lane / TPR, q = lane % TPR) owns 16-byte column q of its rows: a
+// group of the tile is RPW x kSdUnroll rows, copied with cp.async into the
+// warp's ring of kSdStages groups in shared memory (the lane's own chunks,
+// so its own wait_group makes them visible to it), kSdStages - 1 groups in
+// flight while one is computed and stored; a lane with 4 q >= N owns
+// nothing and adds 0 to the row's sum.
+template <typename T, int TPR>
+__global__ void __launch_bounds__(32 * kSdWarps)
+ssd_decode_state_kernel(float* __restrict__ h, const T* __restrict__ x,
+                        const T* __restrict__ b, const T* __restrict__ c,
+                        const float* __restrict__ dt,
+                        const float* __restrict__ da,
+                        const float* __restrict__ D, float* __restrict__ y,
+                        int B, int H, int G, int P, int N, SdStrides st) {
+  constexpr int RPW = 32 / TPR;        // rows a warp covers at once
+  constexpr int GROUP = RPW * kSdUnroll;
+  // 48 KiB: four blocks fit an SM
+  __shared__ float4 ring_all[kSdWarps][kSdStages][kSdUnroll][32];
+  const int wid = (int)(threadIdx.x >> 5);
+  const int w = blockIdx.x * kSdWarps + wid;
+  if (w >= B * H) return;              // whole warps: the shuffles below
+  float4 (*ring)[kSdUnroll][32] = ring_all[wid];
+  const int lane = threadIdx.x & 31;
+  const int q = lane % TPR, row = lane / TPR;
+  const int hi = w / B, bi = w - hi * B, g = hi / (H / G);
+  const int tile = bi * H + hi;        // [B, H] index
+  const bool col = 4 * q < N;
+  unsigned long long pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  float* __restrict__ ht = h + (long long)tile * P * N;
+  const int ngroups = (P + GROUP - 1) / GROUP;
+  auto issue = [&](int k) {
+    if (k < ngroups) {
+#pragma unroll
+      for (int u = 0; u < kSdUnroll; ++u) {
+        const int p = k * GROUP + u * RPW + row;
+        const bool ok = p < P && col;
+        cp_async16_ef(&ring[k % kSdStages][u][lane],
+                      ok ? (const void*)(ht + (long long)p * N + 4 * q)
+                         : (const void*)ht, ok, pol);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int k = 0; k < kSdStages - 1; ++k) issue(k);
+  const float dtv = dt[tile];
+  const double da64 = (double)da[tile];
+  const float dh = D[hi];
+  float bdt[4], cg[4];
+  const T* __restrict__ bt = b + bi * st.b[0] + g * st.b[1];
+  const T* __restrict__ ct = c + bi * st.c[0] + g * st.c[1];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    bdt[j] = col ? __fmul_rn(to_f32(bt[(4 * q + j) * st.b[2]]), dtv) : 0.f;
+    cg[j] = col ? to_f32(ct[(4 * q + j) * st.c[2]]) : 0.f;
+  }
+  const T* __restrict__ xt = x + bi * st.x[0] + hi * st.x[1];
+  float* __restrict__ yt = y + (long long)tile * P;
+  for (int k = 0; k < ngroups; ++k) {
+    float xv[kSdUnroll];
+#pragma unroll
+    for (int u = 0; u < kSdUnroll; ++u) {
+      const int p = k * GROUP + u * RPW + row;
+      xv[u] = p < P ? to_f32(xt[p * st.x[2]]) : 0.f;
+    }
+    issue(k + kSdStages - 1);
+    cp_async_wait<kSdStages - 1>();
+#pragma unroll
+    for (int u = 0; u < kSdUnroll; ++u) {
+      const int p = k * GROUP + u * RPW + row;
+      const float4 hv = ring[k % kSdStages][u][lane];
+      float hn[4] = {hv.x, hv.y, hv.z, hv.w};
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float cj = __fmul_rn(xv[u], bdt[j]);
+        hn[j] = __double2float_rn(
+            __dadd_rn(__dmul_rn((double)hn[j], da64), (double)cj));
+        acc = __fmaf_rn(cg[j], hn[j], acc);
+      }
+      if (p < P && col)
+        __stcs(reinterpret_cast<float4*>(ht + (long long)p * N) + q,
+               make_float4(hn[0], hn[1], hn[2], hn[3]));
+#pragma unroll
+      for (int o = TPR / 2; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (q == 0 && p < P) yt[p] = __fadd_rn(acc, __fmul_rn(dh, xv[u]));
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_ssd_decode_state(int tpr, unsigned blocks,
+                                    cudaStream_t stream, void* h,
+                                    const void* x, const void* b,
+                                    const void* c, const float* dt,
+                                    const float* da, const float* D,
+                                    float* y, int B, int H, int G, int P,
+                                    int N, SdStrides st) {
+#define SD_LAUNCH(TPR)                                                     \
+  ssd_decode_state_kernel<T, TPR><<<blocks, 32 * kSdWarps, 0, stream>>>(   \
+      (float*)h, (const T*)x, (const T*)b, (const T*)c, dt, da, D, y, B, H,  \
+      G, P, N, st)
+  switch (tpr) {
+    case 1: SD_LAUNCH(1); break;
+    case 2: SD_LAUNCH(2); break;
+    case 4: SD_LAUNCH(4); break;
+    case 8: SD_LAUNCH(8); break;
+    case 16: SD_LAUNCH(16); break;
+    default: SD_LAUNCH(32); break;
+  }
+#undef SD_LAUNCH
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -793,6 +962,36 @@ int migrate_pages_launch(const void* src0, void* dst0, const void* src1,
   migrate_pages_kernel<<<(unsigned)blocks, kCopyThreads, 0, stream>>>(
       pools, npools, src_idx, dst_idx, sel, L, B, Ms, Md, page_bytes, vec);
   return (int)cudaGetLastError();
+}
+
+// One Mamba2 layer's decode state for every (batch, head), in place:
+// h [B, H, P, N] float32, contiguous and 16-byte aligned; x [B, H, P], b
+// and c [B, G, N] of one element type (is_bf16), read through their three
+// element strides each (x's, b's, c's); dt and da [B, H] and D
+// [H] float32, contiguous; y [B, H, P] float32 out. N a multiple of 4 up
+// to 128.
+int ssd_decode_state_launch(void* h, const void* x, const void* b,
+                            const void* c, const float* dt, const float* da,
+                            const float* D, float* y, int B, int H, int G,
+                            int P, int N, long long xs0, long long xs1,
+                            long long xs2, long long bs0, long long bs1,
+                            long long bs2, long long cs0, long long cs1,
+                            long long cs2, int is_bf16, cudaStream_t stream) {
+  if (B <= 0 || H <= 0 || P <= 0) return (int)cudaGetLastError();
+  if (G <= 0 || H % G || N <= 0 || N % 4 || N > 128 ||
+      ((uintptr_t)h & 15) || (long long)B * H > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  int tpr = 1;
+  while (tpr < N / 4) tpr <<= 1;
+  const SdStrides st = {{xs0, xs1, xs2}, {bs0, bs1, bs2}, {cs0, cs1, cs2}};
+  const unsigned blocks = (unsigned)((B * H + kSdWarps - 1) / kSdWarps);
+  return is_bf16
+             ? (int)launch_ssd_decode_state<__nv_bfloat16>(
+                   tpr, blocks, stream, h, x, b, c, dt, da, D, y, B, H, G,
+                   P, N, st)
+             : (int)launch_ssd_decode_state<float>(tpr, blocks, stream, h, x,
+                                                   b, c, dt, da, D, y, B, H,
+                                                   G, P, N, st);
 }
 
 }  // extern "C"

@@ -4,10 +4,11 @@ the reference's ``models/ssm.py``).
 The chunked SSD algorithm (``ssd_chunked``) is the plain version of the K8
 kernel (``kernels/ssd_scan``); ``mamba_block`` (prefill) sends the scan
 through the ``ssd_scan`` op, and ``mamba_decode_step`` is the O(1)-state
-recurrent step of the serving path. Layouts and parameter names are the
-reference's: split projections ``wx``/``wz``/``wB``/``wC``/``wdt``,
-depthwise convolutions ``conv_*`` [W, C], per-head ``dt_bias``, ``A_log``
-and ``D``.
+recurrent step of the serving path (its state update and read-out through
+the ``ssd_decode`` op, the decode-state kernel on a CUDA tensor). Layouts
+and parameter names are the reference's: split projections
+``wx``/``wz``/``wB``/``wC``/``wdt``, depthwise convolutions ``conv_*``
+[W, C], per-head ``dt_bias``, ``A_log`` and ``D``.
 
 Three differences from the reference's jnp, each the same function:
 ``jax.nn.softplus`` is ``logaddexp(x, 0)`` (torch's ``softplus`` switches
@@ -232,17 +233,23 @@ def _conv_step(buf: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
 def state_update(h, da, xh, bh, dt_f) -> torch.Tensor:
     """h [B,H,P,N] * da [B,H] + outer(xh [B,H,P], bh [B,H,N] * dt_f [B,H]):
     the jitted reference forms ``b * dt`` first (its einsum
-    "bhn,bhp,bh->bhpn") and rounds the multiply-add once (span
-    ``mamba.state``)."""
-    with span("mamba.state"):
-        return fused_mul_add(
-            h, da[..., None, None],
-            xh[..., None] * (bh * dt_f[..., None])[:, :, None, :])
+    "bhn,bhp,bh->bhpn") and rounds the multiply-add once."""
+    return fused_mul_add(
+        h, da[..., None, None],
+        xh[..., None] * (bh * dt_f[..., None])[:, :, None, :])
 
 
 def mamba_decode_step(p, u: torch.Tensor, cache: MambaCache,
-                      cfg: ModelConfig) -> Tuple[torch.Tensor, MambaCache]:
-    """Single-token step. u: [B,1,D] -> ([B,1,D], new cache)."""
+                      cfg: ModelConfig, *, impl: str = "cuda"
+                      ) -> Tuple[torch.Tensor, MambaCache]:
+    """Single-token step. u: [B,1,D] -> ([B,1,D], new cache). The state
+    update and its read-out go through the ``ssd_decode`` op (span
+    ``mamba.state``): on a CUDA tensor with ``impl="cuda"`` the
+    decode-state kernel updates ``cache.h`` in place and the new cache
+    holds that same tensor; otherwise the plain version returns a new
+    state."""
+    # imported here: the kernel's plain version imports this module
+    from repro_torch.kernels.ssd_decode import ops as SDEC
     s: SSMConfig = cfg.ssm
     di, nh, g, n = ssm_dims(cfg)
     B = u.shape[0]
@@ -253,15 +260,11 @@ def mamba_decode_step(p, u: torch.Tensor, cache: MambaCache,
     c1, ccv = _conv_step(cache.conv_C, cc, p["conv_C"])
     dt_f, A = _decay(p, dtv[:, 0])                                # [B,H]
     da = torch.exp(dt_f * A)
-    f32 = torch.float32
-    xh = x1[:, 0].reshape(B, nh, s.head_dim).to(f32)
-    bh = torch.repeat_interleave(b1[:, 0].reshape(B, g, n), nh // g,
-                                 dim=1).to(f32)
-    ch = torch.repeat_interleave(c1[:, 0].reshape(B, g, n), nh // g,
-                                 dim=1).to(f32)
-    h = state_update(cache.h, da, xh, bh, dt_f)
-    y = torch.einsum("bhn,bhpn->bhp", ch, h)
-    y = y + p["D"].to(f32)[None, :, None] * xh
+    with span("mamba.state"):
+        h, y = SDEC.ssd_decode(
+            cache.h, x1[:, 0].reshape(B, nh, s.head_dim),
+            b1[:, 0].reshape(B, g, n), c1[:, 0].reshape(B, g, n), dt_f, da,
+            p["D"].to(torch.float32), impl=impl)
     y = y.reshape(B, 1, di)
     y = rms_norm(y.to(u.dtype) * F.silu(z), p["gnorm"], cfg.rms_eps)
     out = y @ p["wo"].to(dtype_of(cfg.dtype))

@@ -123,14 +123,14 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                      impl: Optional[str] = None, device="cuda"):
     """Returns serve_step(model, state, tokens [B,1]) -> (logits, state).
 
-    impl "cuda" (the default on a card) runs the attention and the page
-    moves through the hand-written kernels' wrappers; "ref" (the default on
-    the CPU) calls their plain versions directly, on any device. The step
-    runs under ``torch.no_grad``. Its spans (``obs/spans.py``):
-    ``serve.step`` around it, and inside ``serve.alloc`` (the page
-    allocation), ``serve.attention`` (each KV layer's append and tiered
-    attention), ``serve.mamba`` (each Mamba2 layer) and ``serve.tiering``
-    (the tiering step)."""
+    impl "cuda" (the default on a card) runs the attention, the page
+    moves and the Mamba2 decode state through the hand-written kernels'
+    wrappers; "ref" (the default on the CPU) calls their plain versions
+    directly, on any device. The step runs under ``torch.no_grad``. Its
+    spans (``obs/spans.py``): ``serve.step`` around it, and inside
+    ``serve.alloc`` (the page allocation), ``serve.attention`` (each KV
+    layer's append and tiered attention), ``serve.mamba`` (each Mamba2
+    layer) and ``serve.tiering`` (the tiering step)."""
     TF.model_specs(cfg)                  # raises for an unknown family
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
@@ -144,12 +144,16 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
                          "the CPU")
 
     def mamba_layer(model, x, mc: S.MambaCache, idx: int):
-        """Layer ``idx``'s Mamba2 decode step; its state updated in place."""
+        """Layer ``idx``'s Mamba2 decode step; its state updated in place:
+        the SSM state by the decode-state kernel itself under ``impl``
+        "cuda", every other buffer copied back."""
         with span("serve.mamba"):
-            x, new = S.mamba_decode_step(
-                model.layer(idx), x, S.MambaCache(*(c[idx] for c in mc)), cfg)
-            for c, n in zip(mc, new):
-                c[idx].copy_(n)
+            cur = S.MambaCache(*(c[idx] for c in mc))
+            x, new = S.mamba_decode_step(model.layer(idx), x, cur, cfg,
+                                         impl=impl)
+            for c, old, n in zip(mc, cur, new):
+                if n is not old:
+                    c[idx].copy_(n)
         return x
 
     if cfg.family == "ssm":
@@ -157,8 +161,8 @@ def build_serve_step(cfg: ModelConfig, tcfg: TieringConfig, batch: int,
         @torch.no_grad()
         def serve_step(model: TF.SSMLM, state, tokens: torch.Tensor):
             """The reference's ssm branch: no paged KV (its fast budget is
-            0) and no tiering step; no kernel runs (the decode step is the
-            O(1)-state recurrence)."""
+            0) and no tiering step; the only kernel is the decode-state
+            kernel of each layer's O(1)-state recurrence."""
             x = TF.embed_tokens(model, tokens, cfg)
             for idx in range(cfg.num_layers):
                 x = mamba_layer(model, x, state["mamba"], idx)

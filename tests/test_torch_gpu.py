@@ -828,6 +828,107 @@ def test_ssd_scan_matches_plain_on_card(shape, bc_dtype, decay, cuda):
     torch.cuda.synchronize()
 
 
+# ------------------------------------------- the Mamba2 decode state ----
+# (b, h, p, n, g): Zamba2-7B's Mamba2 widths at the decode cell's B=256
+# (112 heads of 64, state 64, 2 groups), mamba2-130m's (32 heads of 48,
+# state 128, 1 group), both at an odd B, the smoke configs' 16 x 16, and
+# an N of 20 (5 of a row's 8 lanes hold columns) with P=7 and 3 groups
+SSD_DECODE_SHAPES = [(256, 112, 64, 64, 2), (256, 32, 48, 128, 1),
+                     (3, 112, 64, 64, 2), (3, 32, 48, 128, 1),
+                     (3, 8, 16, 16, 1), (2, 6, 7, 20, 3)]
+
+
+def ssd_decode_case(shape, seed=0):
+    """Seeded decode-state inputs in float32: h [B,H,P,N], x [B,H,P], b/c
+    [B,G,N], dt [B,H] (softplus of N(0, 1.2), as the init's dt), da =
+    exp(-dt) and D [H]."""
+    b, h, p, n, g = shape
+    rng = np.random.default_rng(seed)
+    dt = np.logaddexp(rng.standard_normal((b, h)) * 1.2, 0.0)
+    return (rng.standard_normal((b, h, p, n)).astype(np.float32),
+            (rng.standard_normal((b, h, p)) * 0.5).astype(np.float32),
+            (rng.standard_normal((b, g, n)) * 0.5).astype(np.float32),
+            (rng.standard_normal((b, g, n)) * 0.5).astype(np.float32),
+            dt.astype(np.float32), np.exp(-dt).astype(np.float32),
+            (1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_decode_matches_plain_on_card(shape, dtype, cuda):
+    """The decode-state kernel on layer slice 2 of a stacked [4, B, H, P,
+    N] cache against its plain version: the state updated in place and
+    equal bit for bit (the same float64 multiply-add, one rounding), the
+    neighbouring layers untouched, y within 1e-5 (only the order of its sum
+    over N differs), one launch counted."""
+    from repro_torch.kernels.ssd_decode import ops as SDEC
+    from repro_torch.kernels.ssd_decode import ref as SDEC_REF
+    h, x, b, c, dt, da, D = (torch.as_tensor(a, device=cuda)
+                             for a in ssd_decode_case(shape))
+    x, b, c = (t.to(dtype) for t in (x, b, c))
+    L, idx = 4, 2
+    stack = torch.randn((L, *h.shape), generator=torch.Generator(
+        cuda).manual_seed(1), device=cuda)
+    stack[idx] = h
+    before = stack.clone()
+    want_h, want_y = SDEC_REF.ssd_decode_ref(h, x, b, c, dt, da, D)
+    n0 = SDEC.ssd_decode.launches
+    got_h, got_y = SDEC.ssd_decode(stack[idx], x, b, c, dt, da, D)
+    torch.cuda.synchronize()
+    assert SDEC.ssd_decode.launches == n0 + 1
+    assert got_h.data_ptr() == stack[idx].data_ptr()
+    assert torch.equal(stack[idx].view(torch.int32),
+                       want_h.view(torch.int32))
+    for layer in range(L):
+        if layer != idx:
+            assert torch.equal(stack[layer].view(torch.int32),
+                               before[layer].view(torch.int32)), layer
+    torch.testing.assert_close(got_y, want_y, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_hybrid_serve_step_decode_state_kernel_on_card(cuda):
+    """The hybrid serve step at the smoke widths in float32 with 2 groups,
+    impl "cuda" against "ref" over 16 greedy steps: the same tokens, logits
+    within 1e-4, the decode-state kernel launched once a Mamba2 layer a
+    step under "cuda" and never under "ref"."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import TieringConfig
+    from repro_torch.kernels.ssd_decode import ops as SDEC
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve import decode as SD
+    cfg = dataclasses.replace(get_smoke_config("zamba2_7b"), dtype="float32")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           ngroups=2))
+    tcfg = TieringConfig(n_tenants=2, page_tokens=4, thrash_table_slots=64,
+                         lower_protection=(2, 2), upper_bound=(3, 3))
+    B, steps = 8, 16
+    model = make_model(cfg, seed=0, device=cuda)
+    tokens = {}
+    for impl in ("cuda", "ref"):
+        step = SD.build_serve_step(cfg, tcfg, B, steps, impl=impl,
+                                   device=cuda)
+        state = SD.init_serve_state(cfg, tcfg, B, steps, device=cuda)
+        tok = torch.arange(B, dtype=torch.int32, device=cuda)[:, None]
+        out, logits = [], []
+        n0 = SDEC.ssd_decode.launches
+        for _ in range(steps):
+            lg, state = step(model, state, tok)
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True).to(
+                torch.int32)
+            out.append(tok)
+            logits.append(lg)
+        launched = SDEC.ssd_decode.launches - n0
+        assert launched == (cfg.num_layers * steps if impl == "cuda"
+                            else 0), impl
+        tokens[impl] = (torch.cat(out, dim=1), torch.cat(logits, dim=1))
+    assert torch.equal(tokens["cuda"][0], tokens["ref"][0])
+    torch.testing.assert_close(tokens["cuda"][1], tokens["ref"][1],
+                               atol=1e-4, rtol=1e-4)
+
+
 # ---------------------------------------------- dynamic ownership (churn) ----
 # K1 over the dynamic path's run-time rowspace: T rows of S = L lanes, past
 # the 24,576 lanes the kernel stages in shared memory (its long route);

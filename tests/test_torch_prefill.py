@@ -33,6 +33,8 @@ from repro_torch import convert
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.kernels.flash_attention import ops as TFA
 from repro_torch.kernels.flash_attention import ref as TFA_REF
+from repro_torch.kernels.ssd_decode import ops as TSDEC
+from repro_torch.kernels.ssd_decode import ref as TSDEC_REF
 from repro_torch.kernels.ssd_scan import ops as TSSD
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
@@ -40,7 +42,7 @@ from repro_torch.models import transformer as TF
 from repro_torch.train.step import make_prefill_step as t_prefill
 from test_torch_gpu import (FLASH_CROSS_SHAPES, FLASH_MASKS, FLASH_SHAPES,
                             SSD_SHAPES,
-                            flash_case, ssd_case)
+                            flash_case, ssd_case, ssd_decode_case)
 from repro_torch.kernels.ssd_scan import ref as TSSD_REF
 
 CPU = "cpu"
@@ -288,20 +290,91 @@ def test_causal_conv_matches_reference():
                                np.asarray(want), atol=1e-6, rtol=1e-6)
 
 
-def test_decode_state_update_is_bitwise():
+def _state_update(h, da, xh, bg, dt):
+    return TS.state_update(h, da, xh, torch.repeat_interleave(
+        bg, xh.shape[1] // bg.shape[1], dim=1), dt)
+
+
+def _decode_ref_state(h, da, xh, bg, dt):
+    D = torch.ones(xh.shape[1])
+    return TSDEC_REF.ssd_decode_ref(h, xh, bg, bg, dt, da, D)[0]
+
+
+@pytest.mark.parametrize("update,G", [(_state_update, 8),
+                                      (_decode_ref_state, 2)],
+                         ids=["state_update", "ssd_decode_ref"])
+def test_decode_state_update_is_bitwise(update, G):
     """h * da + einsum("bhn,bhp,bh->bhpn", b, x, dt), as the jitted
-    reference rounds it (ssm.py ``mamba_decode_step``)."""
+    reference rounds it (ssm.py ``mamba_decode_step``): ``state_update``
+    (a b of its own for every head) and the decode-state kernel's plain
+    version (2 groups of 4 heads)."""
     rng = np.random.default_rng(4)
     B, H, P, N = 3, 8, 16, 16
     h = rng.standard_normal((B, H, P, N)).astype(np.float32)
     da, dt = (rng.random((B, H)).astype(np.float32) for _ in range(2))
-    bh = rng.standard_normal((B, H, N)).astype(np.float32)
+    bg = rng.standard_normal((B, G, N)).astype(np.float32)
     xh = rng.standard_normal((B, H, P)).astype(np.float32)
     want = jax.jit(lambda h, da, bh, xh, dt: h * da[..., None, None]
                    + jnp.einsum("bhn,bhp,bh->bhpn", bh, xh, dt))(
-        h, da, bh, xh, dt)
-    got = TS.state_update(T_(h), T_(da), T_(xh), T_(bh), T_(dt))
+        h, da, np.repeat(bg, H // G, axis=1), xh, dt)
+    got = update(T_(h), T_(da), T_(xh), T_(bg), T_(dt))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", TSDEC.IMPLS)
+def test_ssd_decode_on_cpu_is_the_plain_expression(dtype, impl):
+    """On CPU tensors the wrapper takes the plain route under either impl:
+    the decode step's expression before the kernel (``state_update`` on
+    repeated groups, the read-out einsum, the D skip) exactly, a new state
+    (the input untouched) and no launch."""
+    h, x, b, c, dt, da, D = (T_(a) for a in ssd_decode_case(
+        (3, 8, 16, 16, 2), seed=1))
+    x, b, c = (t.to(dtype) for t in (x, b, c))
+    h0 = h.clone()
+    before = TSDEC.ssd_decode.launches
+    got_h, got_y = TSDEC.ssd_decode(h, x, b, c, dt, da, D, impl=impl)
+    f32 = torch.float32
+    xh = x.to(f32)
+    bh = torch.repeat_interleave(b, 4, dim=1).to(f32)
+    ch = torch.repeat_interleave(c, 4, dim=1).to(f32)
+    want_h = TS.state_update(h0, da, xh, bh, dt)
+    want_y = (torch.einsum("bhn,bhpn->bhp", ch, want_h)
+              + D[None, :, None] * xh)
+    assert torch.equal(got_h, want_h) and torch.equal(got_y, want_y)
+    assert torch.equal(h, h0) and got_h is not h
+    assert TSDEC.ssd_decode.launches == before
+
+
+SSD_DECODE_BAD = {
+    "h_not_contiguous": lambda a: {**a, "h": torch.zeros(
+        (3, 8, 16, 32))[..., :16]},
+    "h_float64": lambda a: {**a, "h": a["h"].double()},
+    "x_float16": lambda a: {**a, "x": a["x"].half()},
+    "b_not_x_dtype": lambda a: {**a, "b": a["b"].bfloat16()},
+    "n_not_multiple_of_4": lambda a: {
+        **a, "h": torch.zeros((3, 8, 16, 6)), "b": torch.zeros((3, 2, 6)),
+        "c": torch.zeros((3, 2, 6))},
+    "n_over_128": lambda a: {
+        **a, "h": torch.zeros((3, 8, 16, 132)),
+        "b": torch.zeros((3, 2, 132)), "c": torch.zeros((3, 2, 132))},
+}
+
+
+@pytest.mark.parametrize("bad", list(SSD_DECODE_BAD))
+@pytest.mark.parametrize("impl", TSDEC.IMPLS)
+def test_ssd_decode_refuses_what_the_kernel_does_not_take(bad, impl):
+    """Both routes raise, before any launch, on what the kernel does not
+    take: a non-contiguous state, a wrong dtype, N not a multiple of 4 or
+    over 128."""
+    names = ("h", "x", "b", "c", "dt", "da", "D")
+    args = dict(zip(names, (T_(a) for a in ssd_decode_case(
+        (3, 8, 16, 16, 2), seed=2))))
+    args = SSD_DECODE_BAD[bad](args)
+    before = TSDEC.ssd_decode.launches
+    with pytest.raises(ValueError, match="ssd_decode"):
+        TSDEC.ssd_decode(*(args[k] for k in names), impl=impl)
+    assert TSDEC.ssd_decode.launches == before
 
 
 def _layer0(arch="zamba2_7b"):

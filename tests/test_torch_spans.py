@@ -304,6 +304,30 @@ def test_span_report_layer_numbers_from_a_summary():
     assert "tiering_ms.decode" not in rep.layers(summary)
 
 
+def test_span_report_reads_the_host():
+    """``host_state`` and ``host_window``: the window's wall time, this
+    process's CPU use, the machine's busy, idle and stolen shares summing
+    to 1, the cores and threads; and a cell's report carries them."""
+    rep = span_report()
+    a = rep.host_state()
+    sum(i * i for i in range(200_000))
+    b = rep.host_state()
+    w = rep.host_window(a, b)
+    assert w["wall_s"] > 0 and w["process_cores"] >= 0
+    assert w["ctx_voluntary_per_s"] >= 0 and w["ctx_involuntary_per_s"] >= 0
+    assert w["affinity"] >= 1 and w["torch_threads"] >= 1
+    if a["proc_stat"] is not None:
+        shares = (w["machine_busy"], w["machine_idle"], w["machine_steal"])
+        assert all(0 <= x <= 1 for x in shares)
+        assert sum(shares) == pytest.approx(1.0)
+    from portbench import smoke
+    cell, conf = smoke.smoke_cell("zamba2-decode-tiered")
+    out, extra = rep.report("zamba2-decode-tiered", 2**31 + 9, 0.0, False,
+                            False, device="cpu", cell=cell, conf=conf)
+    assert out["correct"] and extra["host"]["wall_s"] > 0
+    assert extra["host"]["affinity"] == w["affinity"]
+
+
 @pytest.mark.parametrize("name,step", [
     ("zamba2-decode-tiered", "serve.step"),
     ("zamba2-prefill-4k", "prefill.step"),
